@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's yolo11n predict on one NVIDIA card and hold its
-CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's yolo11n predict and train step on one NVIDIA card
+and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -10,9 +10,9 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
 2. build: every kernel under ``deal_yolo_daya_tpu_torch/csrc`` is compiled
    (all nvcc processes at once) and ptxas' registers, shared memory and spills
    are printed;
-3. attention kernel vs plain: yolo11n's C2PSA shape (32 x 400 tokens, 2
+3. attention kernels vs plain: yolo11n's C2PSA shape (32 x 400 tokens, 2
    heads, key_dim 32, head_dim 64) and the ragged 35 and 1600 tokens, in bf16
-   and f32, at stated tolerances; ``v`` exact;
+   and f32, at stated tolerances, the forward (``v`` exact) and the backward;
 4. NMS kernel vs plain: dense class-offset scenes, B=32, K=1000, at iou 0.45
    and 0.7; the keep masks must be bit-identical;
 5. predict, the main path: ``YOLO("yolo11n", nc=80, imgsz=640)`` with random
@@ -27,7 +27,20 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    where one exists; predict's end-to-end img/s with the host letterbox and
    the device work apart;
 7. profile: one predict under torch.profiler, the device's busy share and the
-   kernels that take its time.
+   kernels that take its time;
+8. the train step, the second main path: ``TrainState`` for yolo11n, nc 80,
+   imgsz 640, batch 32, bf16 autocast, random weights from ``--seed``, takes
+   a few steps on numpy-made images with 2-8 boxes of 32-320 px each. The
+   launch counts are set to 0 just before and read just after (each step
+   must launch the attention forward and backward); every loss must be
+   finite; both kernels are held against their plain versions on the inputs
+   they got on that path;
+9. f32 with TF32 off, batch 4: every parameter gradient of a train step
+   through the kernels against the same step through the plain attention;
+10. times: the backward kernel at the train path's inputs, its plain
+   version, SDPA's backward alone, its bound; the train step's ms and img/s
+   (CUDA events, warm, median);
+11. profile: one train step under torch.profiler.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record and the last line the device record.
@@ -53,8 +66,22 @@ F32_FLOPS = 67e12
 # 1 div, 1 compare
 IOU_OPS = 14
 
-ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# attention forward, |kernel - plain| <= atol + rtol * |plain| elementwise:
+# bf16 P is rounded unnormalised in the kernel, so an output may land a bf16
+# step (2^-7 relative) from the plain version's
+ATTN_TOL = {"bfloat16": (2e-2, 2 ** -7), "float32": (1e-4, 0.0)}
 PRED_TOL = {"boxes_px": 1e-2, "scores": 1e-4}
+# attention backward, |kernel - plain| <= atol * max |plain| + rtol * |plain|
+# elementwise (cotangents have no fixed scale: on the train path they are
+# ~1e-3): in bf16 both round P, dS and d_qkv to bf16 from f32 sums taken in
+# other orders, so an element may land up to two bf16 steps (2^-7 relative)
+# apart
+BWD_TOL = {"bfloat16": (4e-3, 1.6e-2), "float32": (2e-5, 1e-4)}
+# f32 train-step gradients through the kernels vs through the plain
+# attention, per parameter: <= rtol * max |plain grad| + atol
+GRAD_TOL = (1e-3, 1e-6)
+TRAIN_STEPS = 4       # train steps on the main path
+TIMED_STEPS = 10      # warm train steps under CUDA events
 
 
 def check(cond: bool, msg: str) -> None:
@@ -117,6 +144,65 @@ def zero_class_bias(yolo) -> None:
             branch[2].bias.zero_()
 
 
+def make_train_batch(seed: int, batch: int, imgsz: int):
+    """u8 (B, S, S, 3) images of smooth colour fields plus noise with 2-8
+    boxes of 32-320 px each, painted in a colour of their class; GT padded to
+    8 as (B, 8, 4) xyxy pixels, (B, 8) classes of 80, (B, 8) mask."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    cells = imgsz // 16
+    base = rng.integers(0, 256, (batch, cells, cells, 3)).astype(np.int16)
+    images = np.repeat(np.repeat(base, 16, 1), 16, 2)
+    images = np.clip(images + rng.integers(-20, 21, images.shape), 0, 255).astype(np.uint8)
+    palette = rng.integers(0, 256, (80, 3)).astype(np.uint8)
+    boxes = np.zeros((batch, 8, 4), np.float32)
+    classes = np.zeros((batch, 8), np.int64)
+    mask = np.zeros((batch, 8), bool)
+    for i in range(batch):
+        for j in range(int(rng.integers(2, 9))):
+            w, h = (int(v) for v in rng.integers(32, 321, 2))
+            x, y = int(rng.integers(0, imgsz - w + 1)), int(rng.integers(0, imgsz - h + 1))
+            c = int(rng.integers(0, 80))
+            images[i, y:y + h, x:x + w] = palette[c]
+            boxes[i, j], classes[i, j], mask[i, j] = (x, y, x + w, y + h), c, True
+    return images, boxes, classes, mask
+
+
+def small_gt_batch(images, seed: int):
+    """GT of 8 boxes of 12-15 px per image, one in each of 8 distinct cells
+    of a 4 x 4 grid: each GT has fewer candidate anchors than the assigner's
+    top-k and no anchor lies in two GTs, so the assignment does not hang on
+    near-ties of its bf16 metric."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 2)
+    batch, imgsz = images.shape[0], images.shape[1]
+    cell = imgsz // 4
+    boxes = np.zeros((batch, 8, 4), np.float32)
+    classes = rng.integers(0, 80, (batch, 8))
+    for i in range(batch):
+        for j, c in enumerate(rng.permutation(16)[:8]):
+            w, h = (int(v) for v in rng.integers(12, 16, 2))
+            x = cell * (c % 4) + int(rng.integers(2, cell - 2 - w))
+            y = cell * (c // 4) + int(rng.integers(2, cell - 2 - h))
+            images[i, y:y + h, x:x + w] = 255 - images[i, y:y + h, x:x + w]
+            boxes[i, j] = (x, y, x + w, y + h)
+    return images, boxes, classes, np.ones((batch, 8), bool)
+
+
+def small_box_head(state_dict):
+    """Box-head biases that favour DFL bin 1: random-init boxes ~2.5 grid
+    units wide (20 px at stride 8), so that 12-15 px GTs get candidates."""
+    import torch
+
+    for i in range(3):
+        bias = torch.zeros((4, 16))
+        bias[:, 1] = 6.0
+        state_dict[f"23.cv2.{i}.2.bias"] = bias.reshape(-1)
+    return state_dict
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -169,15 +255,21 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references are true f32
     torch.backends.cudnn.allow_tf32 = False
 
+    def within_tol(got, ref, atol, rtol):
+        """(max |got - ref|, max of |got - ref| / (atol + rtol * |ref|))."""
+        diff = (got.float() - ref.float()).abs()
+        return diff.max().item(), (diff / (atol + rtol * ref.float().abs())).max().item()
+
     def attention_parity(label, qkv, a) -> float:
         out, v = aa.area_attention(qkv, *a)
         ref_out, ref_v = aa.area_attention_plain(qkv, *a)
         torch.cuda.synchronize()
-        err = (out.float() - ref_out.float()).abs().max().item()
-        tol = ATTN_TOL[str(qkv.dtype).split(".")[-1]]
+        atol, rtol = ATTN_TOL[str(qkv.dtype).split(".")[-1]]
+        err, worst = within_tol(out, ref_out, atol, rtol)
         log(f"[attention] {label} {tuple(qkv.shape)} {qkv.dtype}: max_abs_err {err:.3e} "
-            f"(tol {tol}), v exact {torch.equal(v, ref_v)}")
-        check(err <= tol, f"attention {label} {qkv.dtype} off by {err}")
+            f"(|plain| max {ref_out.float().abs().max().item():.2f}), {worst:.3f} of the "
+            f"tolerance atol {atol} + rtol {rtol} * |plain|, v exact {torch.equal(v, ref_v)}")
+        check(worst <= 1.0, f"attention {label} {qkv.dtype} off by {err}")
         check(torch.equal(v, ref_v), f"attention {label}: v passthrough differs")
         return err
 
@@ -198,6 +290,27 @@ def main() -> int:
         for dt in (torch.bfloat16, torch.float32):
             qkv = torch.randn((32, n, 256), generator=gen, device=dev).to(dt)
             attention_parity(f"random n={n}", qkv, (2, 64, 32))
+
+    def backward_parity(label, qkv, d_out, d_v, a) -> float:
+        got = aa.area_attention_bwd(qkv, d_out, d_v, *a)
+        ref = aa.area_attention_bwd_plain(qkv, d_out, d_v, *a)
+        torch.cuda.synchronize()
+        atol, rtol = BWD_TOL[str(qkv.dtype).split(".")[-1]]
+        scale = ref.float().abs().max().item()
+        err, worst = within_tol(got, ref, atol * scale, rtol)
+        log(f"[attention bwd] {label} {tuple(qkv.shape)} {qkv.dtype}: max_abs_err {err:.3e} "
+            f"(|plain| max {scale:.3e}), {worst:.3f} of the tolerance "
+            f"{atol} * max |plain| + {rtol} * |plain|")
+        check(torch.isfinite(got).all().item(), f"attention bwd {label}: non-finite d_qkv")
+        check(worst <= 1.0, f"attention bwd {label} {qkv.dtype} off by {err}")
+        return err
+
+    # 3b. attention backward kernel vs its plain version, the same shapes
+    for n in (400, 35, 1600):
+        for dt in (torch.bfloat16, torch.float32):
+            qkv, d_out, d_v = (torch.randn((32, n, c), generator=gen, device=dev).to(dt)
+                               for c in (256, 128, 128))
+            backward_parity(f"random n={n}", qkv, d_out, d_v, (2, 64, 32))
 
     # 4. NMS kernel vs its plain version: dense class-offset scenes
     rng = np.random.default_rng(args.seed)
@@ -349,32 +462,179 @@ def main() -> int:
     # 7. where the device time of the predict goes (torch.profiler)
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        yolo.predict(images, conf=0.001, batch_size=32)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernel_rows = sorted(
-        ((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
-        reverse=True)
-    busy_ms = sum(r[0] for r in kernel_rows) / 1e3
-    if kernel_rows:
-        log(f"[profile] predict of {len(images)} images under the profiler: wall "
-            f"{prof_wall_ms:.1f} ms, device busy {busy_ms:.2f} ms "
-            f"({100 * busy_ms / prof_wall_ms:.1f}%, idle {100 - 100 * busy_ms / prof_wall_ms:.1f}%)")
-        ours = [r for r in kernel_rows[15:] if "attention_" in r[2] or "nms_" in r[2]]
-        for dev_us, count, key in kernel_rows[:15] + ours:
+    def profiled(label, run, ours, top):
+        """Run ``run`` once under torch.profiler; log the device's busy share
+        and its ``top`` kernels, plus any later one whose name holds a word
+        of ``ours``. Returns (busy ms, wall ms)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = sorted(
+            ((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+            reverse=True)
+        busy = sum(r[0] for r in rows) / 1e3
+        if not rows:
+            log("[profile] the profiler recorded no device time")
+            return busy, wall
+        log(f"[profile] {label} under the profiler: wall {wall:.1f} ms, device busy "
+            f"{busy:.2f} ms ({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%)")
+        later = [r for r in rows[top:] if any(w in r[2] for w in ours)]
+        for dev_us, count, key in rows[:top] + later:
             log(f"[profile] {dev_us / 1e3:9.3f} ms {count:5d}x  {key[:100]}")
-    else:
-        log("[profile] the profiler recorded no device time")
+        return busy, wall
+
+    busy_ms, prof_wall_ms = profiled(f"predict of {len(images)} images",
+                                     lambda: yolo.predict(images, conf=0.001, batch_size=32),
+                                     ("attention_", "nms_"), 15)
+
+    # 8. train step, the second main path: yolo11n, nc 80, imgsz 640, batch
+    # 32, bf16 autocast over f32 parameters, on numpy-made images and GT
+    from deal_yolo_daya_tpu_torch.models.yolo11 import YOLO11, init_weights
+    from deal_yolo_daya_tpu_torch.train import TrainConfig, TrainState, bucket_gt
+
+    cfg = TrainConfig(model="yolo11n", imgsz=640, amp=True, seed=args.seed)
+    state = TrainState(cfg, nc=80, steps_per_epoch=100, device=dev)
+    imgs_np, boxes_np, cls_np, mask_np = make_train_batch(args.seed, 32, 640)
+    train_x = torch.from_numpy(imgs_np).to(dev)
+    train_gt = [torch.from_numpy(a).to(dev)
+                for a in bucket_gt(boxes_np, cls_np, mask_np, cfg.max_boxes)]
+    log(f"[train] batch {tuple(train_x.shape)} u8, GT per image {mask_np.sum(1).tolist()}, "
+        f"GT tensors {[tuple(t.shape) for t in train_gt]}")
+    train_rec = {"fwd": [], "bwd": []}
+
+    def rec_fwd(qkv, *a):
+        train_rec["fwd"].append((qkv.clone(), a))
+        return orig_fwd(qkv, *a)
+
+    def rec_bwd(qkv, d_out, d_v, *a):
+        train_rec["bwd"].append((qkv.clone(), d_out.clone(), d_v.clone(), a))
+        return orig_bwd(qkv, d_out, d_v, *a)
+
+    totals, per_step = [], []
+    with patched(aa, "area_attention_fwd", rec_fwd) as orig_fwd, \
+            patched(aa, "area_attention_bwd", rec_bwd) as orig_bwd:
+        aa.launches = 0
+        aa.bwd_launches = 0
+        for _ in range(TRAIN_STEPS):
+            before = (aa.launches, aa.bwd_launches)
+            totals.append(state.step(train_x, *train_gt))
+            per_step.append((aa.launches - before[0], aa.bwd_launches - before[1]))
+        torch.cuda.synchronize()
+        train_launches = {"area_attention": aa.launches, "area_attention_bwd": aa.bwd_launches}
+    losses = [t.item() for t in totals]
+    parts = {k: v.item() for k, v in state.loss_acc.items()}
+    for i, (loss, (nf, nb)) in enumerate(zip(losses, per_step)):
+        log(f"[train] step {i}: loss {loss:.5f}, attention launches forward {nf} backward {nb}")
+        check(nf >= 1 and nb >= 1, f"train step {i} did not launch both attention kernels")
+    log(f"[train] loss parts summed over {TRAIN_STEPS} steps {parts}, launches {train_launches}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(list(parts.values()))), "non-finite loss")
+    check(parts["num_fg"] > 0, "the assigner found no foreground")
+    # the kernels against their plain versions on the train path's own inputs
+    fwd_err_train = max(attention_parity(f"train-path call {i}", q, a)
+                        for i, (q, a) in enumerate(train_rec["fwd"]))
+    bwd_err_train = max(backward_parity(f"train-path call {i}", q, do, dv, a)
+                        for i, (q, do, dv, a) in enumerate(train_rec["bwd"]))
+
+    # 9. f32 with TF32 off, batch 4: every parameter gradient of one train
+    # step through the kernels against the same step through the plain
+    # attention, from the same weights
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = TrainConfig(model="yolo11n", imgsz=640, amp=False, seed=args.seed)
+    weights = small_box_head(init_weights(YOLO11(nc=80, scale="n"), args.seed).state_dict())
+    imgs4, *gt4 = small_gt_batch(imgs_np[:4].copy(), args.seed)
+    x4, gt4 = torch.from_numpy(imgs4).to(dev), [torch.from_numpy(a).to(dev) for a in gt4]
+
+    def f32_step():
+        st = TrainState(cfg32, nc=80, steps_per_epoch=100, device=dev, state_dict=weights)
+        before = aa.bwd_launches
+        st.step(x4, *gt4)
+        torch.cuda.synchronize()
+        return ({n: p.grad for n, p in st.model.named_parameters()},
+                {k: v.item() for k, v in st.loss_acc.items()}, aa.bwd_launches - before)
+
+    grads_k, parts_k, launched_k = f32_step()
+    with patched(blocks, "area_attention", aa.area_attention_plain):
+        grads_p, parts_p, launched_p = f32_step()
+    check(launched_k > 0 and launched_p == 0, "the f32 steps did not take the intended paths")
+    rtol, atol = GRAD_TOL
+    grad_worst = max(((g - grads_p[n]).abs().max().item()
+                      / (rtol * grads_p[n].abs().max().item() + atol), n)
+                     for n, g in grads_k.items())
+    log(f"[train f32] loss parts kernel {parts_k} plain {parts_p}; worst gradient "
+        f"{grad_worst[1]} at {grad_worst[0]:.3f} of the tolerance rtol {rtol} * max |grad| "
+        f"+ atol {atol}, over {len(grads_k)} parameters")
+    check(parts_k["num_fg"] == parts_p["num_fg"] > 0, "the f32 assignments differ")
+    check(grad_worst[0] <= 1.0, f"f32 gradient of {grad_worst[1]} differs between the paths")
+    torch.backends.cudnn.allow_tf32 = True
+
+    # 10. times: the backward kernel at the train path's inputs, its plain
+    # version, SDPA's backward alone, the bound; then the train step
+    qkv_b, do_b, dv_b, (heads, hd, kd) = train_rec["bwd"][0]
+    ba, n, _ = qkv_b.shape
+    ms = cuda_time_ms(lambda: aa.area_attention_bwd(qkv_b, do_b, dv_b, heads, hd, kd), 200)
+    plain_ms = cuda_time_ms(lambda: aa.area_attention_bwd_plain(qkv_b, do_b, dv_b, heads, hd, kd),
+                            20)
+    split = qkv_b.view(ba, n, heads, 2 * kd + hd)
+    q, k, v = (t.transpose(1, 2).contiguous().requires_grad_()
+               for t in (split[..., :kd], split[..., kd:2 * kd], split[..., 2 * kd:]))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    sdpa_grad = do_b.view(ba, n, heads, hd).transpose(1, 2).contiguous()
+    library_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(sdpa_out, (q, k, v), sdpa_grad, retain_graph=True), 200)
+    nbytes = (2 * qkv_b.numel() + do_b.numel() + dv_b.numel()) * qkv_b.element_size()
+    flops = 2.0 * ba * heads * n * n * (3 * kd + 2 * hd)  # QK^T, dP, dV, dQ, dK
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    kernels[0]["launches_train"] = train_launches["area_attention"]
+    kernels[0]["max_abs_err_train"] = fwd_err_train
+    kernels.append({
+        "name": "area_attention_bwd", "route": "cuda",
+        "source": "deal_yolo_daya_tpu_torch/csrc/area_attention_bwd.cu",
+        "replaces": "deal_yolo_daya_tpu/ops/pallas/area_attention.py:69",
+        "launches": train_launches["area_attention_bwd"], "max_abs_err": bwd_err_train,
+        "tol": BWD_TOL["bfloat16"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "shape": list(qkv_b.shape), "dtype": str(qkv_b.dtype),
+    })
+    log(f"[time] area_attention_bwd {tuple(qkv_b.shape)} {qkv_b.dtype}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} for {nbytes / 1e6:.2f} MB, ops "
+        f"{t_ops:.4f} for {flops / 1e9:.2f} GFLOP)")
+
+    for _ in range(2):
+        state.step(train_x, *train_gt)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(TIMED_STEPS):
+        state.step(train_x, *train_gt)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    wall_step_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))[TIMED_STEPS // 2]
+    log(f"[time] train step b32 imgsz 640 bf16: {step_ms:.2f} ms (median of {TIMED_STEPS}, CUDA "
+        f"events) = {32 / step_ms * 1e3:.1f} img/s; host wall {wall_step_ms:.2f} ms/step; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # 11. where the device time of one train step goes
+    train_busy_ms, train_prof_wall_ms = profiled(
+        "one train step", lambda: state.step(train_x, *train_gt), ("attention_", "bwd_"), 20)
+    train_record = {
+        "ms_per_step": step_ms, "imgs_per_s": 32 / step_ms * 1e3,
+        "host_wall_ms_per_step": wall_step_ms, "losses": losses,
+        "f32_grad_worst_of_tol": grad_worst[0], "profiled_device_busy_ms": train_busy_ms,
+        "profiled_wall_ms": train_prof_wall_ms,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "predict": {
         "imgs_per_s_e2e": len(images) / wall, "host_letterbox_ms_per_img": host_ms,
         "device_ms_per_b32": device_ms, "profiled_device_busy_ms": busy_ms,
-        "profiled_wall_ms": prof_wall_ms, "card": card}}), flush=True)
+        "profiled_wall_ms": prof_wall_ms, "card": card}, "train": train_record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,9 +5,11 @@ uses. Submodules carry the ultralytics ``DetectionModel`` names (``conv``,
 ``bn``, ``cv1``, ``m.0``, ``attn.qkv``, ``ffn.0`` ...), so a state dict in
 ultralytics layout loads with ``load_state_dict(strict=True)``.
 
-Convolutions pad symmetrically by k//2 and BatchNorm uses eps 1e-3, as in the
-JAX package. ``PSAAttention`` runs the area-attention kernel
-(``ops/kernels/area_attention.py``).
+Convolutions pad symmetrically by k//2 and BatchNorm uses eps 1e-3 and flax's
+momentum, as in the JAX package; ``model.train()`` and ``model.eval()`` switch
+BatchNorm between batch and running statistics. ``PSAAttention`` runs the
+area-attention kernels (``ops/kernels/area_attention.py``), forward and
+backward.
 """
 
 from __future__ import annotations
@@ -21,12 +23,20 @@ import torch.nn.functional as F
 from ..ops.kernels.area_attention import area_attention
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with eps 1e-3 and the ultralytics state-dict names
-    (weight, bias, running_mean, running_var; no ``num_batches_tracked``,
-    which the JAX export does not carry)."""
+    """BatchNorm with eps 1e-3 and the ultralytics state-dict names (weight,
+    bias, running_mean, running_var; no ``num_batches_tracked``, which the
+    JAX export does not carry).
+
+    In eval mode it normalises with the running statistics. In train mode it
+    is ``flax.linen.BatchNorm(momentum=0.97, epsilon=1e-3)``: it normalises
+    with the batch mean and the biased batch variance, and moves the running
+    statistics toward those same two (PyTorch's own training-mode
+    ``batch_norm`` would move ``running_var`` toward the unbiased variance).
+    The statistics are reduced in f32 whatever the input dtype."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -36,8 +46,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, training=False, eps=BN_EPS)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, eps=BN_EPS)
+        # no running statistics passed: the op leaves them alone and returns
+        # the batch mean and 1/sqrt(biased var + eps) it normalised with
+        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                  True, 0.0, BN_EPS)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(invstd.pow(-2) - BN_EPS,
+                                                    alpha=1 - BN_MOMENTUM)
+        return y
 
 
 class ConvBN(nn.Module):

@@ -6,6 +6,9 @@ submodules are named by their ultralytics ``DetectionModel.model[i]`` index
 has the ultralytics keys ("0.conv.weight", "23.cv3.0.2.bias", ...). The
 forward returns the raw per-level head outputs: box distributions
 [(B, 64, H, W)] and class logits [(B, nc, H, W)] for strides 8/16/32.
+``model.train()`` makes every BatchNorm normalise with batch statistics and
+update its running ones (the JAX ``train=True``); ``model.eval()`` uses the
+running ones.
 """
 
 from __future__ import annotations

@@ -6,6 +6,7 @@ same operation order, so f32 results agree with the JAX package.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -32,6 +33,39 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch
     area1 = (box1[..., 2] - box1[..., 0]) * (box1[..., 3] - box1[..., 1])
     area2 = (box2[..., 2] - box2[..., 0]) * (box2[..., 3] - box2[..., 1])
     return inter / (area1 + area2 - inter + eps)
+
+
+def bbox_ciou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Complete-IoU (elementwise, broadcasting): IoU - centre-dist/diag - alpha*v.
+
+    The aspect term runs in f32 whatever the input dtype (in bf16 its alpha
+    denominator v - iou + 1 underflows near perfect overlap), and alpha is a
+    constant trade-off coefficient: no gradient flows through it."""
+    iou = bbox_iou(box1, box2, eps)
+    cw = torch.maximum(box1[..., 2], box2[..., 2]) - torch.minimum(box1[..., 0], box2[..., 0])
+    ch = torch.maximum(box1[..., 3], box2[..., 3]) - torch.minimum(box1[..., 1], box2[..., 1])
+    c2 = cw ** 2 + ch ** 2 + eps
+    b1c = (box1[..., :2] + box1[..., 2:4]) / 2
+    b2c = (box2[..., :2] + box2[..., 2:4]) / 2
+    d = (b2c - b1c) ** 2
+    rho2 = d[..., 0] + d[..., 1]
+    f32 = torch.float32
+    w1 = (box1[..., 2] - box1[..., 0]).to(f32)
+    h1 = (box1[..., 3] - box1[..., 1]).to(f32)
+    w2 = (box2[..., 2] - box2[..., 0]).to(f32)
+    h2 = (box2[..., 3] - box2[..., 1]).to(f32)
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / (h2 + eps)) - torch.atan(w1 / (h1 + eps))) ** 2
+    with torch.no_grad():
+        alpha = v / torch.clamp(v - iou.to(f32) + (1 + eps), min=eps)
+    return iou - (rho2 / c2 + (alpha * v).to(iou.dtype))
+
+
+def bbox2dist(bbox: torch.Tensor, anchor_points: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """xyxy (grid units) -> (l, t, r, b) distances clamped to [0, reg_max - 1.01]
+    for the DFL targets."""
+    x1y1, x2y2 = bbox[..., :2], bbox[..., 2:4]
+    dist = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1)
+    return dist.clamp(0, reg_max - 1 - 0.01)
 
 
 def box_iou_matrix(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:

@@ -27,6 +27,7 @@ COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # per-source flags: the NMS IoU must round exactly as PyTorch's elementwise ops
 EXTRA: Dict[str, List[str]] = {
     "area_attention": [],
+    "area_attention_bwd": [],
     "nms_suppress": ["-fmad=false"],
 }
 

@@ -1,25 +1,31 @@
-"""Area attention: the CUDA kernel's wrapper and its plain PyTorch version.
+"""Area attention: the CUDA kernels' wrappers, their plain PyTorch versions,
+and the autograd Function that pairs forward and backward.
 
-Replaces the TPU kernel ``deal_yolo_daya_tpu/ops/pallas/area_attention.py::_kernel``
-(the forward; the backward is training and comes with the training step).
+Replaces the TPU kernels of ``deal_yolo_daya_tpu/ops/pallas/area_attention.py``:
+``_kernel`` (the forward, ``csrc/area_attention.cu``) and ``_bwd_kernel``
+(the backward, ``csrc/area_attention_bwd.cu``), which the JAX package pairs
+under a ``custom_vjp``.
 
-For each (batch x area) chunk and head it computes
+For each (batch x area) chunk and head the forward computes
 ``softmax(q k^T * key_dim**-0.5) v`` with f32 scores, and returns the
 contiguous per-head-concat ``v`` beside it for the positional-encoding conv.
+The backward takes the cotangents of both outputs and returns the gradient
+with respect to ``qkv``, recomputing P as the TPU kernel does: only ``qkv`` is
+saved for it.
 
-What bounds it on an H100: the bytes. At yolo11n's C2PSA shape (32 chunks of
-400 tokens, 2 heads, key_dim 32, head_dim 64, bf16) the function reads 6.6 MB
-and writes 6.6 MB but does only ~2 GFLOP. The TPU kernel held a chunk's whole
-(n, n) f32 score tile in VMEM; on Hopper that tile (640 KB) does not fit in a
-block's 227 KB of shared memory, so ``csrc/area_attention.cu`` streams key and
-value tiles with an online softmax: the (n, n) scores never reach device
-memory, and the ragged edge (n = 400 is not a multiple of the tile) is masked
-in the kernel. In bf16, Q.K^T and P.V run on the tensor cores (WMMA); in f32
-the kernel stays on the f32 CUDA cores, exact to the plain version's
-precision.
+What bounds them on an H100: the bytes. At yolo11n's C2PSA shape (32 chunks
+of 400 tokens, 2 heads, key_dim 32, head_dim 64, bf16) the forward moves
+13 MB for ~2 GFLOP and the backward 19.7 MB for ~4.6 GFLOP. The TPU kernels
+held a chunk's whole (n, n) f32 score tile in VMEM; on Hopper that tile
+(640 KB) does not fit in a block's 227 KB of shared memory, so both CUDA
+kernels stream tiles through shared memory and recompute scores: the (n, n)
+scores never reach device memory, and the ragged edge (n = 400 is not a
+multiple of the tile) is masked in the kernels. In bf16 the products run on
+the tensor cores (WMMA); in f32 the kernels stay on the f32 CUDA cores.
 
-``area_attention`` takes the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor; ``launches`` counts the kernel launches.
+``area_attention`` goes through ``AreaAttention`` on every device: the plain
+versions for a CPU tensor, the kernels for a CUDA tensor. ``launches`` and
+``bwd_launches`` count the kernel launches.
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ import torch
 from . import _build
 
 launches = 0
+bwd_launches = 0
 
-SUPPORTED = {(32, 64)}  # (key_dim, head_dim) pairs the kernel is built for
+SUPPORTED = {(32, 64)}  # (key_dim, head_dim) pairs the kernels are built for
 
 
 def _split(qkv: torch.Tensor, num_heads: int, head_dim: int, key_dim: int):
@@ -58,33 +65,58 @@ def area_attention_plain(qkv: torch.Tensor, num_heads: int, head_dim: int,
     return out.reshape(ba, n, dim).to(qkv.dtype), v.reshape(ba, n, dim)
 
 
-def area_attention(qkv: torch.Tensor, num_heads: int, head_dim: int,
-                   key_dim: Optional[int] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """qkv (BA, n, heads*(2*key_dim+head_dim)), per-head interleaved q|k|v
-    -> (out, v), each (BA, n, heads*head_dim). key_dim defaults to head_dim."""
+def area_attention_bwd_plain(qkv: torch.Tensor, d_out: torch.Tensor, d_v: torch.Tensor,
+                             num_heads: int, head_dim: int,
+                             key_dim: Optional[int] = None) -> torch.Tensor:
+    """The TPU backward kernel's arithmetic in PyTorch ops: P recomputed in
+    f32; dV = P(in the input dtype)^T dO + dvo; dP = dO V^T;
+    dS = P * (dP - rowsum(dP * P)) * scale, cast to the input dtype;
+    dQ = dS K and dK = dS^T Q accumulated in f32; written as interleaved
+    q|k|v columns like ``qkv``."""
     key_dim = head_dim if key_dim is None else key_dim
-    if qkv.device.type == "cpu":
-        return area_attention_plain(qkv, num_heads, head_dim, key_dim)
+    ba, n, total = qkv.shape
+    dt, f32 = qkv.dtype, torch.float32
+    q, k, v = (t.float() for t in _split(qkv, num_heads, head_dim, key_dim))
+    do = d_out.reshape(ba, n, num_heads, head_dim).float()
+    dvo = d_v.reshape(ba, n, num_heads, head_dim).float()
+    scale = torch.tensor(key_dim ** -0.5, dtype=f32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).to(f32), do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = (ds * scale).to(dt).to(f32)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return torch.cat([dq, dk, dv + dvo], dim=-1).to(dt).reshape(ba, n, total)
+
+
+def _check(qkv: torch.Tensor, num_heads: int, head_dim: int, key_dim: int,
+           what: str) -> None:
     if qkv.device.type != "cuda":
-        raise ValueError(f"area_attention: no kernel for device {qkv.device}")
+        raise ValueError(f"{what}: no kernel for device {qkv.device}")
     if qkv.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"area_attention: dtype {qkv.dtype} (float32 or bfloat16)")
+        raise ValueError(f"{what}: dtype {qkv.dtype} (float32 or bfloat16)")
     if (key_dim, head_dim) not in SUPPORTED:
-        raise ValueError(f"area_attention: (key_dim, head_dim)={(key_dim, head_dim)} "
+        raise ValueError(f"{what}: (key_dim, head_dim)={(key_dim, head_dim)} "
                          f"not in {sorted(SUPPORTED)}")
     if qkv.dim() != 3 or qkv.shape[2] != num_heads * (2 * key_dim + head_dim):
-        raise ValueError(f"area_attention: qkv shape {tuple(qkv.shape)} does not "
+        raise ValueError(f"{what}: qkv shape {tuple(qkv.shape)} does not "
                          f"match {num_heads} heads of {key_dim}|{key_dim}|{head_dim}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("area_attention: qkv must be contiguous and 16-byte aligned")
+        raise ValueError(f"{what}: qkv must be contiguous and 16-byte aligned")
+
+
+def area_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int, key_dim: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel on a CUDA ``qkv`` -> (out, v)."""
+    _check(qkv, num_heads, head_dim, key_dim, "area_attention")
     ba, n, _ = qkv.shape
     out = torch.empty((ba, n, num_heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     v = torch.empty_like(out)
     if ba == 0 or n == 0:
         return out, v
-    lib = _build.load("area_attention")
-    fn = lib.area_attention_fwd
+    fn = _build.load("area_attention").area_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -97,3 +129,79 @@ def area_attention(qkv: torch.Tensor, num_heads: int, head_dim: int,
     global launches
     launches += 1
     return out, v
+
+
+def area_attention_bwd(qkv: torch.Tensor, d_out: torch.Tensor, d_v: torch.Tensor,
+                       num_heads: int, head_dim: int, key_dim: int) -> torch.Tensor:
+    """Launch the backward kernel on CUDA tensors -> d_qkv like ``qkv``.
+    ``d_out`` and ``d_v`` are (BA, n, heads*head_dim), contiguous, in
+    ``qkv``'s dtype."""
+    _check(qkv, num_heads, head_dim, key_dim, "area_attention_bwd")
+    ba, n, _ = qkv.shape
+    for name, t in (("d_out", d_out), ("d_v", d_v)):
+        if (t.shape != (ba, n, num_heads * head_dim) or t.dtype != qkv.dtype
+                or t.device != qkv.device or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"area_attention_bwd: {name} {tuple(t.shape)} {t.dtype} "
+                             f"must be a contiguous, 16-byte aligned "
+                             f"{(ba, n, num_heads * head_dim)} {qkv.dtype} tensor "
+                             f"on {qkv.device}")
+    d_qkv = torch.empty_like(qkv)
+    if ba == 0 or n == 0:
+        return d_qkv
+    # per query row: softmax max, denominator and rowsum(dP * P), f32
+    stats = torch.empty((3, ba, num_heads, n), dtype=torch.float32, device=qkv.device)
+    fn = _build.load("area_attention_bwd").area_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(qkv.data_ptr(), d_out.data_ptr(), d_v.data_ptr(), d_qkv.data_ptr(),
+                 stats.data_ptr(), ba, n, num_heads, key_dim, head_dim, key_dim ** -0.5,
+                 int(qkv.dtype == torch.bfloat16), stream)
+    _build.check(err, "area_attention_bwd launch")
+    global bwd_launches
+    bwd_launches += 1
+    return d_qkv
+
+
+class AreaAttention(torch.autograd.Function):
+    """Differentiable area attention: the kernels on a CUDA tensor, the plain
+    versions on a CPU tensor. Saves only ``qkv``, as the TPU VJP does."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, head_dim, key_dim):
+        ctx.save_for_backward(qkv)
+        ctx.dims = (num_heads, head_dim, key_dim)
+        ctx.set_materialize_grads(False)
+        if qkv.device.type == "cpu":
+            with torch.autocast("cpu", enabled=False):  # the dtypes are the kernel's
+                return area_attention_plain(qkv, num_heads, head_dim, key_dim)
+        return area_attention_fwd(qkv, num_heads, head_dim, key_dim)
+
+    @staticmethod
+    def backward(ctx, d_out, d_v):
+        (qkv,) = ctx.saved_tensors
+        num_heads, head_dim, key_dim = ctx.dims
+        shape = (qkv.shape[0], qkv.shape[1], num_heads * head_dim)
+        # the cotangents come through PSAAttention's permute: make them
+        # contiguous; an output that reached no loss has none
+        d_out, d_v = (torch.zeros(shape, dtype=qkv.dtype, device=qkv.device) if d is None
+                      else d.to(qkv.dtype).contiguous() for d in (d_out, d_v))
+        if qkv.device.type == "cpu":
+            d_qkv = area_attention_bwd_plain(qkv, d_out, d_v, num_heads, head_dim, key_dim)
+        else:
+            d_qkv = area_attention_bwd(qkv, d_out, d_v, num_heads, head_dim, key_dim)
+        return d_qkv, None, None, None
+
+
+def area_attention(qkv: torch.Tensor, num_heads: int, head_dim: int,
+                   key_dim: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """qkv (BA, n, heads*(2*key_dim+head_dim)), per-head interleaved q|k|v
+    -> (out, v), each (BA, n, heads*head_dim). key_dim defaults to head_dim.
+    Differentiable with respect to ``qkv``."""
+    key_dim = head_dim if key_dim is None else key_dim
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"area_attention: no kernel for device {qkv.device}")
+    return AreaAttention.apply(qkv, num_heads, head_dim, key_dim)

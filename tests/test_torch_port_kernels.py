@@ -43,6 +43,103 @@ def test_area_attention_plain_bf16_rounds_p_like_the_kernel():
     np.testing.assert_array_equal(v.float().numpy(), np.asarray(jv, np.float32))
 
 
+def _bwd_inputs(seed, ba, n, heads, kd, hd):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(0, 1, (ba, n, heads * (2 * kd + hd))).astype(np.float32)
+    d_out, d_v = rng.normal(0, 1, (2, ba, n, heads * hd)).astype(np.float32)
+    return qkv, d_out, d_v
+
+
+# bf16: both sides round P, dS and the result to bf16, from f32 sums taken in
+# other orders, so an element may land a bf16 step (2^-8 relative) apart
+BWD_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=1.6e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ba,n,heads,kd,hd", [(2, 35, 2, 32, 64), (3, 20, 1, 8, 16)])
+def test_area_attention_bwd_plain_matches_jax_vjp(ba, n, heads, kd, hd, dtype):
+    qkv, d_out, d_v = _bwd_inputs(3, ba, n, heads, kd, hd)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda q: jax_area_attention(q, heads, hd, key_dim=kd, interpret=True),
+                     jnp.asarray(qkv, jdt))
+    (want,) = vjp((jnp.asarray(d_out, jdt), jnp.asarray(d_v, jdt)))
+    before = aa_mod.bwd_launches
+    got = aa_mod.area_attention_bwd_plain(torch.from_numpy(qkv).to(tdt),
+                                          torch.from_numpy(d_out).to(tdt),
+                                          torch.from_numpy(d_v).to(tdt), heads, hd, kd)
+    assert aa_mod.bwd_launches == before
+    assert got.dtype == tdt and got.shape == qkv.shape
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_area_attention_function_grad_matches_autograd_of_plain(dtype):
+    """On the CPU the autograd Function runs area_attention_bwd_plain; its
+    gradient equals torch autograd through area_attention_plain."""
+    qkv, d_out, d_v = (torch.from_numpy(a).to(dtype) for a in _bwd_inputs(4, 2, 35, 2, 32, 64))
+    x = qkv.clone().requires_grad_()
+    out, v = area_attention(x, 2, 64, 32)
+    (got,) = torch.autograd.grad((out.float() * d_out.float()).sum()
+                                 + (v.float() * d_v.float()).sum(), x)
+    y = qkv.clone().requires_grad_()
+    out, v = aa_mod.area_attention_plain(y, 2, 64, 32)
+    (want,) = torch.autograd.grad((out.float() * d_out.float()).sum()
+                                  + (v.float() * d_v.float()).sum(), y)
+    tol = BWD_TOL["float32" if dtype == torch.float32 else "bfloat16"]
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **tol)
+
+
+def test_area_attention_output_is_differentiable():
+    """The wrapper's outputs come from the autograd Function, so a backward
+    reaches qkv (and everything before it) through the kernel path."""
+    x = torch.randn(1, 9, 128, requires_grad=True)
+    out, v = area_attention(x, 1, 64, 32)
+    assert type(out.grad_fn).__name__ == type(v.grad_fn).__name__ == "AreaAttentionBackward"
+    out.sum().backward()
+    assert x.grad is not None and float(x.grad.abs().sum()) > 0
+
+
+def test_area_attention_grad_through_one_output():
+    """An output that reaches no loss has no cotangent: it counts as zeros."""
+    qkv, d_out, _ = _bwd_inputs(5, 2, 12, 2, 32, 64)
+    x = torch.from_numpy(qkv).requires_grad_()
+    out, _ = area_attention(x, 2, 64, 32)
+    (out * torch.from_numpy(d_out)).sum().backward()
+    want = aa_mod.area_attention_bwd_plain(torch.from_numpy(qkv), torch.from_numpy(d_out),
+                                           torch.zeros_like(torch.from_numpy(d_out)), 2, 64, 32)
+    np.testing.assert_allclose(x.grad.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    assert float(x.grad[..., 64:128].abs().max()) > 0  # v gets its gradient through out
+
+
+def test_psa_attention_gradients_match_jax():
+    """PSAAttention's input and weight gradients through the port's Function
+    against jax.grad through the Pallas kernel's custom VJP (interpret mode)."""
+    rng = np.random.default_rng(6)
+    x = rng.normal(0, 1, (2, 5, 7, 128)).astype(np.float32)
+    w = rng.normal(0, 1, x.shape).astype(np.float32)
+    mod = jax_blocks.PSAAttention(128, 2, attn_ratio=0.5)
+    variables = mod.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    saved = jax_blocks.AATTN_PALLAS
+    jax_blocks.AATTN_PALLAS = True
+    try:
+        jgx, jgp = jax.grad(lambda xx, p: jnp.sum(mod.apply(
+            {"params": p, "batch_stats": variables["batch_stats"]}, xx) * w), argnums=(0, 1))(
+                jnp.asarray(x), variables["params"])
+    finally:
+        jax_blocks.AATTN_PALLAS = saved
+    port = PSAAttention(128, 2, attn_ratio=0.5).eval()
+    port.load_state_dict(_psa_state_dict(variables), strict=True)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    (port(xt) * torch.from_numpy(w).permute(0, 3, 1, 2)).sum().backward()
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(jgx),
+                               rtol=1e-4, atol=1e-4)
+    want = _psa_state_dict({"params": jgp, "batch_stats": {}})
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(want[name].abs().max()), err_msg=name)
+
+
 def _psa_state_dict(tree):
     """JAX PSAAttention params/batch_stats -> the port module's state dict."""
     leaf = {"kernel": "weight", "scale": "weight", "bias": "bias",

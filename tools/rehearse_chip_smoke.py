@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Rehearse ``chip_smoke.py``'s control flow on a machine without a CUDA card.
+
+    python3 tools/rehearse_chip_smoke.py
+
+Runs the smoke's every phase end to end on the CPU at small sizes: the
+sizes in its source are cut down by the replacements below, the kernel
+wrappers are routed to their plain PyTorch versions (counting launches as
+the kernels would), and the CUDA-only calls (events, synchronize, the card's
+name, ``nvidia-smi``) are stubbed. It finds wrong paths, arguments, shapes
+and control flow; it measures nothing. A replacement whose text is no longer
+in the smoke fails loudly: update it with the smoke.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# (text in chip_smoke.py, its rehearsal size)
+REPLACEMENTS = [
+    ('torch.device("cuda")', 'torch.device("cpu")'),
+    ("(32, n, 256)", "(2, n, 256)"),
+    ("(32, n, c)", "(2, n, c)"),
+    ("for n in (400, 35, 1600):", "for n in (40, 35, 70):"),
+    ("(32, 1000", "(2, 1000"),
+    ("make_images(args.seed, 64)", "make_images(args.seed, 6)"),
+    ("imgsz=640", "imgsz=128"),
+    ("(640, 640)", "(128, 128)"),
+    ("letterbox_numpy(im, 640)", "letterbox_numpy(im, 128)"),
+    ("batch_size=32", "batch_size=4"),
+    ("images[:32]", "images[:4]"),
+    ("check(yolo.dtype == torch.bfloat16", "check(True"),
+    ("make_train_batch(args.seed, 32, 640)", "make_train_batch(args.seed, 2, 128)"),
+    ("rng.integers(32, 321, 2)", "rng.integers(20, 64, 2)"),
+    ("TIMED_STEPS = 10", "TIMED_STEPS = 2"),
+    ("TRAIN_STEPS = 4", "TRAIN_STEPS = 2"),
+    ('YOLO("yolo11n", nc=80, imgsz=128, seed=args.seed)',
+     'YOLO("yolo11n", nc=80, imgsz=128, seed=args.seed, device="cpu")'),
+    ("seed=args.seed, dtype=torch.float32)", 'seed=args.seed, dtype=torch.float32, device="cpu")'),
+    ("ProfilerActivity.CPU, ProfilerActivity.CUDA", "ProfilerActivity.CPU"),
+    (", 200)", ", 2)"), (", 50)", ", 2)"), (", 20)", ", 2)"), (", 10)", ", 2)"),
+]
+
+
+class _Event:
+    """torch.cuda.Event on the host clock."""
+
+    def __init__(self, **_):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def _stub_cuda(torch):
+    torch.cuda.is_available = lambda: True
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.device_count = lambda: 1
+    torch.cuda.get_device_name = lambda *a: "CPU rehearsal"
+    torch.cuda.max_memory_allocated = lambda *a: 0
+    torch.cuda.Event = _Event
+    run = subprocess.run
+
+    def fake_run(cmd, **kwargs):
+        if cmd[0] == "nvidia-smi":
+            return types.SimpleNamespace(stdout="CPU rehearsal, 0 W\n")
+        return run(cmd, **kwargs)
+
+    subprocess.run = fake_run
+
+
+def _route_kernels_to_plain(torch):
+    """Each wrapper runs its plain version and counts a launch; the autograd
+    Function goes through the wrappers as it does for a CUDA tensor."""
+    from deal_yolo_daya_tpu_torch.ops import nms as nms_ops
+    from deal_yolo_daya_tpu_torch.ops.kernels import _build
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
+
+    _build.build = lambda *a, **k: {}
+
+    def fwd(qkv, *a):
+        aa.launches += 1
+        return aa.area_attention_plain(qkv, *a)
+
+    def bwd(qkv, d_out, d_v, *a):
+        aa.bwd_launches += 1
+        return aa.area_attention_bwd_plain(qkv, d_out, d_v, *a)
+
+    def suppress(boxes, valid, thr):
+        ns.launches += 1
+        return ns.nms_suppress_plain(boxes, valid, thr)
+
+    class AreaAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, qkv, num_heads, head_dim, key_dim):
+            ctx.save_for_backward(qkv)
+            ctx.dims = (num_heads, head_dim, key_dim)
+            with torch.autocast("cpu", enabled=False):
+                return aa.area_attention_fwd(qkv, num_heads, head_dim, key_dim)
+
+        @staticmethod
+        def backward(ctx, d_out, d_v):
+            (qkv,) = ctx.saved_tensors
+            d_out, d_v = (d.to(qkv.dtype).contiguous() for d in (d_out, d_v))
+            return aa.area_attention_bwd(qkv, d_out, d_v, *ctx.dims), None, None, None
+
+    aa.area_attention_fwd, aa.area_attention_bwd = fwd, bwd
+    aa.AreaAttention = AreaAttention
+    ns.nms_suppress = nms_ops.nms_suppress = suppress
+
+
+def main() -> int:
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    smoke = ROOT / "chip_smoke.py"
+    src = smoke.read_text()
+    for old, new in REPLACEMENTS:
+        if old not in src:
+            raise SystemExit(f"rehearse_chip_smoke: {old!r} is no longer in chip_smoke.py")
+        src = src.replace(old, new)
+    _stub_cuda(torch)
+    _route_kernels_to_plain(torch)
+    namespace = {"__name__": "chip_smoke_rehearsal", "__file__": str(smoke)}
+    exec(compile(src, str(smoke), "exec"), namespace)
+    sys.argv = [str(smoke)]
+    t0 = time.perf_counter()
+    rc = namespace["main"]()
+    print(f"rehearsal exit {rc} in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
