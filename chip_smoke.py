@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's yolo11n predict and train step on one NVIDIA card
-and hold its CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's yolo11n predict, train step and Trainer on one
+NVIDIA card and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -40,7 +40,29 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
 10. times: the backward kernel at the train path's inputs, its plain
    version, SDPA's backward alone, its bound; the train step's ms and img/s
    (CUDA events, warm, median);
-11. profile: one train step under torch.profiler.
+11. profile: one train step under torch.profiler;
+12. the Trainer, the third main path: a shapes dataset (circles, squares,
+   triangles; 256 train and 64 val PNG sources of 480-800 px on the long
+   side, written with numpy and zlib into a temporary directory) trained by
+   ``Trainer(TrainConfig(model="yolo11n", imgsz=640, batch=32, epochs=3,
+   close_mosaic=1, cache="device", device_augment=True, amp=True))`` from
+   random weights. The launch counts are set to 0 just before ``train()``
+   and read just after: the attention forward once a train step and a
+   validation batch, the backward once a train step, NMS once a validation
+   batch. Checks: finite losses, results.csv's 3 rows of 15 columns,
+   ``weights/last.pt`` reloading bit for bit, and ``YOLO(best.pt)`` detecting
+   on a val batch what validation's EMA model detects (f32). Per epoch: wall,
+   train img/s, augment and step ms (CUDA events), val ms a batch, host
+   metric ms; the device cache's build time; one more epoch under
+   torch.profiler;
+13. score_reduce: the kernel on the class logits the predict and validation
+   paths handed to decode (bf16, and an f32 copy), in both thread mappings,
+   and on crafted rows (exact ties, rows of -inf or -3e38, 37 classes),
+   against its plain version: classes and scores bit-identical. Against
+   batched_nms' sigmoid-then-argmax on the same logits, every differing
+   class must be a tie of f32 sigmoids. Times: kernel, plain, torch.max with
+   sigmoid, bound. No path calls the kernel: like the JAX package, NMS
+   reduces sigmoid scores.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record and the last line the device record.
@@ -82,6 +104,16 @@ BWD_TOL = {"bfloat16": (4e-3, 1.6e-2), "float32": (2e-5, 1e-4)}
 GRAD_TOL = (1e-3, 1e-6)
 TRAIN_STEPS = 4       # train steps on the main path
 TIMED_STEPS = 10      # warm train steps under CUDA events
+# score_reduce vs its plain version: classes exact, and scores exact too (the
+# kernel applies torch.sigmoid's CUDA formula, 1 / (1 + expf(-m)), to the same
+# f32 max)
+SCORE_TOL = 0.0
+# the Trainer phase: a synthetic shapes dataset of mixed-size PNG sources
+TRAINER_IMAGES = (256, 64)   # train, val
+TRAINER_SIDES = (480, 801)   # long side of a source, px
+TRAINER_BATCH = 32
+TRAINER_EPOCHS = 3           # close_mosaic 1: mosaic in epochs 1-2, off in 3
+SHAPES = ["circle", "square", "triangle"]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -203,6 +235,122 @@ def small_box_head(state_dict):
     return state_dict
 
 
+def shapes_sample(seed: int, split: str, i: int):
+    """One source of the shapes dataset (tools/synth_dataset.py's content,
+    drawn with numpy): a noisy background of random size, 480-800 px on the
+    long side, with 1-4 circles, squares and triangles -> (RGB u8 image,
+    label lines)."""
+    import numpy as np
+
+    rng = np.random.default_rng((seed, len(split), i))
+    lo, hi = TRAINER_SIDES
+    long = int(rng.integers(lo, hi))
+    short = int(long * rng.uniform(0.6, 1.0))
+    h, w = (long, short) if rng.random() < 0.5 else (short, long)
+    img = rng.integers(30, 120, 3) + rng.normal(0, 18, (h, w, 3))
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    colours = [(220, 60, 60), (60, 200, 80), (70, 90, 230)]
+    lines, placed = [], []
+    for _ in range(int(rng.integers(1, 5))):
+        c = int(rng.integers(0, 3))
+        r = int(rng.integers(min(h, w) // 14, min(h, w) // 5))
+        cx, cy = int(rng.integers(r + 2, w - r - 2)), int(rng.integers(r + 2, h - r - 2))
+        if any(max(0, min(cx + r, x2) - max(cx - r, x1)) * max(0, min(cy + r, y2) - max(cy - r, y1))
+               >= 0.3 * (2 * r) ** 2 for x1, y1, x2, y2 in placed):
+            continue
+        yy, xx = np.mgrid[cy - r:cy + r + 1, cx - r:cx + r + 1]
+        if c == 0:
+            inside = (xx - cx) ** 2 + (yy - cy) ** 2 <= r * r
+        elif c == 1:
+            inside = np.ones_like(xx, bool)
+        else:  # apex at the top, base at the bottom
+            inside = 2 * np.abs(xx - cx) <= yy - (cy - r)
+        colour = np.clip(np.array(colours[c]) + rng.integers(-25, 25, 3), 0, 255)
+        img[cy - r:cy + r + 1, cx - r:cx + r + 1][inside] = colour
+        placed.append((cx - r, cy - r, cx + r, cy + r))
+        lines.append(f"{c} {cx / w:.6f} {cy / h:.6f} {2 * r / w:.6f} {2 * r / h:.6f}")
+    return img, lines
+
+
+def write_shapes_dataset(root: Path, seed: int) -> Path:
+    """TRAINER_IMAGES sources in the YOLO layout, as PNG through zlib, with a
+    data.yaml of the three classes."""
+    import concurrent.futures as cf
+
+    import yaml
+
+    from deal_yolo_daya_tpu_torch.ops.png import write_png
+
+    def one(job):
+        split, i = job
+        img, lines = shapes_sample(seed, split, i)
+        write_png(root / "images" / split / f"{i:05d}.png", img)
+        (root / "labels" / split / f"{i:05d}.txt").write_text("\n".join(lines))
+
+    jobs = []
+    for split, n in zip(("train", "val"), TRAINER_IMAGES):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        jobs += [(split, i) for i in range(n)]
+    with cf.ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, jobs))
+    data_yaml = root / "data.yaml"
+    data_yaml.write_text(yaml.safe_dump({"path": str(root), "train": "images/train",
+                                         "val": "images/val", "nc": 3, "names": SHAPES},
+                                        sort_keys=False))
+    return data_yaml
+
+
+def widest_gap(values, lo: float, hi: float):
+    """The middle of the widest gap between consecutive values in [lo, hi]:
+    a value that moves by less than half the gap cannot cross it.
+    -> (threshold, gap)"""
+    import torch
+
+    v = torch.sort(values[(values >= lo) & (values <= hi)].flatten()).values
+    v = torch.cat([v.new_tensor([lo]), v, v.new_tensor([hi])])
+    gaps = v[1:] - v[:-1]
+    i = int(gaps.argmax())
+    return float((v[i] + v[i + 1]) / 2), float(gaps[i])
+
+
+def nms_thresholds(boxes, scores, lo_rank: int, hi_rank: int):
+    """Thresholds at which class-agnostic greedy NMS does not hang on f32
+    noise: conf in the widest gap between the best-class scores of ranks
+    lo_rank..hi_rank, and iou in the widest gap between the candidates' IoUs
+    in [0.6, 0.8]. -> (conf, conf gap, iou, iou gap)"""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.boxes import box_iou_matrix
+
+    best = scores.amax(-1)
+    top = torch.sort(best.flatten(), descending=True).values
+    conf, conf_gap = widest_gap(top[lo_rank:hi_rank + 1], float(top[hi_rank]), float(top[lo_rank]))
+    ious = []
+    for b, s in zip(boxes, best):
+        keep = s > conf
+        ious.append(box_iou_matrix(b[keep], b[keep]).triu(1).flatten())
+    iou, iou_gap = widest_gap(torch.cat(ious), 0.6, 0.8)
+    return conf, conf_gap, iou, iou_gap
+
+
+def nms_order_flips(boxes, scores, other_scores, conf: float, iou: float):
+    """Per image, whether two candidates that overlap beyond iou come in one
+    order by ``scores`` and in the other by ``other_scores``: greedy NMS
+    keeps whichever comes first, so the two may keep different boxes."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.boxes import box_iou_matrix
+
+    flags = []
+    for b, s, o in zip(boxes, scores.amax(-1), other_scores.amax(-1)):
+        keep = s > conf
+        sk, ok = s[keep], o[keep]
+        flip = torch.sign(sk[:, None] - sk[None, :]) != torch.sign(ok[:, None] - ok[None, :])
+        flags.append(bool((flip & (box_iou_matrix(b[keep], b[keep]) > iou)).triu(1).any()))
+    return flags
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -222,13 +370,15 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from deal_yolo_daya_tpu_torch import api
     from deal_yolo_daya_tpu_torch.api import YOLO
     from deal_yolo_daya_tpu_torch.models import blocks
     from deal_yolo_daya_tpu_torch.ops import nms as nms_ops
-    from deal_yolo_daya_tpu_torch.ops.decode import decode_predictions
+    from deal_yolo_daya_tpu_torch.ops.decode import decode_predictions, flatten_levels
     from deal_yolo_daya_tpu_torch.ops.kernels import _build
     from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
     from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
+    from deal_yolo_daya_tpu_torch.ops.kernels import score_reduce as sr
     from deal_yolo_daya_tpu_torch.ops.letterbox import letterbox_numpy
 
     dev = torch.device("cuda")
@@ -328,6 +478,15 @@ def main() -> int:
     check(yolo.dtype == torch.bfloat16, "predict on the card must default to bf16")
     zero_class_bias(yolo)
     recorded = {"attn": [], "nms": []}
+    # the class logits each path hands to decode, (B, A, nc) as flatten_levels
+    # makes them: score_reduce's inputs in phase 13
+    logits_rec = {"predict": [], "validation": []}
+
+    def logits_recorder(key, decode):
+        def run(box, cls, *a, **k):
+            logits_rec[key].append(flatten_levels(box, cls)[1].clone())
+            return decode(box, cls, *a, **k)
+        return run
 
     def rec_attention(qkv, *a):
         recorded["attn"].append((qkv.clone(), a))
@@ -338,15 +497,19 @@ def main() -> int:
         return orig_suppress(boxes, valid, thr)
 
     with patched(blocks, "area_attention", rec_attention) as orig_attention, \
-            patched(nms_ops, "nms_suppress", rec_suppress) as orig_suppress:
+            patched(nms_ops, "nms_suppress", rec_suppress) as orig_suppress, \
+            patched(api, "decode_predictions",
+                    logits_recorder("predict", api.decode_predictions)):
         aa.launches = 0
         ns.launches = 0
+        sr.launches = 0
         results = yolo.predict(images, conf=0.001, batch_size=32)
         torch.cuda.synchronize()
-        launches = {"area_attention": aa.launches, "nms_suppress": ns.launches}
+        launches = {"area_attention": aa.launches, "nms_suppress": ns.launches,
+                    "score_reduce (not on the path)": sr.launches}
     log(f"[predict] {len(results)} images, launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    for name in ("area_attention", "nms_suppress"):
+        check(launches[name] > 0, f"{name} was not launched on the main path")
     check(len(results) == len(images), "predict lost images")
     n_det = [len(d) for d in results]
     for d in results:
@@ -628,13 +791,380 @@ def main() -> int:
         "f32_grad_worst_of_tol": grad_worst[0], "profiled_device_busy_ms": train_busy_ms,
         "profiled_wall_ms": train_prof_wall_ms,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+
+    # 12. the Trainer, the third main path: yolo11n on a synthetic shapes
+    # dataset of mixed-size PNG sources written here, 3 epochs at imgsz 640,
+    # batch 32, bf16, the dataset on the card and augmented there, validation
+    # after each epoch, results.csv and checkpoints
+    import dataclasses
+    import tempfile
+
+    from deal_yolo_daya_tpu_torch.train import metrics as metrics_mod
+    from deal_yolo_daya_tpu_torch.train import trainer as trainer_mod
+    from deal_yolo_daya_tpu_torch.train.device_augment import step_seed
+    from deal_yolo_daya_tpu_torch.train.trainer import (TrainConfig as FullConfig, Trainer,
+                                                        inference_state_dict, load_checkpoint)
+
+    del state, train_x, train_gt, grads_k, grads_p
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    data_yaml = write_shapes_dataset(root / "shapes", args.seed)
+    write_s = time.perf_counter() - t0
+    log(f"[trainer] wrote {TRAINER_IMAGES} PNG sources, {TRAINER_SIDES[0]}-"
+        f"{TRAINER_SIDES[1] - 1} px on the long side, in {write_s:.1f} s")
+    tcfg = FullConfig(model="yolo11n", data=str(data_yaml), imgsz=640, batch=TRAINER_BATCH,
+                      epochs=TRAINER_EPOCHS, close_mosaic=1, cache="device",
+                      device_augment=True, amp=True, seed=args.seed, device="0",
+                      project=str(root / "runs"), name="smoke")
+    trainer = Trainer(tcfg)
+    check(trainer.device == dev and trainer.nc == 3, "the Trainer is not on the card")
+
+    # instrumentation: CUDA events around each augment and step, host clocks
+    # around validation, the host metrics and the checkpoints; an epoch starts
+    # when it asks for its batches and ends at its results.csv row, before its
+    # checkpoints
+    clocks = {"augment": [], "step": [], "val_s": [], "metric_s": [0.0], "ckpt_s": [0.0],
+              "starts": [], "rows": []}
+
+    def cuda_timed(fn, sink):
+        def run(*a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            clocks[sink].append((start, end))
+            return out
+        return run
+
+    def host_timed(fn, sink, add=False):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if add:
+                clocks[sink][-1] += time.perf_counter() - t
+            else:
+                clocks[sink].append(time.perf_counter() - t)
+            return out
+        return run
+
+    def row_mark(fn):
+        def run(row):
+            clocks["rows"].append((time.perf_counter(), len(clocks["augment"]),
+                                   len(clocks["val_s"]), clocks["metric_s"][-1],
+                                   clocks["ckpt_s"][-1]))
+            return fn(row)
+        return run
+
+    trainer.augment = cuda_timed(trainer.augment, "augment")
+    trainer.state.step = cuda_timed(trainer.state.step, "step")
+    trainer.validate = host_timed(trainer.validate, "val_s")
+    trainer.save_checkpoint = host_timed(trainer.save_checkpoint, "ckpt_s", add=True)
+    trainer.run.append_results_row = row_mark(trainer.run.append_results_row)
+    epoch_batches = trainer._epoch_batches
+
+    def epoch_start(epoch):
+        clocks["starts"].append(time.perf_counter())
+        return epoch_batches(epoch)
+
+    trainer._epoch_batches = epoch_start
+    with patched(trainer_mod, "decode_predictions",
+                 logits_recorder("validation", trainer_mod.decode_predictions)), \
+            patched(metrics_mod.DetMetrics, "update",
+                    host_timed(metrics_mod.DetMetrics.update, "metric_s", add=True)), \
+            patched(metrics_mod.DetMetrics, "compute",
+                    host_timed(metrics_mod.DetMetrics.compute, "metric_s", add=True)):
+        aa.launches = aa.bwd_launches = ns.launches = sr.launches = 0
+        t_train = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t_train
+        trainer_launches = {"area_attention": aa.launches,
+                            "area_attention_bwd": aa.bwd_launches,
+                            "nms_suppress": ns.launches,
+                            "score_reduce (not on the path)": sr.launches}
+    n_steps = trainer.state.updates
+    n_val_batches = len(clocks["val_s"]) * len(trainer.val_loader)
+    log(f"[trainer] {TRAINER_EPOCHS} epochs in {train_wall:.1f} s: {n_steps} steps, "
+        f"{len(clocks['val_s'])} validations of {len(trainer.val_loader)} batches; launches "
+        f"{trainer_launches}")
+    check(n_steps == TRAINER_EPOCHS * (TRAINER_IMAGES[0] // TRAINER_BATCH),
+          f"the Trainer took {n_steps} steps")
+    check(trainer_launches["area_attention"] == n_steps + n_val_batches,
+          "attention forward launches != train steps + validation forwards")
+    check(trainer_launches["area_attention_bwd"] == n_steps,
+          "attention backward launches != train steps")
+    check(trainer_launches["nms_suppress"] == n_val_batches, "NMS launches != val batches")
+
+    # the run's artifacts
+    save_dir = Path(result["save_dir"])
+    import csv
+
+    with open(save_dir / "results.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    from deal_yolo_daya_tpu_torch.train.artifacts import RESULTS_COLUMNS
+
+    check(len(rows) == TRAINER_EPOCHS and all(list(r) == RESULTS_COLUMNS for r in rows),
+          "results.csv does not hold one row of the 15 columns an epoch")
+    loss_cols = [c for c in RESULTS_COLUMNS if c.endswith("_loss")]
+    check(all(np.isfinite(float(r[c])) and float(r[c]) >= 0 for r in rows for c in loss_cols),
+          "a loss in results.csv is not finite")
+    check(all(float(r["train/cls_loss"]) > 0 and float(r["val/cls_loss"]) > 0 for r in rows),
+          "a zero class loss")
+    for r in rows:
+        log(f"[trainer] results.csv epoch {r['epoch']}: " + ", ".join(
+            f"{c} {r[c]}" for c in RESULTS_COLUMNS[2:]))
+    check((save_dir / "args.yaml").exists(), "no args.yaml")
+    live = trainer.state.state()
+    last = load_checkpoint(save_dir / "weights" / "last.pt")
+    best = load_checkpoint(save_dir / "weights" / "best.pt")
+    for part in ("model", "ema"):
+        check(all(torch.equal(last[part][k], v) for k, v in live[part].items()),
+              f"weights/last.pt {part} does not reload bit for bit")
+    check(last["epoch"] == TRAINER_EPOCHS - 1 and last["updates"] == n_steps,
+          "weights/last.pt is not the last epoch")
+    fits = [trainer_mod.fitness({"map50": float(r["metrics/mAP50(B)"]),
+                                 "map": float(r["metrics/mAP50-95(B)"])}) for r in rows]
+    check(best["fitness"] == result["best_fitness"] >= last["fitness"]
+          and best["fitness"] >= max(fits) - 1e-5, "weights/best.pt is not the best epoch")
+    log(f"[trainer] weights {sorted(p.name for p in (save_dir / 'weights').iterdir())}; "
+        f"best epoch {best['epoch'] + 1} (fitness {best['fitness']:.6g}); last.pt reloads bit "
+        "for bit")
+
+    # YOLO(best.pt) against validation's EMA model on one val batch, both in
+    # f32 with TF32 off (fused vs unfused, phase 5's tolerances): the same
+    # decoded boxes and scores at every anchor. Then the same detections. After
+    # 24 steps the scores still sit near the class prior, tied within f32 noise
+    # across neighbouring anchors, so which of two overlapping candidates
+    # greedy NMS keeps first is the noise's to decide; the detections are
+    # compared with the class biases set to 0 in both (as phase 5 does), with
+    # class-agnostic NMS at conf and iou thresholds that no score and no IoU
+    # comes near, on the images where every two overlapping candidates come in
+    # the same score order in both models, and with the same class wherever
+    # the best two class scores lie further apart than twice the largest
+    # score difference between the two models
+    torch.backends.cudnn.allow_tf32 = False
+    trainer.state.load_state(best)
+    yolo_best = YOLO(str(save_dir / "weights" / "best.pt"), dtype=torch.float32)
+    check(yolo_best.nc == 3 and yolo_best.names == SHAPES and yolo_best.imgsz == tcfg.imgsz,
+          "YOLO(best.pt) lost nc, names or imgsz")
+    best_sd = inference_state_dict(best)
+    check(all(torch.equal(v.cpu(), best_sd[k]) for k, v in yolo_best._model.state_dict().items()),
+          "YOLO(best.pt) does not hold best.pt's EMA weights")
+    val_iter = trainer.val_loader.epoch(0)
+    vbatch = next(val_iter)
+    val_iter.close()
+    vx = torch.from_numpy(vbatch.images).to(dev)
+    nb = len(vbatch.images)
+    st = trainer.state
+
+    def both_decoded():
+        """(validation's EMA model, YOLO(best.pt)) decoded outputs and their
+        largest box and score differences."""
+        with patched(st, "cfg", dataclasses.replace(st.cfg, amp=False)), \
+                patched(st, "dtype", torch.float32):
+            ev = decode_predictions(*st.eval_forward(vx), (640, 640))
+        yb = decode_predictions(*yolo_best._fused_model()(vx.permute(0, 3, 1, 2).float()),
+                                (640, 640))
+        torch.cuda.synchronize()
+        errs = ((yb[0] - ev[0]).abs().max().item(), (yb[1] - ev[1]).abs().max().item())
+        check(errs[0] <= PRED_TOL["boxes_px"] and errs[1] <= PRED_TOL["scores"],
+              f"YOLO(best.pt) decodes boxes {errs[0]} px, scores {errs[1]} off validation's")
+        return ev, yb, errs
+
+    _, _, (dec_box_err, dec_score_err) = both_decoded()
+    zero_class_bias(yolo_best)
+    yolo_best._fused_cache = None
+    with torch.no_grad():
+        ema = st.ema_state_dict()
+        for i in range(3):
+            ema[f"23.cv3.{i}.2.bias"].zero_()
+    (ev_boxes, ev_scores), (_, yb_scores), (box_err0, score_err0) = both_decoded()
+    conf, conf_gap, iou, iou_gap = nms_thresholds(ev_boxes, ev_scores, 10 * nb, 50 * nb)
+    want = nms_ops.batched_nms(ev_boxes, ev_scores, conf_thres=conf, iou_thres=iou,
+                               pre_topk=1000, max_det=tcfg.max_det, class_agnostic=True)
+    got = yolo_best.infer(vx, conf=conf, iou=iou, max_det=tcfg.max_det, agnostic=True)
+    top2 = ev_scores.topk(2, -1).values
+    margin = top2[..., 0] - top2[..., 1]             # (B, A) best class over the next
+    flips = nms_order_flips(ev_boxes, ev_scores, yb_scores, conf, iou)
+    same = [i for i, t in enumerate(flips) if not t]
+    check(len(same) >= nb // 2, f"{nb - len(same)} of {nb} val images have NMS order flips")
+    check(torch.equal(got[3][same], want[3][same]),
+          f"n_det differs: {got[3].tolist()} vs {want[3].tolist()} (order flips {flips})")
+    check(int(want[3].max()) < tcfg.max_det and int(want[3][same].sum()) > 0,
+          "the comparison threshold kept no detections or hit max_det")
+    box_errs, score_errs, tied, same_cls = [], [], 0, 0
+    for i in same:
+        n = int(want[3][i])
+        err = (got[0][i, :n, None] - want[0][i, None, :n]).abs().amax(-1)
+        serr = (got[1][i, :n, None] - want[1][i, None, :n]).abs()
+        pair = (err <= PRED_TOL["boxes_px"]) & (serr <= PRED_TOL["scores"])
+        check(bool(pair.any(1).all()) and bool(pair.any(0).all()),
+              f"image {i}: YOLO(best.pt) and validation's EMA model detect different boxes")
+        if not n:
+            continue
+        box_errs.append(float(torch.where(pair, err, float("inf")).amin(1).max()))
+        score_errs.append(float(torch.where(pair, serr, float("inf")).amin(1).max()))
+        # each reference detection's anchor (its box is that anchor's decoded box)
+        anchor = (ev_boxes[i][None] == want[0][i, :n, None]).all(-1).float().argmax(1)
+        clear = margin[i, anchor] > 2 * score_err0
+        match = got[2][i, pair.float().argmax(0)] == want[2][i, :n]
+        check(bool((match | ~clear).all()), f"image {i}: a class differs where no tie explains it")
+        tied += int((~clear).sum())
+        same_cls += int((match & clear).sum())
+    torch.backends.cudnn.allow_tf32 = True
+    log(f"[trainer] YOLO(best.pt) vs validation's EMA model, f32, one val batch: decoded "
+        f"boxes max_abs_err {dec_box_err:.3e} px, scores {dec_score_err:.3e}; with the class "
+        f"biases at 0 {box_err0:.3e} px and {score_err0:.3e}, and after class-agnostic NMS at "
+        f"conf {conf:.6g} and iou {iou:.6g} (gaps of {conf_gap:.3g} between scores and "
+        f"{iou_gap:.3g} between IoUs) on the {len(same)} of {nb} images without order flips: "
+        f"n_det {want[3][same].tolist()}, paired boxes max_abs_err {max(box_errs):.3e} px, "
+        f"scores {max(score_errs):.3e}; classes equal on {same_cls}, {tied} with the best two "
+        f"class scores within {2 * score_err0:.3g}")
+
+    # per-epoch times
+    augment_ms = [s.elapsed_time(e) for s, e in clocks["augment"]]
+    step_ms_all = [s.elapsed_time(e) for s, e in clocks["step"]]
+    epochs = []
+    per_epoch = TRAINER_IMAGES[0] // TRAINER_BATCH
+    marks = [(t_train, 0, 0, 0.0, 0.0)] + clocks["rows"]
+    for e, (start, (_, a0, v0, m0, _), (t_row, a1, v1, m1, c1)) in enumerate(
+            zip(clocks["starts"], marks, marks[1:])):
+        epoch_wall = t_row - start   # the steps, the loss read and the validation
+        val_s = sum(clocks["val_s"][v0:v1])
+        train_s = epoch_wall - val_s - (trainer.cache_build_s if e == 0 else 0.0)
+        # an epoch's checkpoints are written after its row, before the next
+        c_next = marks[e + 2][4] if e + 2 < len(marks) else clocks["ckpt_s"][-1]
+        epochs.append({
+            "epoch": e + 1, "mosaic": e < TRAINER_EPOCHS - 1, "wall_s": epoch_wall,
+            "train_s": train_s, "train_imgs_per_s": per_epoch * TRAINER_BATCH / train_s,
+            "augment_ms_per_batch": float(np.median(augment_ms[a0:a1])),
+            "step_ms": float(np.median(step_ms_all[a0:a1])),
+            "val_ms_per_batch": val_s * 1e3 / max((v1 - v0) * len(trainer.val_loader), 1),
+            "host_metric_ms": (m1 - m0) * 1e3, "checkpoint_ms": (c_next - c1) * 1e3})
+    for rec in epochs:
+        log(f"[trainer] epoch {rec['epoch']} (mosaic {'on' if rec['mosaic'] else 'off'}): wall "
+            f"{rec['wall_s']:.2f} s, train {rec['train_imgs_per_s']:.1f} img/s, augment "
+            f"{rec['augment_ms_per_batch']:.2f} ms/batch, step {rec['step_ms']:.2f} ms (CUDA "
+            f"events, median), val {rec['val_ms_per_batch']:.1f} ms/batch, host metrics "
+            f"{rec['host_metric_ms']:.1f} ms, checkpoints {rec['checkpoint_ms']:.1f} ms")
+    log(f"[trainer] device cache built in {trainer.cache_build_s:.2f} s ({TRAINER_IMAGES[0]} "
+        f"images decoded and resized on the host, copied to the card)")
+
+    # one more epoch and its validation under torch.profiler
+    def trainer_epoch():
+        for i, batch in enumerate(trainer._epoch_batches(TRAINER_EPOCHS)):
+            trainer.state.step(*trainer.augment(batch, step_seed(args.seed, TRAINER_EPOCHS, i)))
+        trainer.validate()
+
+    trainer_busy_ms, trainer_prof_wall_ms = profiled(
+        "one Trainer epoch (mosaic off) and its validation", trainer_epoch,
+        ("attention_", "nms_", "bwd_"), 15)
+    trainer_record = {
+        "epochs": epochs, "cache_build_s": trainer.cache_build_s, "dataset_write_s": write_s,
+        "train_wall_s": train_wall, "launches": trainer_launches, "results": rows,
+        "profiled_epoch_device_busy_ms": trainer_busy_ms,
+        "profiled_epoch_wall_ms": trainer_prof_wall_ms, "card": card}
+    tmp.cleanup()
+
+    # 13. score_reduce: the kernel on the class logits the predict and the
+    # validation paths handed to decode, bf16 as recorded and an f32 copy,
+    # against its plain version; then against batched_nms' front half
+    # (sigmoid, then amax/argmax) on the same logits
+    def reduce_parity(label, x):
+        s, c = sr.score_reduce(x)
+        ps, pc = sr.score_reduce_plain(x)
+        torch.cuda.synchronize()
+        bad = int((c != pc).sum())
+        err = (s - ps).abs().max().item()
+        log(f"[score_reduce] {label} {tuple(x.shape)} {x.dtype} strides {x.stride()}: classes "
+            f"differing {bad}, scores max_abs_err {err:.3e} (tol {SCORE_TOL})")
+        check(bad == 0, f"score_reduce {label}: {bad} classes differ from the plain version")
+        check(err <= SCORE_TOL, f"score_reduce {label}: scores off by {err}")
+        return s, c, err
+
+    sr.launches = 0
+    reduce_err, nms_diffs = 0.0, []
+    for key in ("predict", "validation"):
+        check(len(logits_rec[key]) > 0, f"no {key} logits were recorded")
+        for i, x in enumerate(logits_rec[key]):
+            s, c, err = reduce_parity(f"{key} call {i}", x)
+            reduce_err = max(reduce_err, err)
+            reduce_err = max(reduce_err, reduce_parity(f"{key} call {i} f32", x.float())[2])
+            # the front half of batched_nms on the same logits
+            sig = torch.sigmoid(x.float())
+            fs, fc = sig.amax(-1), sig.argmax(-1).to(torch.int32)
+            differ = c != fc
+            tie = sig.gather(-1, c.long()[..., None])[..., 0] == fs
+            nms_diffs.append(int(differ.sum()))
+            check(torch.equal(s, fs), f"{key} call {i}: the max score differs from NMS's")
+            check(bool((tie | ~differ).all()), f"{key} call {i}: a class differs without a tie")
+    reduce_launches = sr.launches
+    log(f"[score_reduce] classes that differ from batched_nms' sigmoid-then-argmax: {nms_diffs} "
+        "(each one a tie of f32 sigmoids); the max scores are equal")
+    # anchors contiguous (a per-level NCHW map's view): the other thread mapping
+    x0 = logits_rec["predict"][0]
+    reduce_parity("predict call 0, anchor-contiguous view", x0.transpose(1, 2).contiguous()
+                  .transpose(1, 2))
+    # crafted rows: exact ties, a row of -inf (f32) or -3e38 (bf16), nc 37
+    crafted = torch.randn((4, 512, 37), generator=gen, device=dev)
+    crafted[:, :64, 5] = crafted[:, :64, 30] = 40.0           # ties across warp lanes
+    crafted[:, 64:128, 3] = crafted[:, 64:128, 4] = 6.0       # ties within a lane's neighbours
+    crafted[:, 128:192] = 7.0                                 # every class tied
+    for dt, floor in ((torch.float32, float("-inf")), (torch.bfloat16, -3e38)):
+        xc = crafted.clone()
+        xc[:, 192:200] = floor
+        xc = xc.to(dt)
+        s, c, _ = reduce_parity("crafted ties and floors, nc 37", xc)
+        check(c[:, :64].eq(5).all().item() and c[:, 64:128].eq(3).all().item()
+              and c[:, 128:192].eq(0).all().item() and c[:, 192:200].eq(0).all().item(),
+              "score_reduce broke a tie away from the lowest class")
+        check(s[:, 192:200].eq(0.0).all().item() and s[:, :64].eq(1.0).all().item(),
+              "score_reduce floors or saturated scores are off")
+        reduce_parity("crafted, anchor-contiguous view", xc.transpose(1, 2).contiguous()
+                      .transpose(1, 2))
+    # times at the predict path's shape: the kernel, its plain version, and
+    # the library call torch.max(x, -1) followed by the sigmoid of its values
+    xb = logits_rec["predict"][0]
+    ms = cuda_time_ms(lambda: sr.score_reduce(xb), 200)
+    plain_ms = cuda_time_ms(lambda: sr.score_reduce_plain(xb), 50)
+    library_ms = cuda_time_ms(lambda: torch.sigmoid(torch.max(xb, dim=-1).values.float()), 200)
+    xf = xb.float()
+    ms_f32 = cuda_time_ms(lambda: sr.score_reduce(xf), 200)
+    nbytes = xb.numel() * xb.element_size() + xb.shape[0] * xb.shape[1] * 8
+    ops = xb.numel() + xb.shape[0] * xb.shape[1] * 4   # a compare a logit; sigmoid a row
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    kernels.append({
+        "name": "score_reduce", "route": "cuda",
+        "source": "deal_yolo_daya_tpu_torch/csrc/score_reduce.cu",
+        "replaces": "deal_yolo_daya_tpu/ops/pallas/score_reduce.py:28",
+        "launches": reduce_launches,
+        "launched_on": "phase 13 on the logits the predict and validation paths handed to "
+                       "decode; no path calls it (not wired into batched_nms, as in the JAX "
+                       "package)",
+        "launches_main_paths": {"predict": launches["score_reduce (not on the path)"],
+                                "trainer": trainer_launches["score_reduce (not on the path)"]},
+        "max_abs_err": reduce_err, "tol": SCORE_TOL, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "shape": list(xb.shape), "dtype": str(xb.dtype),
+        "classes_differing_from_nms_front_half": nms_diffs,
+    })
+    kernels[0]["launches_trainer"] = trainer_launches["area_attention"]
+    kernels[1]["launches_trainer"] = trainer_launches["nms_suppress"]
+    kernels[2]["launches_trainer"] = trainer_launches["area_attention_bwd"]
+    log(f"[time] score_reduce {tuple(xb.shape)} {xb.dtype}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.max + sigmoid {library_ms:.4f} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} for {nbytes / 1e6:.2f} MB, ops "
+        f"{t_ops:.5f}); f32 input {ms_f32:.4f} ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "predict": {
         "imgs_per_s_e2e": len(images) / wall, "host_letterbox_ms_per_img": host_ms,
         "device_ms_per_b32": device_ms, "profiled_device_busy_ms": busy_ms,
-        "profiled_wall_ms": prof_wall_ms, "card": card}, "train": train_record}), flush=True)
+        "profiled_wall_ms": prof_wall_ms, "card": card}, "train": train_record,
+        "trainer": trainer_record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

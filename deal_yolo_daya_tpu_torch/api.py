@@ -1,10 +1,12 @@
-"""High-level model API: ``YOLO("yolo11n").predict(...)``.
+"""High-level model API: ``YOLO("yolo11n").predict(...)`` and ``.train(...)``.
 
-Counterpart of the predict path of ``deal_yolo_daya_tpu/api.py``: the model
-handle, the BN-folded inference model with the 1/255 folded into the stem,
-host letterbox, batched device forward, decode, NMS, and ``Detections`` in
-original-image pixels. The model runs on the card unless the caller passes
-``device="cpu"``.
+Counterpart of the predict and train paths of ``deal_yolo_daya_tpu/api.py``:
+the model handle, the BN-folded inference model with the 1/255 folded into
+the stem, host letterbox, batched device forward, decode, NMS, and
+``Detections`` in original-image pixels; ``train`` runs the port's Trainer
+and adopts its EMA weights; ``YOLO("<run>/weights/best.pt")`` loads a
+checkpoint that Trainer wrote. The model runs on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -96,13 +98,14 @@ class YOLO:
 
     >>> model = YOLO("yolo11n")                       # on the card, bf16
     >>> results = model.predict(["img.jpg"])
+    >>> model.train(data="data.yaml", epochs=10)      # then predicts with the EMA weights
+    >>> model = YOLO("runs/train/train/weights/best.pt")
     >>> model = YOLO("yolo11n", device="cpu", dtype=torch.float32)
     """
 
     def __init__(self, model: str = "yolo11n", nc: int = 80, imgsz: int = 640,
                  device=None, dtype: Optional[torch.dtype] = None, seed: int = 0):
         self.model_spec = str(model)
-        self.scale = parse_model_spec(self.model_spec)
         self.nc = nc
         self.imgsz = imgsz
         self.seed = seed
@@ -111,6 +114,29 @@ class YOLO:
         self.names: List[str] = [str(i) for i in range(nc)]
         self._model = None
         self._fused_cache = None
+        self._weights_loaded = False  # True after a checkpoint or train(): train() fine-tunes
+        self.trainer = None
+        if self.model_spec.endswith(".pt"):
+            self._load_checkpoint(self.model_spec)
+        else:
+            self.scale = parse_model_spec(self.model_spec)
+
+    def _load_checkpoint(self, path) -> None:
+        """Adopt a checkpoint of the port's Trainer: its architecture, nc,
+        names, imgsz, and the EMA weights with the live BN statistics."""
+        from .models.yolo11 import YOLO11
+        from .train.trainer import inference_state_dict, load_checkpoint
+
+        if not Path(path).exists():
+            raise FileNotFoundError(f"model weights not found: {path}")
+        ckpt = load_checkpoint(path)
+        self.scale, self.nc, self.imgsz = ckpt["scale"], int(ckpt["nc"]), int(ckpt["imgsz"])
+        self.names = list(ckpt["names"])
+        model = YOLO11(nc=self.nc, scale=self.scale)
+        model.load_state_dict(inference_state_dict(ckpt), strict=True)
+        self._model = model.to(self.device).eval()
+        self._fused_cache = None
+        self._weights_loaded = True
 
     def _ensure_built(self):
         """The f32 model with random weights from ``seed``, built once."""
@@ -131,6 +157,29 @@ class YOLO:
         fused = fused.to(dtype=self.dtype, memory_format=torch.channels_last).eval()
         self._fused_cache = (model, fused)
         return fused
+
+    def train(self, data: str, **kwargs) -> Dict[str, Any]:
+        """Train on a YOLO-layout ``data.yaml`` with the port's Trainer
+        (``TrainConfig`` fields by name, other keys into ``cfg.extra``),
+        from the loaded weights when there are any (a checkpoint or an
+        earlier train()), else from the seed's random init. Afterwards the
+        handle predicts with the trained EMA weights, nc, names and imgsz."""
+        from .models.yolo11 import YOLO11
+        from .train.trainer import Trainer, inference_state_dict, make_config
+
+        kwargs.setdefault("device", "cpu" if self.device.type == "cpu" else "")
+        cfg = make_config(self.model_spec, data, **kwargs)
+        init = self._model.state_dict() if self._weights_loaded else None
+        self.trainer = Trainer(cfg, init_state_dict=init)
+        result = self.trainer.train()
+        self.nc, self.names, self.imgsz = self.trainer.nc, list(self.trainer.names), cfg.imgsz
+        model = YOLO11(nc=self.nc, scale=self.scale)
+        model.load_state_dict(inference_state_dict(self.trainer.state.state()), strict=True)
+        self._model = model.to(self.device).eval()
+        self._fused_cache = None
+        self.save_dir = result["save_dir"]
+        self._weights_loaded = True  # a further train() continues from these
+        return result
 
     @torch.no_grad()
     def infer(self, batch: torch.Tensor, conf: float = 0.25, iou: float = 0.7,

@@ -29,6 +29,7 @@ EXTRA: Dict[str, List[str]] = {
     "area_attention": [],
     "area_attention_bwd": [],
     "nms_suppress": ["-fmad=false"],
+    "score_reduce": [],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -35,20 +35,27 @@ def letterbox_numpy(image: np.ndarray, new_size: int, fill: int = 114
     r, px, py = letterbox_params(h, w, new_size)
     nw, nh = round(w * r), round(h * r)
     canvas = np.full((new_size, new_size, image.shape[2]), fill, dtype=image.dtype)
-    if (nh, nw) == (h, w):
-        canvas[py:py + nh, px:px + nw] = image
-        return canvas, r, (px, py)
-    # (1, C, H, W) view of the HWC array: channels_last strides, which with
-    # uint8 in and out takes PyTorch's vectorised fixed-point bilinear path
-    x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None]
-    resized = F.interpolate(x, size=(nh, nw), mode="bilinear", align_corners=False,
-                            antialias=False)[0].permute(1, 2, 0)
-    canvas[py:py + nh, px:px + nw] = resized.numpy()
+    canvas[py:py + nh, px:px + nw] = resize_bilinear(image, nh, nw)
     return canvas, r, (px, py)
 
 
+def resize_bilinear(image: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(H, W, C) uint8 -> (h, w, C) uint8, bilinear with half-pixel centres
+    and no antialias (cv2's INTER_LINEAR mapping); the image itself when the
+    size is unchanged."""
+    if image.shape[:2] == (h, w):
+        return image
+    # (1, C, H, W) view of the HWC array: channels_last strides, which with
+    # uint8 in and out takes PyTorch's vectorised fixed-point bilinear path
+    x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None]
+    resized = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
+                            antialias=False)[0].permute(1, 2, 0)
+    return resized.numpy()
+
+
 def load_image(path) -> np.ndarray:
-    """Decode an image file to RGB uint8 (cv2 if installed, else PIL)."""
+    """Decode an image file to RGB uint8: cv2 if installed, else PIL, else
+    the port's own PNG reader (``ops/png.py``)."""
     try:
         import cv2
     except ImportError:
@@ -57,7 +64,11 @@ def load_image(path) -> np.ndarray:
         img = cv2.imread(str(path), cv2.IMREAD_COLOR)
         if img is not None:
             return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError:
+        from .png import read_png
 
+        return read_png(path)
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))

@@ -1,0 +1,293 @@
+"""Input pipeline: the YOLO-layout dataset reader, the batch loader and a
+background prefetcher.
+
+Counterpart of ``deal_yolo_daya_tpu/train/data.py``. It reads the dataset
+layout datakit writes (``images/{split}``, ``labels/{split}/*.txt`` with
+normalised ``cls cx cy w h`` rows, ``data.yaml``). Batches have fixed shapes:
+u8 images (B, S, S, 3) and labels padded to ``max_boxes`` with a validity
+mask. The order and the per-epoch seeding are the JAX package's, so both
+packages draw the same batches:
+
+- ``epoch_indices``/``epoch_raw``/``raw_chunks`` feed the on-card
+  augmentation (``train/device_augment.py``): one keep-ratio resize a sample
+  on the host, top-left in an (S, S) canvas;
+- ``epoch`` is the non-augmenting letterboxed pass validation reads, with
+  each image's (path, original (h, w), scale, pad).
+
+The host augmentation of the JAX package (``train/augment.py``: mosaic,
+affine, HSV and flips with cv2) is not ported: an augmenting ``epoch``
+raises. Images are resized with PyTorch's uint8 bilinear
+(``ops/letterbox.py``) where the JAX package uses cv2's, so a resized pixel
+may differ by a level; a source already at ``imgsz`` is not resized by
+either.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import queue
+import threading
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import yaml
+
+from ..ops.letterbox import letterbox_numpy, load_image, resize_bilinear
+
+MAX_BOXES = 128
+IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff"}
+HOST_AUGMENT = ("host augmentation (train/augment.py) is not ported yet (ROADMAP.md "
+                "section 1 item 6); the trainer augments on the card (device_augment=True)")
+
+
+@dataclass
+class YoloDataset:
+    """Index over one split of a YOLO-layout dataset."""
+
+    root: Path
+    split: str
+    names: List[str]
+    images: List[Path] = field(default_factory=list)
+    labels: List[np.ndarray] = field(default_factory=list)  # (N, 5) cls, cx, cy, w, h
+
+    @classmethod
+    def from_yaml(cls, data_yaml: str, split: str = "train") -> "YoloDataset":
+        data_yaml = Path(data_yaml)
+        data = yaml.safe_load(data_yaml.read_text(encoding="utf-8"))
+        root_value = data.get("path")
+        root = Path(root_value) if root_value else data_yaml.parent
+        if not root.is_absolute():
+            root = (data_yaml.parent / root).resolve()
+        names = data.get("names") or []
+        if isinstance(names, dict):
+            names = [names[k] for k in sorted(names)]
+        img_dir = root / (data.get(split) or f"images/{split}")
+
+        ds = cls(root=root, split=split, names=list(names))
+        if not img_dir.exists():
+            return ds
+        for img_path in sorted(img_dir.iterdir()):
+            if img_path.suffix.lower() not in IMAGE_EXTS:
+                continue
+            label_path = (Path(str(img_path.parent).replace("images", "labels", 1))
+                          / f"{img_path.stem}.txt")
+            rows = []
+            if label_path.exists():
+                for line in label_path.read_text(encoding="utf-8").splitlines():
+                    parts = line.split()
+                    if len(parts) >= 5:
+                        rows.append([float(v) for v in parts[:5]])
+            ds.images.append(img_path)
+            ds.labels.append(np.asarray(rows, np.float32).reshape(-1, 5)
+                             if rows else np.zeros((0, 5), np.float32))
+        return ds
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    @property
+    def nc(self) -> int:
+        return len(self.names)
+
+    def enable_cache(self):
+        """Keep decoded images in host RAM (the ``cache=True`` option)."""
+        self._cache: Dict[int, np.ndarray] = {}
+
+    def image(self, idx: int) -> np.ndarray:
+        cache = getattr(self, "_cache", None)
+        if cache is None:
+            return load_image(self.images[idx])
+        img = cache.get(idx)
+        if img is None:
+            img = cache[idx] = load_image(self.images[idx])
+        return img
+
+    def boxes_xyxy(self, idx: int, w: int, h: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Denormalised xyxy pixel boxes and class ids of image ``idx``."""
+        lab = self.labels[idx]
+        if len(lab) == 0:
+            return np.zeros((0, 4), np.float32), np.zeros((0,), np.int64)
+        cls = lab[:, 0].astype(np.int64)
+        cx, cy, bw, bh = lab[:, 1] * w, lab[:, 2] * h, lab[:, 3] * w, lab[:, 4] * h
+        boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1)
+        return boxes.astype(np.float32), cls
+
+
+@dataclass
+class RawBatch:
+    """A batch for the on-card augmentation: images keep-ratio resized into
+    a fixed (S, S) canvas, top-left anchored."""
+
+    images: np.ndarray        # (B, S, S, 3) uint8 RGB, fill 114
+    hw: np.ndarray            # (B, 2) float32 content (h, w) inside the canvas
+    gt_boxes: np.ndarray      # (B, M, 4) xyxy in canvas pixels
+    gt_classes: np.ndarray    # (B, M) int32
+    gt_mask: np.ndarray       # (B, M) bool
+
+
+@dataclass
+class Batch:
+    images: np.ndarray        # (B, S, S, 3) uint8 RGB
+    gt_boxes: np.ndarray      # (B, M, 4) xyxy pixels in the letterboxed frame
+    gt_classes: np.ndarray    # (B, M) int32
+    gt_mask: np.ndarray       # (B, M) bool
+    meta: Optional[list] = None  # per image (path, orig (h, w), scale, (pad_x, pad_y))
+
+
+def _pad_labels(boxes: np.ndarray, classes: np.ndarray, max_boxes: int):
+    m = min(len(boxes), max_boxes)
+    out_b = np.zeros((max_boxes, 4), np.float32)
+    out_c = np.zeros((max_boxes,), np.int32)
+    out_m = np.zeros((max_boxes,), bool)
+    if m:
+        out_b[:m] = boxes[:m]
+        out_c[:m] = classes[:m]
+        out_m[:m] = True
+    return out_b, out_c, out_m
+
+
+def resize_keep_ratio(img: np.ndarray, target: int) -> Tuple[np.ndarray, float]:
+    """Resize so that the long side is ``target`` -> (image, scale)."""
+    h, w = img.shape[:2]
+    r = target / max(h, w)
+    if r != 1.0:
+        img = resize_bilinear(img, round(h * r), round(w * r))
+    return img, r
+
+
+class DataLoader:
+    """Batch iterator with the JAX package's deterministic order: the epoch's
+    permutation comes from ``default_rng(seed + 1000 * epoch)`` (no shuffle:
+    dataset order), the short final batch wraps to full size."""
+
+    def __init__(self, dataset: YoloDataset, batch_size: int, imgsz: int = 640,
+                 augment: bool = True, seed: int = 0, max_boxes: int = MAX_BOXES,
+                 shuffle: Optional[bool] = None, drop_last: Optional[bool] = None,
+                 keep_meta: bool = False):
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.imgsz = imgsz
+        self.augment = augment
+        self.seed = seed
+        self.max_boxes = max_boxes
+        self.shuffle = augment if shuffle is None else shuffle
+        self.drop_last = augment if drop_last is None else drop_last
+        self.keep_meta = keep_meta
+        self.mosaic_off = False  # the close_mosaic hook
+
+    def __len__(self) -> int:
+        n = len(self.ds)
+        if self.drop_last:
+            return max(n // self.batch_size, 1) if n else 0
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def epoch_indices(self, epoch_idx: int = 0) -> Iterator[np.ndarray]:
+        """The dataset indices of each batch of the epoch, the short final
+        batch wrapped to full size."""
+        n = len(self.ds)
+        if n == 0:
+            return
+        rng = np.random.default_rng(self.seed + 1000 * epoch_idx)
+        order = rng.permutation(n) if self.shuffle else np.arange(n)
+        for b in range(len(self)):
+            idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+            if len(idxs) == 0:
+                break
+            while len(idxs) < self.batch_size:
+                idxs = np.concatenate([idxs, order[:self.batch_size - len(idxs)]])
+            yield idxs
+
+    def _letterboxed(self, i: int):
+        """One sample letterboxed to imgsz, unaugmented: (canvas, padded
+        labels, meta)."""
+        img = self.ds.image(i)
+        h, w = img.shape[:2]
+        boxes, classes = self.ds.boxes_xyxy(i, w, h)
+        canvas, r, (px, py) = letterbox_numpy(img, self.imgsz)
+        if len(boxes):
+            boxes = boxes * r + [px, py, px, py]
+        meta = (str(self.ds.images[i]), (h, w), r, (px, py))
+        return (np.ascontiguousarray(canvas, dtype=np.uint8),
+                *_pad_labels(boxes, classes, self.max_boxes), meta)
+
+    def epoch(self, epoch_idx: int = 0, n_workers: int = 8) -> Iterator[Batch]:
+        """The letterboxed, unaugmented pass (validation)."""
+        if self.augment:
+            raise NotImplementedError(HOST_AUGMENT)
+        with cf.ThreadPoolExecutor(max_workers=n_workers) as pool:
+            for idxs in self.epoch_indices(epoch_idx):
+                images, gtb, gtc, gtm, metas = zip(*pool.map(self._letterboxed,
+                                                              idxs.tolist()))
+                yield Batch(images=np.stack(images), gt_boxes=np.stack(gtb),
+                            gt_classes=np.stack(gtc), gt_mask=np.stack(gtm),
+                            meta=list(metas) if self.keep_meta else None)
+
+    def load_raw(self, i):
+        """Decode and keep-ratio resize one sample onto an imgsz canvas:
+        (u8 canvas, f32 (h, w), padded boxes, classes, mask)."""
+        s = self.imgsz
+        img = self.ds.image(int(i))
+        h0, w0 = img.shape[:2]
+        img, r = resize_keep_ratio(img, s)
+        h, w = img.shape[:2]
+        buf = np.full((s, s, 3), 114, np.uint8)
+        buf[:h, :w] = img
+        boxes, classes = self.ds.boxes_xyxy(int(i), w0, h0)
+        if len(boxes):
+            boxes = boxes * r
+        pb, pc, pm = _pad_labels(boxes, classes, self.max_boxes)
+        return buf, np.float32((h, w)), pb, pc, pm
+
+    def raw_chunks(self, chunk_size: int = 256, n_workers: int = 8):
+        """The whole dataset in order, in stacked chunks: the feed of the
+        trainer's device cache."""
+        n = len(self.ds)
+        with cf.ThreadPoolExecutor(max_workers=n_workers) as pool:
+            for start in range(0, n, chunk_size):
+                rows = list(pool.map(self.load_raw, range(start, min(start + chunk_size, n))))
+                yield tuple(np.stack(col) for col in zip(*rows))
+
+    def epoch_raw(self, epoch_idx: int = 0, n_workers: int = 8) -> Iterator[RawBatch]:
+        """Decode-and-resize epoch for the on-card augmentation."""
+        with cf.ThreadPoolExecutor(max_workers=n_workers) as pool:
+            for idxs in self.epoch_indices(epoch_idx):
+                images, hw, gtb, gtc, gtm = zip(*pool.map(self.load_raw, idxs))
+                yield RawBatch(images=np.stack(images), hw=np.stack(hw),
+                               gt_boxes=np.stack(gtb), gt_classes=np.stack(gtc),
+                               gt_mask=np.stack(gtm))
+
+
+class Prefetcher:
+    """Runs an iterator in a background thread, ``depth`` items ahead.
+
+    ``transfer`` (optional) runs on each item inside the thread: pass the
+    copy to the card, so that it overlaps the consumer. An exception in the
+    thread is raised in the consumer."""
+
+    def __init__(self, loader_iter, depth: int = 3, transfer=None):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._done = object()
+        self._err: Optional[BaseException] = None
+
+        def _worker():
+            try:
+                for item in loader_iter:
+                    self._queue.put(item if transfer is None else transfer(item))
+            except BaseException as e:  # raised again in the consumer
+                self._err = e
+            finally:
+                self._queue.put(self._done)
+
+        self._thread = threading.Thread(target=_worker, daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        while True:
+            item = self._queue.get()
+            if item is self._done:
+                if self._err is not None:
+                    raise self._err
+                return
+            yield item

@@ -125,6 +125,57 @@ class Optimizer:
         self.torch.zero_grad(set_to_none=True)
 
 
+class accumulate_gradients:
+    """Gradient accumulation, the counterpart of the JAX package's
+    ``accumulate_gradients`` (the ultralytics BaseTrainer cadence,
+    ``accumulate = max(round(nbs / batch), 1)``): the gradients of ``k``
+    micro-batches SUM in ``.grad`` (the backward adds to it), and every
+    ``k``-th ``step()`` applies ``inner`` once and clears them. ``mean``
+    divides the sum by ``k`` first, for the batch-mean loss, where a raw SUM
+    would multiply the effective lr by k. ``inner``'s schedules count the
+    applied updates, so their windows are in optimizer steps."""
+
+    def __init__(self, k: int, inner: Optimizer, mean: bool = False):
+        self.k, self.inner, self.mean = max(int(k), 1), inner, mean
+        self.micro = 0     # micro-batches summed since the last update
+        self.updates = 0   # updates applied
+
+    def zero_grad(self) -> None:
+        """Clear the gradients at the start of a window; inside one they sum."""
+        if self.micro == 0:
+            self.inner.zero_grad()
+
+    def step(self) -> bool:
+        """Count one micro-batch; apply the update at the window's end.
+        Returns whether it did."""
+        self.micro += 1
+        if self.micro < self.k:
+            return False
+        if self.mean and self.k > 1:
+            torch._foreach_div_([p.grad for p in self._params() if p.grad is not None],
+                                float(self.k))
+        self.inner.step(self.updates)
+        self.updates += 1
+        self.micro = 0
+        return True
+
+    def _params(self) -> List[nn.Parameter]:
+        return [p for g in self.inner.torch.param_groups for p in g["params"]]
+
+    def state_dict(self) -> Dict:
+        """The optimizer's state, the counts and, inside a window, the
+        gradients summed so far (on the host)."""
+        grads = [None if p.grad is None else p.grad.detach().cpu() for p in self._params()]
+        return {"optimizer": self.inner.torch.state_dict(), "micro": self.micro,
+                "updates": self.updates, "grads": grads if self.micro else None}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.inner.torch.load_state_dict(state["optimizer"])
+        self.micro, self.updates = int(state["micro"]), int(state["updates"])
+        for p, g in zip(self._params(), state["grads"] or []):
+            p.grad = None if g is None else g.to(p.device)
+
+
 @torch.no_grad()
 def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], step: int,
                decay: float = 0.9999) -> None:

@@ -1,47 +1,73 @@
-"""The yolo11 training step and the state it carries.
+"""The yolo11 training step, the state it carries, and the Trainer around it.
 
-Counterpart of the train step of ``deal_yolo_daya_tpu/train/trainer.py``
-(``Trainer._build_steps``): one call takes a u8 (B, S, S, 3) batch and padded
-GT on the model's device and runs the training forward (bf16 compute with
-f32 parameters under ``amp``), the detection loss, the backward, the
-optimizer update and the EMA update. The loss parts are summed into device
-tensors: a step reads nothing back to the host.
+Counterpart of ``deal_yolo_daya_tpu/train/trainer.py``.
 
-With ``fold_input_div`` the step feeds raw 0..255 images and scales the stem
-conv kernel by 1/255 inside the differentiated function, so the gradient with
+``TrainState.step`` is the train step of ``Trainer._build_steps``: a u8
+(B, S, S, 3) batch and padded GT on the model's device go through the
+training forward (bf16 compute over f32 parameters under ``amp``), the
+detection loss, the backward, the optimizer update and the EMA update. The
+loss parts are summed into device tensors: a step reads nothing back. With
+``fold_input_div`` the step feeds raw 0..255 images and scales the stem
+kernel by 1/255 inside the differentiated function, so the gradient with
 respect to the stored kernel is the JAX package's.
 
-``TrainState`` holds what the JAX ``TrainState`` holds: the model (parameters
-and BatchNorm statistics), the optimizer, the EMA of the parameters and the
-number of updates so far. The dataset, loader, validation and checkpoints of
-the JAX ``Trainer`` are not here yet.
+``Trainer`` drives it as the JAX Trainer does: the dataset and loaders, the
+on-card augmentation (``train/device_augment.py``) with the per-step seed
+``(seed << 20) + epoch * 16384 + step``, the dataset held on the card
+(``cache="device"``), validation with the EMA weights after each epoch,
+``results.csv`` and ``args.yaml``, ``weights/{last,best,epochN}.pt`` and
+resume. What the JAX Trainer has and this one does not yet: the host
+augmentation (``device_augment=False`` raises), chunked dispatch
+(``steps_per_dispatch`` > 1), several devices, ``batch=-1``,
+``profile_steps``, ``remat`` and the plots; see ROADMAP.md. ``async_ckpt``,
+``donate`` and ``fold_div_barrier`` are accepted and have no counterpart:
+checkpoints are written synchronously, PyTorch frees buffers itself, and
+the barrier works around an XLA compiler fault.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional
+import dataclasses
+import json
+import os
+import re
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
 from ..api import parse_model_spec
 from ..device import resolve_device
 from ..models.yolo11 import YOLO11, init_weights
+from ..ops.decode import decode_predictions
+from ..ops.nms import batched_nms
+from .artifacts import RunDir
+from .data import HOST_AUGMENT, DataLoader, Prefetcher, YoloDataset
+from .device_augment import DeviceAugConfig, augment_batch, step_seed
 from .loss import LossConfig, detection_loss
-from .optimizer import Optimizer, OptimizerConfig, ema_update
+from .metrics import DetMetrics
+from .optimizer import Optimizer, OptimizerConfig, accumulate_gradients, ema_update, lr_schedule
 
 STEM_KERNEL = "0.conv.weight"
 LOSS_PARTS = ("box_loss", "cls_loss", "dfl_loss", "num_fg")
+DETECT = "23"  # the head's module: never frozen
+CHECKPOINT_FORMAT = "deal_yolo_daya_tpu_torch/trainer-checkpoint-1"
 
 
 @dataclass
 class TrainConfig:
-    """The train step's fields of the JAX ``TrainConfig``, under its names
-    and defaults."""
+    """The JAX ``TrainConfig``'s fields, names and defaults."""
     model: str = "yolo11n"
+    data: str = ""
     epochs: int = 100
     imgsz: int = 640
+    batch: int = 16             # -1 (autobatch) is not ported: raises
+    auto_batch_bytes: int = 0   # for batch=-1
+    device: str = ""            # "" or "0": the card; "cpu"; others raise
     amp: bool = True
     optimizer: str = "auto"
     lr0: float = 0.01
@@ -49,14 +75,69 @@ class TrainConfig:
     momentum: float = 0.937
     weight_decay: float = 5e-4
     warmup_epochs: float = 3.0
-    cos_lr: bool = False
     seed: int = 0
+    patience: int = 100
+    cos_lr: bool = False
+    close_mosaic: int = 10
+    save_period: int = -1
+    project: str = "runs/train"
+    name: str = "train"
+    exist_ok: bool = False
+    resume: Any = False         # True: <run>/weights/last.pt, or a checkpoint path
+    workers: int = 3            # prefetch depth
+    # None (auto: "device") | False | True (decoded images in host RAM) |
+    # "device" (the whole train set on the card, batches gathered there;
+    # falls back to streaming when over extra["cache_budget_gb"], default 8)
+    cache: Any = None
+    val: bool = True
+    val_period: int = 1         # validate every K epochs (and the last)
+    time_phases: bool = False   # print each epoch's phase times
     max_boxes: int = 128
     box: float = 7.5
     cls: float = 0.5
     dfl: float = 1.5
+    mosaic: float = 1.0
+    mixup: float = 0.0
+    hsv_h: float = 0.015
+    hsv_s: float = 0.7
+    hsv_v: float = 0.4
+    fliplr: float = 0.5
+    flipud: float = 0.0
+    bgr: float = 0.0
+    scale: float = 0.5
+    translate: float = 0.1
+    degrees: float = 0.0
+    shear: float = 0.0
+    conf: float = 0.001         # validation confidence threshold
+    iou: float = 0.7            # validation NMS IoU threshold
+    max_det: int = 300
+    donate: bool = False        # no counterpart (XLA buffer donation)
+    # None (auto) and True: augment on the card; False (the host
+    # augmentation) is not ported: raises
+    device_augment: Optional[bool] = None
+    profile_steps: int = 0      # not ported: raises when > 0
+    remat: bool = False         # not ported: raises when True
     fold_input_div: bool = True
+    fold_div_barrier: Optional[bool] = None  # no counterpart (an XLA workaround)
+    steps_per_dispatch: Optional[int] = None  # > 1 (chunked dispatch) not ported: raises
     loss_batch_scale: bool = False
+    # nominal batch: > 0 sums round(nbs / batch) micro-batch gradients a
+    # step and scales weight decay by batch * accumulate / nbs
+    nbs: int = 0
+    single_cls: bool = False
+    save_json: bool = False     # predictions.json at validation
+    time: float = 0.0           # wall-clock budget in hours (0: none)
+    fraction: float = 1.0       # train on the leading fraction of the set
+    # freeze the first N modules (ultralytics indices; the head never):
+    # no gradients, no updates, BN running statistics still move
+    freeze: int = 0
+    async_ckpt: bool = True     # no counterpart: checkpoints are synchronous
+    keep_last: int = 5          # newest epochN checkpoints kept (<= 0: all)
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+
+def fitness(metrics: Dict[str, float]) -> float:
+    return 0.1 * metrics.get("map50", 0.0) + 0.9 * metrics.get("map", 0.0)
 
 
 def bucket_gt(gt_boxes, gt_classes, gt_mask, max_boxes: int, min_bucket: int = 4):
@@ -72,35 +153,51 @@ def bucket_gt(gt_boxes, gt_classes, gt_mask, max_boxes: int, min_bucket: int = 4
     return gt_boxes[:, :bucket], gt_classes[:, :bucket], gt_mask[:, :bucket]
 
 
+def frozen_modules(freeze: int) -> tuple:
+    """The names of the yolo11 modules ``freeze=N`` freezes: the indices
+    below N but the head's."""
+    return tuple(str(i) for i in range(int(freeze)) if str(i) != DETECT)
+
+
 class TrainState:
     """Model, optimizer, parameter EMA and update count of one training run,
     with the train step as ``step(...)``.
+
+    ``accumulate`` sums that many micro-batch gradients an update (the EMA
+    then moves once an update); ``frozen`` names top-level modules that get
+    no gradients and no updates.
 
     >>> state = TrainState(TrainConfig(), nc=80, steps_per_epoch=100)  # on the card
     >>> total = state.step(images_u8, gt_boxes, gt_classes, gt_mask)
     """
 
     def __init__(self, cfg: TrainConfig, nc: int, steps_per_epoch: int, device=None,
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 opt_cfg: Optional[OptimizerConfig] = None, accumulate: int = 1,
+                 frozen: Sequence[str] = ()):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if cfg.amp else torch.float32
         model = init_weights(YOLO11(nc=nc, scale=parse_model_spec(cfg.model)), cfg.seed)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
+        for name, mod in model.named_children():
+            if name in frozen:
+                mod.requires_grad_(False)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         self.model = model.to(self.device).train()
         self.loss_cfg = LossConfig(nc=nc, box_gain=cfg.box, cls_gain=cfg.cls,
                                    dfl_gain=cfg.dfl, batch_scale=cfg.loss_batch_scale)
-        self.opt_cfg = OptimizerConfig(
+        self.opt_cfg = opt_cfg or OptimizerConfig(
             name=cfg.optimizer, lr0=cfg.lr0, lrf=cfg.lrf, momentum=cfg.momentum,
             weight_decay=cfg.weight_decay, warmup_epochs=cfg.warmup_epochs,
             cos_lr=cfg.cos_lr, epochs=cfg.epochs, steps_per_epoch=steps_per_epoch)
-        self.optimizer = Optimizer(self.opt_cfg, self.model)
+        self.optimizer = accumulate_gradients(accumulate, Optimizer(self.opt_cfg, self.model),
+                                              mean=not cfg.loss_batch_scale)
         self.params = list(self.model.parameters())
         self.ema = [p.detach().clone() for p in self.params]
-        self.updates = 0
+        self.updates = 0  # micro-batch steps taken (the JAX state.step)
         self.loss_acc = self.zero_loss_acc()
 
     def zero_loss_acc(self) -> Dict[str, torch.Tensor]:
@@ -110,18 +207,31 @@ class TrainState:
         """The EMA parameters under the model's state-dict names."""
         return {name: e for (name, _), e in zip(self.model.named_parameters(), self.ema)}
 
-    def forward(self, images: torch.Tensor):
-        """The training forward of a u8 (B, S, S, 3) batch -> per-level
-        (box, cls) head outputs, in bf16 under ``amp``."""
+    def _apply(self, images: torch.Tensor, params: Dict[str, torch.Tensor]):
         x = images.permute(0, 3, 1, 2).to(self.dtype)  # NCHW view of the NHWC batch
-        overrides = {}
+        params = dict(params)
         if self.cfg.fold_input_div:
-            stem = self.model.get_parameter(STEM_KERNEL)
-            overrides[STEM_KERNEL] = stem * (1.0 / 255.0)
+            params[STEM_KERNEL] = params.get(
+                STEM_KERNEL, self.model.get_parameter(STEM_KERNEL)) * (1.0 / 255.0)
         else:
             x = x / 255.0
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.cfg.amp):
-            return functional_call(self.model, overrides, (x,))
+            return functional_call(self.model, params, (x,))
+
+    def forward(self, images: torch.Tensor):
+        """The training forward of a u8 (B, S, S, 3) batch -> per-level
+        (box, cls) head outputs, in bf16 under ``amp``."""
+        return self._apply(images, {})
+
+    @torch.no_grad()
+    def eval_forward(self, images: torch.Tensor, use_ema: bool = True):
+        """The forward of validation: eval mode (running statistics), the EMA
+        parameters (or the live ones), unfused."""
+        self.model.eval()
+        try:
+            return self._apply(images, self.ema_state_dict() if use_ema else {})
+        finally:
+            self.model.train()
 
     def loss(self, images: torch.Tensor, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
              gt_mask: torch.Tensor):
@@ -133,17 +243,460 @@ class TrainState:
 
     def step(self, images: torch.Tensor, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
              gt_mask: torch.Tensor) -> torch.Tensor:
-        """One update on a u8 (B, S, S, 3) batch with padded GT (B, N, 4)
-        xyxy pixels, (B, N) classes and (B, N) bool mask. Returns the total
-        loss as a device tensor; the parts are added to ``loss_acc``. After
-        the call each parameter's ``.grad`` holds this step's gradient."""
+        """One micro-batch on a u8 (B, S, S, 3) batch with padded GT (B, N, 4)
+        xyxy pixels, (B, N) classes and (B, N) bool mask; the update at the
+        end of each accumulation window (every step by default). Returns the
+        total loss as a device tensor; the parts are added to ``loss_acc``.
+        Without accumulation each parameter's ``.grad`` then holds this
+        step's gradient."""
         self.optimizer.zero_grad()
         total, parts = self.loss(images, gt_boxes, gt_classes, gt_mask)
         total.backward()
-        self.optimizer.step(self.updates)
         self.updates += 1
-        ema_update(self.ema, [p.detach() for p in self.params], self.updates)
+        if self.optimizer.step():
+            ema_update(self.ema, [p.detach() for p in self.params], self.optimizer.updates)
         with torch.no_grad():
             for k in LOSS_PARTS:
                 self.loss_acc[k] += parts[k].detach()
         return total.detach()
+
+    def state(self) -> Dict[str, Any]:
+        """Parameters and BN statistics and EMA (on the host), the optimizer's
+        state and the count."""
+        return {"model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+                "ema": {k: v.cpu() for k, v in self.ema_state_dict().items()},
+                "optimizer": self.optimizer.state_dict(), "updates": self.updates}
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        """Restore what ``state()`` returned."""
+        self.model.load_state_dict(state["model"], strict=True)
+        ema = state["ema"]
+        with torch.no_grad():
+            for (name, _), e in zip(self.model.named_parameters(), self.ema):
+                e.copy_(ema[name])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.updates = int(state["updates"])
+
+
+def load_checkpoint(path) -> Dict[str, Any]:
+    """A checkpoint the port's Trainer wrote, on the host."""
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    if not isinstance(ckpt, dict) or ckpt.get("format") != CHECKPOINT_FORMAT:
+        raise NotImplementedError(
+            f"{path}: not a checkpoint of this package's Trainer; reading ultralytics "
+            ".pt files is not ported yet (ROADMAP.md section 1 item 1)")
+    return ckpt
+
+
+def inference_state_dict(ckpt: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The weights validation and predict use: the EMA parameters with the
+    live BN statistics."""
+    return {**ckpt["model"], **ckpt["ema"]}
+
+
+def _device_of(spec) -> torch.device:
+    spec = str(spec or "")
+    if spec in ("", "0"):
+        return resolve_device("cuda")
+    if spec == "cpu":
+        return resolve_device("cpu")
+    raise NotImplementedError(f"device={spec!r}: several devices are not ported yet "
+                              "(ROADMAP.md section 1 item 10); use '', '0' or 'cpu'")
+
+
+class Trainer:
+    """Train yolo11 on a YOLO-layout dataset.
+
+    >>> Trainer(TrainConfig(model="yolo11n", data="data.yaml", epochs=10)).train()
+
+    ``init_state_dict`` (the JAX ``init_variables``) starts from those
+    weights where their shapes fit, and from the fresh init elsewhere (a
+    class head under another nc). ``model="<run>/weights/best.pt"`` does the
+    same from a checkpoint of this Trainer."""
+
+    def __init__(self, config: TrainConfig,
+                 init_state_dict: Optional[Dict[str, torch.Tensor]] = None):
+        self.cfg = cfg = config
+        self._check_supported(cfg)
+        self.device = _device_of(cfg.device)
+        self._dev_cache = None
+        self._dev_cache_failed = False
+        self._val_staged = None
+        if str(cfg.model).endswith(".pt"):
+            ckpt = load_checkpoint(cfg.model)
+            self.scale = ckpt["scale"]
+            if init_state_dict is None:  # explicit weights win over the spec's
+                init_state_dict = inference_state_dict(ckpt)
+        else:
+            self.scale = parse_model_spec(cfg.model)
+
+        self.train_ds = YoloDataset.from_yaml(cfg.data, "train")
+        self.val_ds = YoloDataset.from_yaml(cfg.data, "val")
+        if cfg.cache and cfg.cache != "device":
+            self.train_ds.enable_cache()
+            self.val_ds.enable_cache()
+        if len(self.val_ds) == 0:
+            self.val_ds = self.train_ds
+        if cfg.fraction < 1.0:
+            n = max(1, round(len(self.train_ds) * cfg.fraction))
+            self.train_ds.images = self.train_ds.images[:n]
+            self.train_ds.labels = self.train_ds.labels[:n]
+        if cfg.single_cls:
+            for ds in {id(d): d for d in (self.train_ds, self.val_ds)}.values():
+                ds.labels = [np.concatenate([np.zeros_like(lab[:, :1]), lab[:, 1:]], axis=1)
+                             if len(lab) else lab for lab in ds.labels]
+                ds.names = ["item"]
+        self.nc = max(self.train_ds.nc, 1)
+        self.names = self.train_ds.names or [str(i) for i in range(self.nc)]
+
+        if cfg.device_augment is None:
+            cfg.device_augment = True
+        if not cfg.device_augment:
+            raise NotImplementedError(HOST_AUGMENT)
+        if cfg.cache is None:
+            cfg.cache = "device"
+        self.aug_cfg = DeviceAugConfig(
+            mosaic=cfg.mosaic, mixup=cfg.mixup, scale=cfg.scale, translate=cfg.translate,
+            degrees=cfg.degrees, shear=cfg.shear, hsv_h=cfg.hsv_h, hsv_s=cfg.hsv_s,
+            hsv_v=cfg.hsv_v, fliplr=cfg.fliplr, flipud=cfg.flipud, bgr=cfg.bgr)
+        if max(abs(cfg.degrees), abs(cfg.shear)) > 45.0:
+            print("degrees/shear above 45: the on-card augmentation samples every pixel "
+                  "by gather (the slow path)")
+        self.train_loader = DataLoader(self.train_ds, cfg.batch, cfg.imgsz, augment=True,
+                                       seed=cfg.seed, max_boxes=cfg.max_boxes)
+        self.val_loader = DataLoader(self.val_ds, cfg.batch, cfg.imgsz, augment=False,
+                                     seed=cfg.seed, max_boxes=cfg.max_boxes, keep_meta=True,
+                                     shuffle=False, drop_last=False)
+
+        steps_per_epoch = max(len(self.train_loader), 1)
+        eff_wd = cfg.weight_decay
+        self.accumulate = 1
+        if cfg.nbs:
+            self.accumulate = max(round(cfg.nbs / cfg.batch), 1)
+            total_steps = steps_per_epoch * max(cfg.epochs, 1)
+            if self.accumulate > total_steps:
+                # a window longer than the run would never apply an update
+                print(f"nbs={cfg.nbs}: accumulation window {self.accumulate} exceeds the "
+                      f"run's {total_steps} steps; cut to {total_steps}")
+                self.accumulate = total_steps
+            eff_wd = cfg.weight_decay * cfg.batch * self.accumulate / cfg.nbs
+        self.opt_cfg = OptimizerConfig(
+            name=cfg.optimizer, lr0=cfg.lr0, lrf=cfg.lrf, momentum=cfg.momentum,
+            weight_decay=eff_wd, warmup_epochs=cfg.warmup_epochs, cos_lr=cfg.cos_lr,
+            epochs=cfg.epochs, steps_per_epoch=max(steps_per_epoch // self.accumulate, 1))
+        self.lr_fn = lr_schedule(self.opt_cfg)
+        self.lr_fn_bias = lr_schedule(self.opt_cfg, warmup_start=self.opt_cfg.warmup_bias_lr)
+
+        self.run = RunDir(cfg.project, cfg.name, cfg.exist_ok)
+        self.run.write_args(dataclasses.asdict(cfg))
+
+        self.frozen = frozen_modules(cfg.freeze)
+        self.state = TrainState(
+            cfg, self.nc, steps_per_epoch, device=self.device,
+            state_dict=self._overlay(init_state_dict), opt_cfg=self.opt_cfg,
+            accumulate=self.accumulate, frozen=self.frozen)
+        self.start_epoch = 0
+        if cfg.resume:
+            self._try_resume()
+
+    @staticmethod
+    def _check_supported(cfg: TrainConfig) -> None:
+        missing = {"batch=-1 (autobatch)": cfg.batch < 0,
+                   "profile_steps": cfg.profile_steps > 0, "remat": bool(cfg.remat),
+                   "steps_per_dispatch > 1 (chunked dispatch)": (cfg.steps_per_dispatch or 1) > 1}
+        for what, asked in missing.items():
+            if asked:
+                raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md section 1 "
+                                          "item 6)")
+
+    def _overlay(self, init: Optional[Dict[str, torch.Tensor]]):
+        """``init`` laid over a fresh init where the shapes fit."""
+        if init is None:
+            return None
+        fresh = init_weights(YOLO11(nc=self.nc, scale=self.scale), self.cfg.seed).state_dict()
+        moved = [k for k, v in init.items() if k in fresh and fresh[k].shape == v.shape]
+        skipped = len(init) - len(moved)
+        for k in moved:
+            fresh[k] = init[k].detach().float().cpu()
+        print(f"loaded {len(moved)} tensors of the given weights"
+              + (f" ({skipped} of another shape keep the fresh init)" if skipped else ""))
+        return fresh
+
+    # ------------------------------------------------------------------ cache
+
+    def _ensure_device_cache(self):
+        """The whole train set on the device once: canvases, (h, w) and
+        padded GT. Every epoch then gathers its batches there; the only
+        upload a step is the (B,) index. None when over budget."""
+        if self._dev_cache is not None or self._dev_cache_failed:
+            return self._dev_cache
+        dl = self.train_loader
+        n = len(dl.ds)
+        per_img = dl.imgsz * dl.imgsz * 3 + dl.max_boxes * 24 + 16
+        need = (n + len(self.val_ds)) * per_img  # and the val batches kept there
+        budget = float(self.cfg.extra.get("cache_budget_gb", 8.0)) * 1e9
+        if n == 0 or need > budget or n < self.cfg.batch:
+            print(f"cache=device needs about {need / 1e9:.1f} GB (budget {budget / 1e9:.1f} "
+                  "GB) or a set of at least one batch; streaming instead")
+            self._dev_cache_failed = True
+            return None
+        t0 = time.time()
+        parts, offset = None, 0
+        for chunk in dl.raw_chunks():
+            if parts is None:
+                parts = tuple(torch.empty((n,) + a.shape[1:], dtype=torch.from_numpy(a).dtype,
+                                          device=self.device) for a in chunk)
+            for buf, a in zip(parts, chunk):
+                buf[offset:offset + len(a)].copy_(torch.from_numpy(a))
+            offset += len(chunk[0])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.cache_build_s = time.time() - t0
+        print(f"train set on the device: {n} images (~{need / 1e9:.2f} GB, "
+              f"{self.cache_build_s:.1f} s)")
+        self._dev_cache = parts
+        return parts
+
+    def _to_device(self, arrays):
+        pin = self.device.type == "cuda"
+        return tuple((torch.from_numpy(a).pin_memory() if pin else torch.from_numpy(a))
+                     .to(self.device, non_blocking=pin) for a in arrays)
+
+    # ------------------------------------------------------------------ ckpt
+
+    def _ckpt_dir(self) -> Path:
+        return (self.run.path / "weights").resolve()
+
+    def checkpoint(self, epoch: int, fit: float) -> Dict[str, Any]:
+        return {**self.state.state(), "format": CHECKPOINT_FORMAT, "epoch": epoch,
+                "fitness": fit, "nc": self.nc, "names": list(self.names),
+                "scale": self.scale, "imgsz": self.cfg.imgsz,
+                "train_args": json.loads(json.dumps(dataclasses.asdict(self.cfg), default=str))}
+
+    def save_checkpoint(self, tag: str, epoch: int, fit: float):
+        """weights/<tag>.pt, written whole or not at all."""
+        path = self._ckpt_dir() / f"{tag}.pt"
+        tmp = path.with_suffix(".pt.tmp")
+        torch.save(self.checkpoint(epoch, fit), tmp)
+        os.replace(tmp, path)
+        self._gc_epoch_checkpoints()
+
+    def _gc_epoch_checkpoints(self):
+        """Keep the newest cfg.keep_last epochN checkpoints (last and best stay)."""
+        k = self.cfg.keep_last
+        if not k or k <= 0:
+            return
+        epochs = {}
+        for p in self._ckpt_dir().glob("epoch*.pt"):
+            m = re.fullmatch(r"epoch(\d+)\.pt", p.name)
+            if m:
+                epochs[int(m.group(1))] = p
+        for n in sorted(epochs)[:-k]:
+            epochs[n].unlink()
+
+    def _try_resume(self):
+        path = self.cfg.resume
+        path = self._ckpt_dir() / "last.pt" if path is True else Path(str(path))
+        if not path.exists():
+            print(f"resume checkpoint {path} does not exist; training from the start")
+            return
+        ckpt = load_checkpoint(path)
+        self.state.load_state(ckpt)
+        self.start_epoch = int(ckpt["epoch"]) + 1
+        print(f"resumed from {path} (epoch {self.start_epoch})")
+
+    # ------------------------------------------------------------------ train
+
+    def augment(self, batch, seed: int):
+        """The on-card augmentation of one raw batch (on the device)."""
+        cfg = self.aug_cfg
+        if self.train_loader.mosaic_off:  # the close_mosaic hook
+            cfg = cfg._replace(mosaic=0.0, mixup=0.0)
+        return augment_batch(*batch, seed, self.cfg.imgsz, cfg, max_boxes=self.cfg.max_boxes)
+
+    def _epoch_batches(self, epoch: int):
+        """The epoch's raw batches on the device: gathered from the device
+        cache, or decoded on the host and copied in a background thread."""
+        if self.cfg.cache == "device" and self._ensure_device_cache() is not None:
+            cache = self._dev_cache
+            for idxs in self.train_loader.epoch_indices(epoch):
+                idx = torch.from_numpy(idxs).to(self.device)
+                yield tuple(t[idx] for t in cache)
+            return
+        yield from Prefetcher(
+            self.train_loader.epoch_raw(epoch), depth=self.cfg.workers,
+            transfer=lambda b: self._to_device((b.images, b.hw, b.gt_boxes, b.gt_classes,
+                                                b.gt_mask)))
+
+    def train(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        best_fit, best_epoch = -1.0, -1
+        t0 = time.time()
+        print(f"training yolo11{self.scale} nc={self.nc} imgsz={cfg.imgsz} batch={cfg.batch} "
+              f"device={self.device} epochs={cfg.epochs}")
+        for epoch in range(self.start_epoch, cfg.epochs):
+            if cfg.close_mosaic and cfg.epochs - epoch <= cfg.close_mosaic:
+                self.train_loader.mosaic_off = True
+            self.state.loss_acc = self.state.zero_loss_acc()
+            n_steps = 0
+            epoch_t0 = time.time()
+            for batch in self._epoch_batches(epoch):
+                self.state.step(*self.augment(batch, step_seed(cfg.seed, epoch, n_steps)))
+                n_steps += 1
+            t_dispatch = time.time()
+            losses = {"box_loss": 0.0, "cls_loss": 0.0, "dfl_loss": 0.0}
+            if n_steps:  # one read of the device sums an epoch
+                sums = torch.stack([self.state.loss_acc[k] for k in losses]).tolist()
+                losses = {k: v / n_steps for k, v in zip(losses, sums)}
+            lr_step = self.state.updates // self.accumulate  # in optimizer steps
+            t_stepsync = time.time()
+
+            metrics = {"precision": 0.0, "recall": 0.0, "map50": 0.0, "map": 0.0}
+            val_losses = {"box_loss": 0.0, "cls_loss": 0.0, "dfl_loss": 0.0}
+            if cfg.val and ((epoch + 1) % max(1, cfg.val_period) == 0
+                            or epoch == cfg.epochs - 1):
+                metrics, val_losses = self.validate()
+            t_val = time.time()
+
+            epoch_time = time.time() - epoch_t0
+            print(f"Epoch {epoch + 1}/{cfg.epochs}  box {losses['box_loss']:.4f} "
+                  f"cls {losses['cls_loss']:.4f} dfl {losses['dfl_loss']:.4f}  "
+                  f"mAP50 {metrics['map50']:.4f} mAP50-95 {metrics['map']:.4f}  "
+                  f"{n_steps * cfg.batch / max(epoch_time, 1e-9):.1f} img/s")
+            lr_now = float(self.lr_fn(lr_step))
+            self.run.append_results_row({
+                "epoch": epoch + 1, "time": round(time.time() - t0, 2),
+                "train/box_loss": losses["box_loss"], "train/cls_loss": losses["cls_loss"],
+                "train/dfl_loss": losses["dfl_loss"],
+                "metrics/precision(B)": metrics["precision"],
+                "metrics/recall(B)": metrics["recall"],
+                "metrics/mAP50(B)": metrics["map50"], "metrics/mAP50-95(B)": metrics["map"],
+                "val/box_loss": val_losses["box_loss"], "val/cls_loss": val_losses["cls_loss"],
+                "val/dfl_loss": val_losses["dfl_loss"],
+                # pg0/pg1: weights and BN (one schedule), pg2: biases
+                "lr/pg0": lr_now, "lr/pg1": lr_now, "lr/pg2": float(self.lr_fn_bias(lr_step)),
+            })
+
+            fit = fitness(metrics)
+            self.save_checkpoint("last", epoch, fit)
+            if fit > best_fit:
+                best_fit, best_epoch = fit, epoch
+                self.save_checkpoint("best", epoch, fit)
+            if cfg.save_period > 0 and (epoch + 1) % cfg.save_period == 0:
+                self.save_checkpoint(f"epoch{epoch + 1}", epoch, fit)
+            if cfg.time_phases:
+                print(f"  phases: dispatch {t_dispatch - epoch_t0:.2f}s  "
+                      f"step-sync {t_stepsync - t_dispatch:.2f}s  val {t_val - t_stepsync:.2f}s  "
+                      f"tail {time.time() - t_val:.2f}s")
+            if cfg.patience and epoch - best_epoch >= cfg.patience:
+                print(f"EarlyStopping: no improvement in {cfg.patience} epochs")
+                break
+            if cfg.time and (time.time() - t0) > cfg.time * 3600:
+                print(f"training time limit of {cfg.time} h reached")
+                break
+
+        final_metrics = self.validate()[0] if cfg.val else {}
+        print(f"training done in {time.time() - t0:.1f} s; results in {self.run.path}")
+        return {"save_dir": self.run.path, "best_fitness": best_fit, "metrics": final_metrics}
+
+    # ------------------------------------------------------------------ val
+
+    def eval_step(self, images, gt_boxes, gt_classes, gt_mask, inv, use_ema: bool = True):
+        """One validation batch on the device -> (detections (boxes, scores,
+        classes, n_det), their boxes in original-image pixels, the GT boxes
+        likewise, loss parts). ``inv`` (B, 5) is [r, pad_x, pad_y, w, h]."""
+        imgsz = (self.cfg.imgsz, self.cfg.imgsz)
+        box, cls = self.state.eval_forward(images, use_ema)
+        _, parts = detection_loss(box, cls, gt_classes, gt_boxes, gt_mask, imgsz,
+                                  self.state.loss_cfg)
+        boxes, scores = decode_predictions(box, cls, imgsz)
+        det = batched_nms(boxes, scores, conf_thres=self.cfg.conf, iou_thres=self.cfg.iou,
+                          pre_topk=1000, max_det=self.cfg.max_det)
+        pad = torch.stack([inv[:, 1], inv[:, 2], inv[:, 1], inv[:, 2]], -1)[:, None, :]
+        lim = torch.stack([inv[:, 3], inv[:, 4], inv[:, 3], inv[:, 4]], -1)[:, None, :]
+        scale = inv[:, 0][:, None, None]
+        unmap = lambda b: torch.minimum(torch.clamp((b - pad) / scale, min=0.0), lim)  # noqa: E731
+        return det, unmap(det[0]), unmap(gt_boxes), parts
+
+    def validate(self, use_ema: bool = True):
+        """Validate on the val set -> (metrics, mean val loss parts)."""
+        cfg = self.cfg
+        det_metrics = DetMetrics(nc=self.nc)
+        loss_parts: list = []
+        # COCO-format predictions: xywh in original pixels, image_id from the stem
+        json_records: Optional[list] = [] if cfg.save_json else None
+
+        def stage(batch):
+            # in the Prefetcher's thread: bucketing and the copy to the device
+            gtb, gtc, gtm = bucket_gt(batch.gt_boxes, batch.gt_classes, batch.gt_mask,
+                                      cfg.max_boxes)
+            inv = np.array([[m[2], m[3][0], m[3][1], m[1][1], m[1][0]] for m in batch.meta],
+                           np.float32)
+            return batch, gtm, self._to_device((batch.images, gtb, gtc, gtm, inv))
+
+        def dispatch(item):
+            batch, gtm, args = item
+            return (batch, gtm) + self.eval_step(*args, use_ema=use_ema)
+
+        def consume(staged):
+            batch, gtm, (_, osc, ocl, nd), pb, gb, parts = staged
+            loss_parts.append(parts)
+            osc, ocl, nd, pb, gb = (t.cpu().numpy() for t in (osc, ocl, nd, pb, gb))
+            for i in range(len(batch.images)):
+                n, m = int(nd[i]), gtm[i]
+                gcls = batch.gt_classes[i][:len(m)][m]
+                det_metrics.update(pb[i, :n], osc[i, :n], ocl[i, :n], gb[i][m], gcls)
+                if json_records is not None:
+                    stem = Path(batch.meta[i][0]).stem
+                    image_id = int(stem) if stem.isdigit() else stem
+                    for (x1, y1, x2, y2), s, c in zip(pb[i, :n], osc[i, :n], ocl[i, :n]):
+                        json_records.append({
+                            "image_id": image_id, "category_id": int(c),
+                            "bbox": [round(float(x1), 3), round(float(y1), 3),
+                                     round(float(x2 - x1), 3), round(float(y2 - y1), 3)],
+                            "score": round(float(s), 5)})
+
+        # one-batch pipeline: the host metrics of batch i overlap the device's
+        # work on batch i+1 (the copy to the host in consume() waits for it);
+        # the Prefetcher stages batch i+2 meanwhile. With the device cache the
+        # staged val batches stay on the device across epochs.
+        keep_staged = cfg.cache == "device" and self._dev_cache is not None
+        if keep_staged and self._val_staged is not None:
+            items = self._val_staged
+        else:
+            items = Prefetcher(self.val_loader.epoch(0), depth=2, transfer=stage)
+            if keep_staged:
+                items = self._val_staged = list(items)
+        staged = None
+        for item in items:
+            nxt = dispatch(item)
+            if staged is not None:
+                consume(staged)
+            staged = nxt
+        if staged is not None:
+            consume(staged)
+
+        val_losses = {"box_loss": 0.0, "cls_loss": 0.0, "dfl_loss": 0.0}
+        if loss_parts:  # one read of the device sums a pass
+            sums = torch.stack([torch.stack([p[k] for k in val_losses])
+                                for p in loss_parts]).sum(0).tolist()
+            val_losses = {k: v / len(loss_parts) for k, v in zip(val_losses, sums)}
+        result = det_metrics.compute()
+        if json_records is not None:
+            out = self.run.path / "predictions.json"
+            out.write_text(json.dumps(json_records), encoding="utf-8")
+            print(f"predictions saved to {out}")
+        return result, val_losses
+
+
+def make_config(model: str, data: str, **kwargs) -> TrainConfig:
+    """``TrainConfig`` fields by name, other keys into ``cfg.extra``."""
+    known = {f.name for f in dataclasses.fields(TrainConfig)}
+    cfg = TrainConfig(model=model, data=data, **{k: v for k, v in kwargs.items() if k in known})
+    cfg.extra.update({k: v for k, v in kwargs.items() if k not in known})
+    return cfg
+
+
+def train_run(model: str, data: str, **kwargs) -> Dict[str, Any]:
+    """One-call training with ``make_config``'s arguments."""
+    return Trainer(make_config(model, data, **kwargs)).train()

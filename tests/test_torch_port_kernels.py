@@ -11,11 +11,15 @@ import jax.numpy as jnp
 from deal_yolo_daya_tpu.models import blocks as jax_blocks
 from deal_yolo_daya_tpu.ops.pallas.area_attention import area_attention as jax_area_attention
 from deal_yolo_daya_tpu.ops.pallas.nms_suppress import suppress as jax_suppress
+from deal_yolo_daya_tpu.ops.pallas.score_reduce import score_reduce as jax_score_reduce
+from deal_yolo_daya_tpu.ops.pallas.score_reduce import score_reduce_xla as jax_score_reduce_xla
 from deal_yolo_daya_tpu_torch.models.blocks import PSAAttention
 from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa_mod
 from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as nms_mod
+from deal_yolo_daya_tpu_torch.ops.kernels import score_reduce as sr_mod
 from deal_yolo_daya_tpu_torch.ops.kernels.area_attention import area_attention
 from deal_yolo_daya_tpu_torch.ops.kernels.nms_suppress import nms_suppress
+from deal_yolo_daya_tpu_torch.ops.kernels.score_reduce import score_reduce
 
 
 @pytest.mark.parametrize("ba,n,heads,kd,hd", [(2, 35, 2, 32, 64), (3, 20, 1, 8, 16)])
@@ -210,9 +214,66 @@ def test_suppress_plain_bit_exact_with_jax_kernel(iou):
     assert 0 < int(keep.sum()) < int(valid.sum())  # cascades and suppressions both occur
 
 
+# ---------------------------------------------------------------- score_reduce
+# The cases of tests/test_pallas_kernels.py: scores within 1e-6 of the TPU
+# kernel's interpret mode and of score_reduce_xla (the same f32 sigmoid of the
+# same max; XLA's and PyTorch's sigmoid may differ in an ulp), classes exact.
+
+
+def _score_reduce_both(x: np.ndarray):
+    before = sr_mod.launches
+    got = score_reduce(torch.from_numpy(x) if x.dtype != jnp.bfloat16
+                       else torch.from_numpy(x.astype(np.float32)).bfloat16())
+    assert sr_mod.launches == before  # the CPU takes the plain version
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    xj = jnp.asarray(x)
+    return [t.numpy() for t in got], [np.asarray(a) for a in jax_score_reduce(xj, interpret=True)], \
+        [np.asarray(a) for a in jax_score_reduce_xla(xj)]
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 80), (1, 100, 3), (3, 8400, 80)])
+def test_score_reduce_plain_matches_jax_kernel(shape):
+    x = np.asarray(jnp.asarray(np.random.default_rng(0).normal(-3, 2, shape), jnp.bfloat16))
+    (s, c), (ks, kc), (xs, xc) = _score_reduce_both(x)
+    np.testing.assert_allclose(s, ks, atol=1e-6)
+    np.testing.assert_allclose(s, xs, atol=1e-6)
+    np.testing.assert_array_equal(c, kc)
+    np.testing.assert_array_equal(c, xc)
+
+
+def test_score_reduce_ties_go_to_the_lowest_class():
+    x = np.full((1, 8, 5), -2.0, np.float32)
+    x[0, 0, [1, 3]] = 1.0
+    x[0, 1, [0, 4]] = 0.5
+    x[0, 2, :] = -np.inf  # a row with no finite logit: class 0, score 0
+    (s, c), (ks, kc), _ = _score_reduce_both(x)
+    assert c[0, :3].tolist() == [1, 0, 0] and kc[0, :2].tolist() == [1, 0]
+    assert s[0, 2] == 0.0
+    np.testing.assert_allclose(s[0, 0], 1 / (1 + np.exp(-1.0)), atol=1e-6)
+    np.testing.assert_allclose(s[0, :2], ks[0, :2], atol=1e-6)
+
+
+def test_score_reduce_f32_input_and_strided_view():
+    """f32 logits, and the transposed (B, nc, A) -> (B, A, nc) view that
+    flatten_levels hands over: the wrapper reads strides, no copy needed."""
+    x = np.random.default_rng(1).normal(0, 1, (2, 300, 7)).astype(np.float32)
+    (s, c), (ks, kc), (xs, xc) = _score_reduce_both(x)
+    np.testing.assert_allclose(s, ks, atol=1e-6)
+    np.testing.assert_allclose(s, xs, atol=1e-6)
+    np.testing.assert_array_equal(c, kc)
+    np.testing.assert_array_equal(c, xc)
+    view = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1))).transpose(1, 2)
+    assert not view.is_contiguous()
+    vs, vc = score_reduce(view)
+    np.testing.assert_array_equal(vs.numpy(), s)
+    np.testing.assert_array_equal(vc.numpy(), c)
+
+
 def test_kernel_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         area_attention(torch.empty((1, 4, 128), device="meta"), 1, 64, 32)
     with pytest.raises(ValueError, match="no kernel"):
         nms_suppress(torch.empty((1, 4, 4), device="meta"),
                      torch.empty((1, 4), dtype=torch.bool, device="meta"), 0.5)
+    with pytest.raises(ValueError, match="no kernel"):
+        score_reduce(torch.empty((1, 4, 80), device="meta"))

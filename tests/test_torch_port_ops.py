@@ -151,3 +151,34 @@ def test_letterbox_matches_jax(h, w, size):
     nh, nw = round(h * r), round(w * r)
     assert (got[:py] == 114).all() and (got[py + nh:] == 114).all()
     assert (got[:, :px] == 114).all() and (got[:, px + nw:] == 114).all()
+
+
+def test_score_reduce_on_logits_differs_from_nms_on_sigmoid_only_at_f32_ties():
+    """Pinned behaviour, and the reason score_reduce is not wired into
+    batched_nms: NMS reduces sigmoid scores, score_reduce reduces logits.
+    Where two logits' f32 sigmoids are equal (both 1.0 above ~16.6, or two
+    logits closer than the sigmoid's resolution), NMS takes the lower class,
+    as the JAX package's batched_nms does, and score_reduce the larger
+    logit. The max score is the same either way; elsewhere the classes
+    agree."""
+    from deal_yolo_daya_tpu_torch.ops.kernels.score_reduce import score_reduce
+
+    logits = np.full((1, 4, 3), -5.0, np.float32)
+    logits[0, 0, :2] = (17.0, 20.0)                 # both sigmoids are 1.0
+    logits[0, 1, :2] = (3.0, np.nextafter(np.float32(3.0), np.float32(4.0)))
+    logits[0, 2, :2] = (1.0, 2.0)                   # no tie: both agree
+    logits[0, 3, 2] = 0.5
+    x = torch.from_numpy(logits)
+    sig = torch.sigmoid(x)
+    assert sig[0, 0, 0] == sig[0, 0, 1] == 1.0 and sig[0, 1, 0] == sig[0, 1, 1]
+    boxes_ = torch.tensor([[[0.0, 0, 10, 10], [20, 0, 30, 10], [40, 0, 50, 10], [60, 0, 70, 10]]])
+    _, nms_scores, nms_cls, n_det = batched_nms(boxes_, sig, conf_thres=0.1, iou_thres=0.7)
+    want_s, want_c = (np.asarray(a) for a in jax_batched_nms(
+        jnp.asarray(boxes_.numpy()), jnp.asarray(sig.numpy()), conf_thres=0.1, iou_thres=0.7)[1:3])
+    np.testing.assert_array_equal(nms_cls.numpy(), want_c)
+    score, cls = score_reduce(x)
+    # the boxes do not overlap and the scores fall: NMS keeps the anchor order
+    assert int(n_det[0]) == 4 and nms_cls[0, :4].tolist() == [0, 0, 1, 2]
+    assert cls[0].tolist() == [1, 1, 1, 2]
+    np.testing.assert_array_equal(score[0].numpy(), nms_scores[0, :4].numpy())
+    np.testing.assert_array_equal(score[0].numpy(), want_s[0, :4])

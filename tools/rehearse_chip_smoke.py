@@ -45,6 +45,11 @@ REPLACEMENTS = [
     ("seed=args.seed, dtype=torch.float32)", 'seed=args.seed, dtype=torch.float32, device="cpu")'),
     ("ProfilerActivity.CPU, ProfilerActivity.CUDA", "ProfilerActivity.CPU"),
     (", 200)", ", 2)"), (", 50)", ", 2)"), (", 20)", ", 2)"), (", 10)", ", 2)"),
+    ("TRAINER_IMAGES = (256, 64)", "TRAINER_IMAGES = (8, 4)"),
+    ("TRAINER_SIDES = (480, 801)", "TRAINER_SIDES = (96, 161)"),
+    ("TRAINER_BATCH = 32", "TRAINER_BATCH = 4"),
+    ('device="0"', 'device="cpu"'),
+    ('"best.pt"), dtype=torch.float32)', '"best.pt"), dtype=torch.float32, device="cpu")'),
 ]
 
 
@@ -85,6 +90,7 @@ def _route_kernels_to_plain(torch):
     from deal_yolo_daya_tpu_torch.ops.kernels import _build
     from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
     from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
+    from deal_yolo_daya_tpu_torch.ops.kernels import score_reduce as sr
 
     _build.build = lambda *a, **k: {}
 
@@ -99,6 +105,10 @@ def _route_kernels_to_plain(torch):
     def suppress(boxes, valid, thr):
         ns.launches += 1
         return ns.nms_suppress_plain(boxes, valid, thr)
+
+    def reduce(logits):
+        sr.launches += 1
+        return sr.score_reduce_plain(logits)
 
     class AreaAttention(torch.autograd.Function):
         @staticmethod
@@ -117,6 +127,7 @@ def _route_kernels_to_plain(torch):
     aa.area_attention_fwd, aa.area_attention_bwd = fwd, bwd
     aa.AreaAttention = AreaAttention
     ns.nms_suppress = nms_ops.nms_suppress = suppress
+    sr.score_reduce = reduce
 
 
 def main() -> int:
