@@ -9,7 +9,7 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
 1. environment: card name and power limit, torch and CUDA versions;
 2. build: every kernel under ``deal_yolo_daya_tpu_torch/csrc`` is compiled
    (all nvcc processes at once) and ptxas' registers, shared memory and spills
-   are printed;
+   are printed; the attention sources must show 0 spill bytes;
 3. attention kernels vs plain: yolo11n's C2PSA shape (32 x 400 tokens, 2
    heads, key_dim 32, head_dim 64) and the ragged 35 and 1600 tokens, in bf16
    and f32, at stated tolerances, the forward (``v`` exact) and the backward;
@@ -19,13 +19,15 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    weights from ``--seed`` predicts 64 numpy-made images of mixed sizes at
    batch 32 and conf 0.001, in bf16. The launch counts are set to 0 just
    before and read just after; the kernels' inputs on that path are recorded
-   and both kernels are held against their plain versions on them. Then, in
+   and both kernels are held against their plain versions on them, and the
+   attention forward against itself (two launches bit-identical). Then, in
    f32 with TF32 off, the decoded (boxes, scores) before NMS through the
    kernel against the same path through the plain attention;
-6. times: each kernel (CUDA events, warm, many launches) at the main path's
-   inputs, its plain version, its bound from the shapes, the library call
-   where one exists; predict's end-to-end img/s with the host letterbox and
-   the device work apart;
+6. times: each kernel at the main path's inputs, as its device time a call
+   under torch.profiler and as the time a call costs with the host (CUDA
+   events around 200 calls), its plain version, its bound from the shapes,
+   the library call where one exists (both ways); predict's end-to-end img/s
+   with the host letterbox and the device work apart;
 7. profile: one predict under torch.profiler, the device's busy share and the
    kernels that take its time;
 8. the train step, the second main path: ``TrainState`` for yolo11n, nc 80,
@@ -34,12 +36,12 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    launch counts are set to 0 just before and read just after (each step
    must launch the attention forward and backward); every loss must be
    finite; both kernels are held against their plain versions on the inputs
-   they got on that path;
+   they got on that path, and against themselves (bit-identical twice);
 9. f32 with TF32 off, batch 4: every parameter gradient of a train step
    through the kernels against the same step through the plain attention;
-10. times: the backward kernel at the train path's inputs, its plain
-   version, SDPA's backward alone, its bound; the train step's ms and img/s
-   (CUDA events, warm, median);
+10. times: the backward kernel at the train path's inputs (device time and
+   a call's time, as in 6), its plain version, SDPA's backward alone, its
+   bound; the train step's ms and img/s (CUDA events, warm, median);
 11. profile: one train step under torch.profiler;
 12. the Trainer, the third main path: a shapes dataset (circles, squares,
    triangles; 256 train and 64 val PNG sources of 480-800 px on the long
@@ -60,8 +62,8 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    and on crafted rows (exact ties, rows of -inf or -3e38, 37 classes),
    against its plain version: classes and scores bit-identical. Against
    batched_nms' sigmoid-then-argmax on the same logits, every differing
-   class must be a tie of f32 sigmoids. Times: kernel, plain, torch.max with
-   sigmoid, bound. No path calls the kernel: like the JAX package, NMS
+   class must be a tie of f32 sigmoids. Times (as in 6): kernel, plain,
+   torch.max with sigmoid, bound. No path calls the kernel: like the JAX package, NMS
    reduces sigmoid scores.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
@@ -148,6 +150,39 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, calls: int = 50):
+    """Mean device time a call of ``fn`` under torch.profiler: the self
+    device time of every kernel launched in a window of ``calls`` warm calls,
+    over ``calls``. -> (ms, {kernel name: its ms a call}); (0.0, {}) when the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    return sum(us for _, us in rows) / calls / 1e3, {k: us / calls / 1e3 for k, us in rows}
+
+
+def call_and_device_ms(fn, what: str):
+    """The time a call of ``fn`` costs its caller, host included (CUDA events
+    around 200 calls in a row), and its device time (``device_time_ms``)
+    -> (call ms, device ms, text for the log). Fails when the profiler saw
+    no device time."""
+    call_ms = cuda_time_ms(fn, 200)
+    dev_ms, per_kernel = device_time_ms(fn)
+    check(dev_ms > 0, f"the profiler recorded no device time for {what}")
+    parts = "; ".join(f"{k[:70]} {v:.4f}" for k, v in sorted(per_kernel.items()))
+    return call_ms, dev_ms, (f"device {dev_ms:.4f} ms ({parts}), a call {call_ms:.4f} ms with "
+                             "the host")
 
 
 def make_images(seed: int, count: int):
@@ -401,6 +436,12 @@ def main() -> int:
                  if any(w in ln for w in ("registers", "spill", "smem", "Compiling", "built"))]
         for ln in lines:
             log(f"[ptxas {name}] {ln}")
+    # the wgmma kernels keep their accumulators in registers: no spills
+    for name in ("area_attention", "area_attention_bwd"):
+        if name in logs:
+            spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
+            check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                                       for ln in spills), f"ptxas reports spills in {name}")
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references are true f32
     torch.backends.cudnn.allow_tf32 = False
@@ -432,6 +473,15 @@ def main() -> int:
             f"{int(valid.sum())} valid, mismatched bits {bad}")
         check(bad == 0, f"nms {label}: keep mask differs in {bad} places")
         return bad
+
+    def bit_identical(label, kernel, *args) -> None:
+        """Two launches of a kernel on the same inputs give the same bits."""
+        first, second = ((x if isinstance(x, tuple) else (x,))
+                         for x in (kernel(*args), kernel(*args)))
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(first, second))
+        log(f"[determinism] {label}: two launches bit-identical {same}")
+        check(same, f"{label}: two launches differ")
 
     # 3. attention kernel vs its plain version: yolo11n's C2PSA shape (n=400
     # at imgsz 640), the ragged n=35 and n=1600 (imgsz 1280), f32 and bf16
@@ -523,6 +573,8 @@ def main() -> int:
     # the kernels against their plain versions on the main path's own inputs
     attn_err_main = max(attention_parity(f"main-path call {i}", q, a)
                         for i, (q, a) in enumerate(recorded["attn"]))
+    for i, (q, a) in enumerate(recorded["attn"]):
+        bit_identical(f"attention main-path call {i}", aa.area_attention_fwd, q, *a)
     mismatched = sum(nms_parity(f"main-path call {i}", b, v, t)
                      for i, (b, v, t) in enumerate(recorded["nms"]))
 
@@ -554,17 +606,20 @@ def main() -> int:
           "f32 decoded outputs differ between the kernel and plain paths")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, for the timings
 
-    # 6. times
+    # 6. times: each kernel's device time a call from torch.profiler, and
+    # the time a call costs its caller, host included (CUDA events around 200
+    # calls in a row); the same two for the library call
     kernels = []
     qkv, (heads, hd, kd) = recorded["attn"][0]
     ba, n, _ = qkv.shape
-    ms = cuda_time_ms(lambda: aa.area_attention(qkv, heads, hd, kd), 200)
+    ms, dev_ms, kernel_text = call_and_device_ms(
+        lambda: aa.area_attention(qkv, heads, hd, kd), "area_attention")
     plain_ms = cuda_time_ms(lambda: aa.area_attention_plain(qkv, heads, hd, kd), 50)
     split = qkv.view(ba, n, heads, 2 * kd + hd)
     q, k, v = (t.transpose(1, 2) for t in (split[..., :kd], split[..., kd:2 * kd],
                                            split[..., 2 * kd:]))
-    library_ms = cuda_time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 200)
+    library_ms, lib_dev_ms, library_text = call_and_device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), "sdpa")
     nbytes = qkv.numel() * qkv.element_size() * (1 + 2 * heads * hd / qkv.shape[2])
     flops = 2.0 * ba * heads * n * n * (kd + hd)
     peak = BF16_FLOPS if qkv.dtype == torch.bfloat16 else F32_FLOPS
@@ -574,16 +629,18 @@ def main() -> int:
         "source": "deal_yolo_daya_tpu_torch/csrc/area_attention.cu",
         "replaces": "deal_yolo_daya_tpu/ops/pallas/area_attention.py:46",
         "launches": launches["area_attention"], "max_abs_err": attn_err_main,
-        "tol": ATTN_TOL["bfloat16"], "ms": ms, "plain_ms": plain_ms,
+        "tol": ATTN_TOL["bfloat16"], "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "shape": list(qkv.shape), "dtype": str(qkv.dtype),
+        "library_ms": library_ms, "library_device_ms": lib_dev_ms, "shape": list(qkv.shape),
+        "dtype": str(qkv.dtype),
     })
-    log(f"[time] area_attention {tuple(qkv.shape)} {qkv.dtype}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-        f"(bytes {t_bytes:.4f}, ops {t_ops:.4f})")
+    log(f"[time] area_attention {tuple(qkv.shape)} {qkv.dtype}: kernel {kernel_text}; plain "
+        f"{plain_ms:.4f} ms; sdpa {library_text}; bound {max(t_bytes, t_ops):.4f} ms (bytes "
+        f"{t_bytes:.4f}, ops {t_ops:.4f})")
 
     boxes, valid, thr = recorded["nms"][0]
-    ms = cuda_time_ms(lambda: ns.nms_suppress(boxes, valid, thr), 200)
+    ms, dev_ms, kernel_text = call_and_device_ms(lambda: ns.nms_suppress(boxes, valid, thr),
+                                                 "nms_suppress")
     plain_ms = cuda_time_ms(lambda: ns.nms_suppress_plain(boxes, valid, thr), 10)
     nv = valid.sum(1).double()
     pairs = float((nv * (nv - 1) / 2).sum())
@@ -594,12 +651,13 @@ def main() -> int:
         "source": "deal_yolo_daya_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "deal_yolo_daya_tpu/ops/pallas/nms_suppress.py:31",
         "launches": launches["nms_suppress"], "max_abs_err": float(mismatched),
-        "tol": 0, "ms": ms, "plain_ms": plain_ms,
+        "tol": 0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None, "shape": list(boxes.shape), "valid_pairs": pairs,
+        "library_ms": None, "library_device_ms": None, "shape": list(boxes.shape),
+        "valid_pairs": pairs,
     })
-    log(f"[time] nms_suppress {tuple(boxes.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.5f}, ops {t_ops:.4f}; "
+    log(f"[time] nms_suppress {tuple(boxes.shape)}: kernel {kernel_text}; plain {plain_ms:.4f} "
+        f"ms; bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.5f}, ops {t_ops:.4f}; "
         f"{pairs:.0f} valid pairs)")
 
     # the host letterbox alone, warm, median of 3 passes; each canvas is
@@ -700,6 +758,11 @@ def main() -> int:
                         for i, (q, a) in enumerate(train_rec["fwd"]))
     bwd_err_train = max(backward_parity(f"train-path call {i}", q, do, dv, a)
                         for i, (q, do, dv, a) in enumerate(train_rec["bwd"]))
+    for i, (q, a) in enumerate(train_rec["fwd"]):
+        bit_identical(f"attention train-path call {i}", aa.area_attention_fwd, q, *a)
+    for i, (q, do, dv, a) in enumerate(train_rec["bwd"]):
+        bit_identical(f"attention bwd train-path call {i}", aa.area_attention_bwd, q, do, dv,
+                      *a)
 
     # 9. f32 with TF32 off, batch 4: every parameter gradient of one train
     # step through the kernels against the same step through the plain
@@ -733,11 +796,13 @@ def main() -> int:
     check(grad_worst[0] <= 1.0, f"f32 gradient of {grad_worst[1]} differs between the paths")
     torch.backends.cudnn.allow_tf32 = True
 
-    # 10. times: the backward kernel at the train path's inputs, its plain
+    # 10. times: the backward kernel at the train path's inputs (device time
+    # from torch.profiler, and a call's time with the host), its plain
     # version, SDPA's backward alone, the bound; then the train step
     qkv_b, do_b, dv_b, (heads, hd, kd) = train_rec["bwd"][0]
     ba, n, _ = qkv_b.shape
-    ms = cuda_time_ms(lambda: aa.area_attention_bwd(qkv_b, do_b, dv_b, heads, hd, kd), 200)
+    ms, dev_ms, kernel_text = call_and_device_ms(
+        lambda: aa.area_attention_bwd(qkv_b, do_b, dv_b, heads, hd, kd), "area_attention_bwd")
     plain_ms = cuda_time_ms(lambda: aa.area_attention_bwd_plain(qkv_b, do_b, dv_b, heads, hd, kd),
                             20)
     split = qkv_b.view(ba, n, heads, 2 * kd + hd)
@@ -745,8 +810,11 @@ def main() -> int:
                for t in (split[..., :kd], split[..., kd:2 * kd], split[..., 2 * kd:]))
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
     sdpa_grad = do_b.view(ba, n, heads, hd).transpose(1, 2).contiguous()
-    library_ms = cuda_time_ms(
-        lambda: torch.autograd.grad(sdpa_out, (q, k, v), sdpa_grad, retain_graph=True), 200)
+
+    def sdpa_backward():
+        torch.autograd.grad(sdpa_out, (q, k, v), sdpa_grad, retain_graph=True)
+
+    library_ms, lib_dev_ms, library_text = call_and_device_ms(sdpa_backward, "sdpa backward")
     nbytes = (2 * qkv_b.numel() + do_b.numel() + dv_b.numel()) * qkv_b.element_size()
     flops = 2.0 * ba * heads * n * n * (3 * kd + 2 * hd)  # QK^T, dP, dV, dQ, dK
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
@@ -757,14 +825,15 @@ def main() -> int:
         "source": "deal_yolo_daya_tpu_torch/csrc/area_attention_bwd.cu",
         "replaces": "deal_yolo_daya_tpu/ops/pallas/area_attention.py:69",
         "launches": train_launches["area_attention_bwd"], "max_abs_err": bwd_err_train,
-        "tol": BWD_TOL["bfloat16"], "ms": ms, "plain_ms": plain_ms,
+        "tol": BWD_TOL["bfloat16"], "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "shape": list(qkv_b.shape), "dtype": str(qkv_b.dtype),
+        "library_ms": library_ms, "library_device_ms": lib_dev_ms, "shape": list(qkv_b.shape),
+        "dtype": str(qkv_b.dtype),
     })
-    log(f"[time] area_attention_bwd {tuple(qkv_b.shape)} {qkv_b.dtype}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} for {nbytes / 1e6:.2f} MB, ops "
-        f"{t_ops:.4f} for {flops / 1e9:.2f} GFLOP)")
+    log(f"[time] area_attention_bwd {tuple(qkv_b.shape)} {qkv_b.dtype}: kernels {kernel_text}; "
+        f"plain {plain_ms:.4f} ms; sdpa backward {library_text}; bound {max(t_bytes, t_ops):.4f} "
+        f"ms (bytes {t_bytes:.4f} for {nbytes / 1e6:.2f} MB, ops {t_ops:.4f} for "
+        f"{flops / 1e9:.2f} GFLOP)")
 
     for _ in range(2):
         state.step(train_x, *train_gt)
@@ -1127,9 +1196,10 @@ def main() -> int:
     # times at the predict path's shape: the kernel, its plain version, and
     # the library call torch.max(x, -1) followed by the sigmoid of its values
     xb = logits_rec["predict"][0]
-    ms = cuda_time_ms(lambda: sr.score_reduce(xb), 200)
+    ms, dev_ms, kernel_text = call_and_device_ms(lambda: sr.score_reduce(xb), "score_reduce")
     plain_ms = cuda_time_ms(lambda: sr.score_reduce_plain(xb), 50)
-    library_ms = cuda_time_ms(lambda: torch.sigmoid(torch.max(xb, dim=-1).values.float()), 200)
+    library_ms, lib_dev_ms, library_text = call_and_device_ms(
+        lambda: torch.sigmoid(torch.max(xb, dim=-1).values.float()), "torch.max + sigmoid")
     xf = xb.float()
     ms_f32 = cuda_time_ms(lambda: sr.score_reduce(xf), 200)
     nbytes = xb.numel() * xb.element_size() + xb.shape[0] * xb.shape[1] * 8
@@ -1145,16 +1215,17 @@ def main() -> int:
                        "package)",
         "launches_main_paths": {"predict": launches["score_reduce (not on the path)"],
                                 "trainer": trainer_launches["score_reduce (not on the path)"]},
-        "max_abs_err": reduce_err, "tol": SCORE_TOL, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "shape": list(xb.shape), "dtype": str(xb.dtype),
+        "max_abs_err": reduce_err, "tol": SCORE_TOL, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms,
+        "library_device_ms": lib_dev_ms, "shape": list(xb.shape), "dtype": str(xb.dtype),
         "classes_differing_from_nms_front_half": nms_diffs,
     })
     kernels[0]["launches_trainer"] = trainer_launches["area_attention"]
     kernels[1]["launches_trainer"] = trainer_launches["nms_suppress"]
     kernels[2]["launches_trainer"] = trainer_launches["area_attention_bwd"]
-    log(f"[time] score_reduce {tuple(xb.shape)} {xb.dtype}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.max + sigmoid {library_ms:.4f} ms, bound "
+    log(f"[time] score_reduce {tuple(xb.shape)} {xb.dtype}: kernel {kernel_text}; plain "
+        f"{plain_ms:.4f} ms; torch.max + sigmoid {library_text}; bound "
         f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} for {nbytes / 1e6:.2f} MB, ops "
         f"{t_ops:.5f}); f32 input {ms_f32:.4f} ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -2,210 +2,201 @@
 //
 // Replaces the TPU kernel deal_yolo_daya_tpu/ops/pallas/area_attention.py::_kernel.
 // For each (batch x area) chunk and head: out = softmax(q k^T * key_dim^-1/2) v,
-// with f32 scores and an f32 accumulator, plus the contiguous per-head-concat
-// copy of v that the positional-encoding conv reads.
+// with f32 scores, P rounded to bf16 before P.V, and an f32 accumulator, plus
+// the contiguous per-head-concat copy of v that the positional-encoding conv
+// reads.
 //
 // Layout: qkv (BA, n, heads*(2*KD+HD)), per head interleaved q|k|v columns;
 // out and v are (BA, n, heads*HD).
 //
-// What bounds it: at the yolo11n shape (BA=32, n=400, 2 heads, KD=32, HD=64)
-// the function moves ~13 MB (a few microseconds of HBM time) and does ~2
-// GFLOP, so the card's bound is the bytes. The TPU kernel kept a chunk's whole
-// (n, n) score tile in VMEM; on Hopper 400x400 f32 is 640 KB against 227 KB
-// of shared memory per block, so both kernels here stream key/value tiles
-// through shared memory with an online softmax (flash-attention style): the
-// (n, n) scores never reach device memory, and rows past the ragged edge
-// (n = 400 is not a multiple of the tile) are zero-filled and masked.
+// What bounds it: at the yolo11n shape (BA=32, n=400, 2 heads, KD=32, HD=64,
+// bf16) the function moves 13 MB (3.9 us of HBM time) and does 2.1 GFLOP
+// (2.1 us of bf16 tensor time), so the card's bound is the bytes. The TPU
+// kernel kept a chunk's whole (n, n) score tile in VMEM; on Hopper 400x400
+// f32 is 640 KB against 227 KB of shared memory a block, so the kernel
+// streams key/value tiles with an online softmax (flash-attention style) and
+// the scores never reach device memory. With ~9 us of work spread over 132
+// SMs, what bounds it in practice is latency: each block's chain of copies,
+// products and softmax steps.
 //
-// - bf16 (the predict path): attention_bf16_kernel. One block of 4 warps owns
-//   64 query rows of one (chunk, head); each warp owns 16 rows. Q.K^T and P.V
-//   run on the tensor cores through WMMA 16x16x16 bf16 tiles with f32
-//   accumulators. Each warp stores its 16 x 64 score tile to shared memory,
-//   two lanes per row run the online softmax on it in f32 and write P back
-//   as bf16 (as the TPU kernel casts P to the input dtype before P.V), the
-//   warp's f32 output rows in shared memory are rescaled, and P.V is
-//   accumulated onto them by the tensor cores.
+// - bf16 (the predict and train paths): attention_bf16_kernel. One
+//   warpgroup (128 threads) a block owns 64 query rows of one (chunk, head).
+//   Key/value rows stream in tiles of 80 (n = 400 is 5 tiles; 80 is a legal
+//   wgmma N) through a ring of 3 stages in shared memory: thread 0 copies Q
+//   and the first three K|V tiles by TMA at the start, each stage completing
+//   on its own mbarrier, and refills a stage as soon as the warpgroup is done
+//   with it, so two tiles are in flight while the third is computed on. The
+//   TMA maps are 3-D (chunk, row, column): rows past n inside a chunk come in
+//   as zeros, and key columns >= n are masked to -inf before the row max.
+//   S = Q K^T is two wgmma m64n80k16 from shared memory (64-byte swizzled
+//   rows); the online softmax runs on the accumulator in registers (a row
+//   lives in the 4 lanes of a quad: two shuffles for its max; the sum stays
+//   per lane until the end); P is rounded to bf16 in registers and is the
+//   register A operand of O += P V, five wgmma m64n64k16 with V's tile as the
+//   MN-major B operand (128-byte swizzled rows); O stays in registers. The
+//   epilogue scales O by 1/l, rounds to bf16 and writes 16 bytes a lane
+//   through a per-warp bf16 staging tile, and copies the v rows of its own
+//   query rows. No score, P or O tile goes through shared memory.
+//   Occupancy: 51 KB of shared memory and at most 128 registers a thread
+//   (ptxas: 105) give 4 blocks an SM, so the 32 x 2 x 7 = 448 blocks of the
+//   main shape run in one wave (528 slots). 64-row query tiles leave 48 of
+//   the last tile's rows idle at n = 400. The exponentials are one MUFU
+//   ex2.approx.ftz each (a ~6% gain over exp2f).
 // - f32 (the reference precision): attention_f32_kernel runs the dot products
 //   on the f32 CUDA cores, exact in f32; each query row is owned by TPR
 //   neighbouring lanes that split the columns and combine q.k partial sums
 //   with two warp shuffles.
 //
-// wgmma and TMA come later. The launches allocate nothing and run on the
-// caller's stream; the C entry returns cudaGetLastError() so the Python
-// wrapper can raise.
+// Measured (profiler device time at the main shape, tools/time_attention_kernels.py
+// and chip_smoke.py, NVIDIA H100 80GB HBM3 at a 700 W power limit):
+// 0.0106-0.0108 ms, 2.7x the 0.0039 ms bound, against 0.0941 ms for the
+// earlier WMMA design whose tiles went through shared memory, and
+// 0.0151-0.0158 ms for scaled_dot_product_attention.
+// The launches allocate nothing and run on the caller's stream; the C entry
+// returns cudaGetLastError() (or the error of a refused TMA map) so the
+// Python wrapper can raise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <mma.h>
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace hopper;
 
-constexpr unsigned FULL = 0xffffffffu;
+// ---------------------------------------------------- bf16, wgmma and TMA
 
-// ---------------------------------------------------------------- bf16, WMMA
+constexpr int QT = 64;          // query rows a block (one warpgroup)
+constexpr int KT = 80;          // key rows a streamed tile
+constexpr int STAGES = 3;       // K|V tiles in the ring
+constexpr int W_THREADS = 128;  // one warpgroup
 
-constexpr int WQ = 64;             // query rows per block (16 per warp)
-constexpr int WK = 64;             // key rows per shared-memory tile
-constexpr int W_THREADS = 128;     // 4 warps
-constexpr int T = 16;              // WMMA tile edge
-// Shared-memory rows are padded by 16 bytes, so the 8 rows a WMMA load or
-// store touches at once fall in 8 different bank groups.
-constexpr int PAD16 = 8;           // bf16 elements
-constexpr int PAD32 = 4;           // f32 elements
-
-// Copy `rows` rows of `cols` bf16 (a multiple of 8) from a row-major global
-// source with row stride `ld` into shared memory with row stride cols +
-// PAD16; rows past `valid` are zeros.
-template <int ROWS_, int COLS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          size_t ld, int valid) {
-  constexpr int VECS = COLS / 8;
-  for (int e = threadIdx.x; e < ROWS_ * VECS; e += W_THREADS) {
-    const int r = e / VECS, c = (e % VECS) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * (COLS + PAD16) + c) = val;
-  }
-}
-
-// Dynamic shared memory of the bf16 kernel (row strides padded), f32 arrays
-// first: per warp a 16 x WK score tile, a 16 x HD output accumulator and
-// 2 x 16 row factors; then bf16: one K and one V tile, per warp a 16 x WK P
-// tile. The block's Q tile is staged in the P tiles' space before the first
-// P is written.
+// Dynamic shared memory from its first 1024-byte boundary: the V stages,
+// the K stages, the Q tile, then the barriers (Q's, one a stage). Every tile
+// starts on a 1024-byte boundary.
 template <int KD, int HD>
-struct Bf16Smem {
-  static constexpr int LS = WK + PAD32, LO = HD + PAD32;       // f32 row strides
-  static constexpr int LQ = KD + PAD16, LV = HD + PAD16, LP = WK + PAD16;
-  static constexpr int SS = 4 * T * LS, OS = 4 * T * LO, RS = 4 * 2 * T;
-  static constexpr int KS = WK * LQ, VS = WK * LV, PS = 4 * T * LP;
-  static_assert(WQ * LQ <= PS, "the Q tile fits in the P tiles");
-  static constexpr size_t bytes =
-      (SS + OS + RS) * sizeof(float) + (KS + VS + PS) * sizeof(__nv_bfloat16);
+struct FwdSmem {
+  static constexpr int K_BYTES = KT * KD * 2, V_BYTES = KT * HD * 2, Q_BYTES = QT * KD * 2;
+  static constexpr int V_OFF = 0, K_OFF = STAGES * V_BYTES, Q_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int BAR_OFF = Q_OFF + Q_BYTES;
+  static constexpr size_t bytes = BAR_OFF + 8 * (STAGES + 1) + 1024;
+  static_assert(K_BYTES % 1024 == 0 && V_BYTES % 1024 == 0 && Q_BYTES % 1024 == 0,
+                "tiles on 1024-byte boundaries");
+  static_assert(staging_bytes<HD / 8>() <= STAGES * V_BYTES, "the epilogue stages in the V ring");
+};
+
+struct FwdMaps {
+  CUtensorMap q, k, v;  // qkv boxes: QT x KD, KT x KD, KT x HD
 };
 
 template <int KD, int HD>
-__global__ void __launch_bounds__(W_THREADS)
-attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-                      __nv_bfloat16* __restrict__ vout, int n, int heads, float scale) {
-  static_assert(KD % T == 0 && HD % T == 0 && WK == 64, "WMMA tiles, 32 score columns a lane");
-  using L = Bf16Smem<KD, HD>;
-  constexpr int SC = WK / 2;        // score columns per lane (two lanes a row)
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* ss = reinterpret_cast<float*>(smem);
-  float* os = ss + L::SS;
-  float* rs = os + L::OS;
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(rs + L::RS);
-  __nv_bfloat16* vs = ks + L::KS;
-  __nv_bfloat16* ps = vs + L::VS;
-  __nv_bfloat16* qs = ps;  // until the loop's first barrier
+__global__ void __launch_bounds__(W_THREADS, 4)
+attention_bf16_kernel(const __grid_constant__ FwdMaps maps, const bf16* __restrict__ qkv,
+                      bf16* __restrict__ out, bf16* __restrict__ vout, int n, int heads,
+                      float scale) {
+  static_assert(KD == 32 && (HD == 64 || HD == 32), "wgmma shapes instantiated here");
+  using L = FwdSmem<KD, HD>;
+  using QK = Tile<KD * 2>;
+  using V = Tile<HD * 2>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_u32(smem), bar_q = base + L::BAR_OFF;
 
-  const int chunk = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * WQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunk = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * QT;
   const int stride = 2 * KD + HD, total = heads * stride, dim = heads * HD;
-  const __nv_bfloat16* base = qkv + (size_t)chunk * n * total + (size_t)head * stride;
-  float* s_w = ss + warp * T * L::LS;          // this warp's scores
-  float* o_w = os + warp * T * L::LO;          // this warp's unnormalised output rows
-  float* corr_w = rs + warp * 2 * T;           // per row: rescale of this tile
-  float* l_w = corr_w + T;                     // per row: softmax denominator
-  __nv_bfloat16* p_w = ps + warp * T * L::LP;  // this warp's P tile
-
-  load_tile<WQ, KD>(qs, base + (size_t)q0 * total, total, n - q0);
-  for (int e = lane; e < T * HD; e += 32) o_w[(e / HD) * L::LO + e % HD] = 0.f;
+  const int col = head * stride, tiles = (n + KT - 1) / KT;
+  auto bar = [&](int s) { return bar_q + 8 * (s + 1); };
+  auto load = [&](int tile) {  // thread 0: K|V rows of `tile` into its stage
+    const int s = tile % STAGES;
+    mbar_expect_tx(bar(s), L::K_BYTES + L::V_BYTES);
+    tma_load(base + L::K_OFF + s * L::K_BYTES, &maps.k, bar(s), col + KD, tile * KT, chunk);
+    tma_load(base + L::V_OFF + s * L::V_BYTES, &maps.v, bar(s), col + 2 * KD, tile * KT, chunk);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(bar_q + 8 * i, 1);
+    mbar_fence_init();
+  }
   __syncthreads();
-  wmma::fragment<wmma::matrix_a, T, T, T, __nv_bfloat16, wmma::row_major> qa[KD / T];
-#pragma unroll
-  for (int kk = 0; kk < KD / T; ++kk)
-    wmma::load_matrix_sync(qa[kk], qs + warp * T * L::LQ + kk * T, L::LQ);
-
-  // the online softmax runs two lanes a row; columns are visited in an order
-  // rotated by lane so that the 32 lanes hit 32 different banks
-  const int r = lane / 2, half = lane % 2;
-  float m = -CUDART_INF_F, l = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += WK) {
-    const int kn = min(WK, n - k0);
-    __syncthreads();  // every warp is done with the previous K/V tile (and with qs)
-    load_tile<WK, KD>(ks, base + (size_t)k0 * total + KD, total, kn);
-    load_tile<WK, HD>(vs, base + (size_t)k0 * total + 2 * KD, total, kn);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows: (16 x KD) x (KD x WK)
-#pragma unroll
-    for (int nt = 0; nt < WK / T; ++nt) {
-      wmma::fragment<wmma::accumulator, T, T, T, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < KD / T; ++kk) {
-        wmma::fragment<wmma::matrix_b, T, T, T, __nv_bfloat16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, ks + nt * T * L::LQ + kk * T, L::LQ);
-        wmma::mma_sync(acc, qa[kk], kb, acc);
-      }
-      wmma::store_matrix_sync(s_w + nt * T, acc, L::LS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    float tmax = -CUDART_INF_F;
-#pragma unroll
-    for (int c = 0; c < SC; ++c) {
-      const int col = half * SC + ((c + lane) & (SC - 1));
-      tmax = fmaxf(tmax, col < kn ? s_w[r * L::LS + col] * scale : -CUDART_INF_F);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 1));
-    const float m_new = fmaxf(m, tmax);      // finite: kn >= 1
-    const float corr = __expf(m - m_new);    // 0 on the first tile
-    float psum = 0.f;
-#pragma unroll
-    for (int c = 0; c < SC; ++c) {
-      const int col = half * SC + ((c + lane) & (SC - 1));
-      const float p = col < kn ? __expf(s_w[r * L::LS + col] * scale - m_new) : 0.f;
-      psum += p;
-      p_w[r * L::LP + col] = __float2bfloat16(p);  // P in bf16 for P.V, as the TPU kernel
-    }
-    psum += __shfl_xor_sync(FULL, psum, 1);
-    l = l * corr + psum;
-    m = m_new;
-    if (half == 0) corr_w[r] = corr;
-    __syncwarp();
-    for (int e = lane; e < T * HD; e += 32) o_w[(e / HD) * L::LO + e % HD] *= corr_w[e / HD];
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows: (16 x WK) x (WK x HD)
-#pragma unroll
-    for (int nt = 0; nt < HD / T; ++nt) {
-      wmma::fragment<wmma::accumulator, T, T, T, float> acc;
-      wmma::load_matrix_sync(acc, o_w + nt * T, L::LO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < WK / T; ++kk) {
-        wmma::fragment<wmma::matrix_a, T, T, T, __nv_bfloat16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, T, T, T, __nv_bfloat16, wmma::row_major> vb;
-        wmma::load_matrix_sync(pa, p_w + kk * T, L::LP);
-        wmma::load_matrix_sync(vb, vs + kk * T * L::LV + nt * T, L::LV);
-        wmma::mma_sync(acc, pa, vb, acc);
-      }
-      wmma::store_matrix_sync(o_w + nt * T, acc, L::LO, wmma::mem_row_major);
-    }
-    __syncwarp();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, L::Q_BYTES);
+    tma_load(base + L::Q_OFF, &maps.q, bar_q, col, q0, chunk);
+    for (int t = 0; t < min(STAGES, tiles); ++t) load(t);
   }
 
-  if (half == 0) l_w[r] = l;
-  __syncwarp();
-  const int row0 = q0 + warp * T;
-  for (int e = lane; e < T * HD; e += 32) {
-    const int row = row0 + e / HD;
-    if (row < n)
-      out[((size_t)chunk * n + row) * dim + (size_t)head * HD + e % HD] =
-          __float2bfloat16(o_w[(e / HD) * L::LO + e % HD] / l_w[e / HD]);
+  const float c = scale * LOG2E;  // scores in log2 units
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  // per row (r0, r1): running max in log2 units, this lane's part of the sum
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  const uint64_t q_desc = QK::desc(base + L::Q_OFF);
+  mbar_wait(bar_q, 0);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(bar(s), (t / STAGES) & 1);
+    float sc[KT / 2];  // S = Q K^T, 64 x 80
+    const uint64_t k_desc = QK::desc(base + L::K_OFF + s * L::K_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD / 16; ++kk)
+      wgmma_ss(sc, q_desc + kk * QK::K_STEP, k_desc + kk * QK::K_STEP, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if ((t + 1) * KT > n) mask_columns<KT / 8>(sc, t * KT, n);
+
+    float x0 = -CUDART_INF_F, x1 = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    const float n0 = fmaxf(m0, quad_max(x0) * c), n1 = fmaxf(m1, quad_max(x1) * c);  // finite
+    const float corr0 = exp2_ftz(m0 - n0), corr1 = exp2_ftz(m1 - n1);  // 0 on the first tile
+    m0 = n0;
+    m1 = n1;
+    float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = exp2_ftz(fmaf(sc[4 * j + e], c, -n0));  // 0 where masked
+        sc[4 * j + 2 + e] = exp2_ftz(fmaf(sc[4 * j + 2 + e], c, -n1));
+        p0 += sc[4 * j + e];
+        p1 += sc[4 * j + 2 + e];
+      }
+    l0 = l0 * corr0 + p0;
+    l1 = l1 * corr1 + p1;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= corr0;
+      o[4 * j + 1] *= corr0;
+      o[4 * j + 2] *= corr1;
+      o[4 * j + 3] *= corr1;
+    }
+    uint32_t pa[KT / 16][4];  // P in bf16 for P.V, as the TPU kernel casts it
+    to_operand<KT / 16>(sc, pa);
+    const uint64_t v_desc = V::desc(base + L::V_OFF + s * L::V_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs_tb(o, pa[kk], v_desc + kk * V::MN_STEP);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncthreads();  // the warpgroup is done with stage s
+    if (threadIdx.x == 0 && t + STAGES < tiles) load(t + STAGES);
   }
-  constexpr int VECS = HD / 8;  // the v passthrough, 16 bytes a lane
-  for (int e = lane; e < T * VECS; e += 32) {
-    const int row = row0 + e / VECS, c = (e % VECS) * 8;
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  store_rows<HD / 8>(o, 1.f / l0, 1.f / l1, nullptr, 0, smem + L::V_OFF,
+                     out + (size_t)chunk * n * dim + (size_t)head * HD, dim, q0, n);
+  constexpr int VECS = HD / 8;  // the v passthrough of this block's rows, 16 bytes a lane
+  for (int e = threadIdx.x; e < QT * VECS; e += W_THREADS) {
+    const int row = q0 + e / VECS, cc = (e % VECS) * 8;
     if (row < n)
-      *reinterpret_cast<uint4*>(vout + ((size_t)chunk * n + row) * dim + (size_t)head * HD + c) =
-          *reinterpret_cast<const uint4*>(base + (size_t)row * total + 2 * KD + c);
+      *reinterpret_cast<uint4*>(vout + ((size_t)chunk * n + row) * dim + (size_t)head * HD + cc) =
+          *reinterpret_cast<const uint4*>(qkv + ((size_t)chunk * n + row) * total + col + 2 * KD +
+                                          cc);
   }
 }
 
@@ -298,22 +289,32 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
 }
 
 template <int KD, int HD>
-void launch(int is_bf16, const void* qkv, void* out, void* v, int ba, int n, int heads,
-            float scale, cudaStream_t stream) {
+int launch(int is_bf16, const void* qkv, void* out, void* v, int ba, int n, int heads,
+           float scale, cudaStream_t stream) {
   if (is_bf16) {
-    const dim3 grid((n + WQ - 1) / WQ, heads, ba);
-    constexpr size_t smem = Bf16Smem<KD, HD>::bytes;
-    cudaFuncSetAttribute(attention_bf16_kernel<KD, HD>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    attention_bf16_kernel<KD, HD><<<grid, W_THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-        static_cast<__nv_bfloat16*>(v), n, heads, scale);
+    using L = FwdSmem<KD, HD>;
+    // once a process: the kernel's shared memory is above the 48 KB default
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        attention_bf16_kernel<KD, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::bytes));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const int total = heads * (2 * KD + HD);
+    FwdMaps maps;
+    if (!make_map(&maps.q, qkv, ba, n, total, KD, QT) ||
+        !make_map(&maps.k, qkv, ba, n, total, KD, KT) ||
+        !make_map(&maps.v, qkv, ba, n, total, HD, KT))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((n + QT - 1) / QT, heads, ba);
+    attention_bf16_kernel<KD, HD><<<grid, W_THREADS, L::bytes, stream>>>(
+        maps, static_cast<const bf16*>(qkv), static_cast<bf16*>(out), static_cast<bf16*>(v), n,
+        heads, scale);
   } else {
     const dim3 grid((n + BQ - 1) / BQ, heads, ba);
     attention_f32_kernel<KD, HD><<<grid, F_THREADS, 0, stream>>>(
         static_cast<const float*>(qkv), static_cast<float*>(out), static_cast<float*>(v), n,
         heads, scale);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -325,6 +326,6 @@ extern "C" int area_attention_fwd(const void* qkv, void* out, void* v, int ba, i
                                   int key_dim, int head_dim, float scale, int is_bf16,
                                   void* stream) {
   if (key_dim != 32 || head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
-  launch<32, 64>(is_bf16, qkv, out, v, ba, n, heads, scale, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return launch<32, 64>(is_bf16, qkv, out, v, ba, n, heads, scale,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -11,353 +11,414 @@
 //
 // Layout: qkv and d_qkv (BA, n, heads*(2*KD+HD)); d_out (dO) and d_v (dvo)
 // (BA, n, heads*HD); stats (3, BA, heads, n) f32 scratch for each query
-// row's softmax max m, denominator l and D.
+// row's softmax max m, denominator l and D (in bf16, m is in log2 units).
 //
 // What bounds it: at the yolo11n train shape (BA=32, n=400, 2 heads, KD=32,
-// HD=64, bf16) the function moves 19.7 MB (6 us of HBM time) and its five
-// products are 4.6 GFLOP (5 us of bf16 tensor time), so the card's bound is
-// the bytes. The TPU kernel kept a chunk's (n, n) f32 tiles in VMEM; on
-// Hopper 400x400 f32 is 640 KB against 227 KB of shared memory per block,
-// so this streams tiles through shared memory in two passes and never
-// writes an (n, n) tensor:
-//   pass (a), one block per (chunk, head, 64 query rows): streams K|V tiles
-//     twice. The first sweep keeps m, l and D with online rescaling (D is
-//     the TPU kernel's exact term rowsum(dP * P), not rowsum(dO * O)); the
+// HD=64, bf16) the function moves 19.7 MB (5.9 us of HBM time) and its five
+// products are 4.6 GFLOP (4.7 us of bf16 tensor time), so the card's bound
+// is the bytes. The TPU kernel kept a chunk's (n, n) f32 tiles in VMEM; on
+// Hopper 400x400 f32 is 640 KB against 227 KB of shared memory a block, so
+// this streams tiles in two passes and never writes an (n, n) tensor:
+//   pass (a), one block per (chunk, head, 64 query rows): streams the K|V
+//     tiles twice. The first sweep keeps m, l and D with online rescaling (D
+//     is the TPU kernel's exact term rowsum(dP * P), not rowsum(dO * O)); the
 //     second forms dS and accumulates dQ. It writes dq and (m, l, D).
-//   pass (b), one block per (chunk, head, 64 key rows): streams Q|dO tiles
-//     with their rows' (m, l, D), recomputes P and dS, and accumulates
-//     dV = P^T dO and dK = dS^T Q. It writes dk and dv + dvo.
-// No atomics: every output element has one writer, so the result is
-// deterministic.
+//   pass (b), one block per (chunk, head, 64 key rows): streams Q|dO tiles,
+//     with every query row's (m, 1/l, D) in shared memory, recomputes P^T
+//     and dS^T, and accumulates dV = P^T dO and dK = dS^T Q. It writes dk
+//     and dv + dvo.
+// So S and dP are each computed three times: D needs every key of a row
+// before the first dS, and one writer an output element (no f32 atomics for
+// dQ) keeps the result deterministic.
 //
-// - bf16 (the amp train path): four warps a block, each owning 16 rows. The
-//   products run on the tensor cores through WMMA 16x16x16 bf16 tiles with
-//   f32 accumulators; P and dS are rounded to bf16 before their products,
-//   as the TPU kernel rounds them. Scores and dP go through shared memory in
-//   f32 where two lanes a row do the softmax arithmetic.
+// - bf16 (the amp train path): one warpgroup (128 threads) a block owns 64
+//   rows. The streamed tiles are 80 rows (n = 400 is 5 tiles), copied by
+//   thread 0 through TMA into a ring of 2 stages with one mbarrier each and
+//   refilled as soon as the warpgroup is done with a stage; the block's own
+//   64 rows of the narrow (KD) and wide (HD) operand come in by TMA once.
+//   The 3-D maps (chunk, row, column) zero-fill rows past n. S and dP (or
+//   S^T and dP^T) are wgmma m64nNk16 accumulators in registers, products of
+//   two K-major shared tiles (64- and 128-byte swizzled rows); P and dS are
+//   formed there and rounded to bf16 in registers, as the TPU kernel rounds
+//   them, as the register A operand of dQ += dS K (wgmma m64n32k16), dV +=
+//   P^T dO (m64n64k16) and dK += dS^T Q (m64n32k16), with the streamed tile
+//   as the MN-major B operand. Pass (b) takes each query tile in two parts,
+//   48 and 32 columns, so that its accumulators fit in 128 registers. The
+//   epilogue adds dvo to dV in f32, rounds to bf16 and writes 16 bytes a
+//   lane through a per-warp bf16 staging tile. Nothing is staged through
+//   shared memory in f32.
+//   Occupancy: at most 128 registers a thread and 44 KB (pass a) or 49 KB
+//   (pass b, with the statistics of n = 400 rows) of shared memory give 4
+//   blocks an SM, so each pass's 32 x 2 x 7 = 448 blocks run in one wave
+//   (528 slots). With 3 stages and pass (b) in one part (168 registers) both
+//   passes fit 3 blocks an SM and took a second wave: 0.0541 ms against
+//   0.0397 ms for the two passes (NVIDIA H100 80GB HBM3, 700 W).
 // - f32 (the reference precision): the dot products run on the f32 CUDA
 //   cores; each row is owned by TPR neighbouring lanes that split its
 //   columns and combine partial sums with two warp shuffles.
 //
-// wgmma and TMA come later. The launches allocate nothing and run on the
-// caller's stream; the C entry returns cudaGetLastError() so the Python
-// wrapper can raise.
+// Measured (profiler device time at the main shape, tools/time_attention_kernels.py
+// and chip_smoke.py, NVIDIA H100 80GB HBM3 at a 700 W power limit):
+// 0.0359-0.0365 ms (pass a 0.0171-0.0175, pass b 0.0188-0.0190), ~6x the
+// 0.0059 ms bound, against 0.2456 ms for the earlier WMMA design and
+// 0.0343-0.0353 ms for scaled_dot_product_attention's backward (cuDNN: it
+// takes D = rowsum(dO * O) and converts an f32 dQ to bf16 apart, so it
+// computes S, dP and the exponentials once). What holds this one back is
+// the recomputation: three exponentials a score element, 34.4 M at this
+// shape, are 8-9 us of the SFU at 16 a clock an SM, and the products with
+// their 448 padded rows ~10 us of tensor time at the card's peak; each
+// block runs them as one dependent chain, with only 4 blocks an SM to
+// hide it.
+// The launches allocate nothing and run on the caller's stream; the C entry
+// returns cudaGetLastError() (or the error of a refused TMA map) so the
+// Python wrapper can raise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <mma.h>
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace hopper;
 
-constexpr unsigned FULL = 0xffffffffu;
+// ---------------------------------------------------- bf16, wgmma and TMA
 
-// ---------------------------------------------------------------- bf16, WMMA
+constexpr int QT = 64;          // rows a block owns (one warpgroup)
+constexpr int KT = 80;          // rows of a streamed tile
+constexpr int STAGES = 2;       // streamed tiles in the ring
+constexpr int W_THREADS = 128;  // one warpgroup
+// shared memory a block may use: the bound on pass (b)'s per-row statistics
+constexpr int SMEM_MAX = 227 * 1024;
 
-constexpr int TR = 64;           // rows a block owns (16 per warp)
-constexpr int TC = 64;           // rows of each streamed tile
-constexpr int W_THREADS = 128;   // 4 warps
-constexpr int T = 16;            // WMMA tile edge
-constexpr int SC = TC / 2;       // columns per lane in the softmax arithmetic (two lanes a row)
-// Shared-memory rows are padded by 16 bytes, so the 8 rows a WMMA load or
-// store touches at once fall in 8 different bank groups.
-constexpr int PAD16 = 8;         // bf16 elements
-constexpr int PAD32 = 4;         // f32 elements
-
-using bf16 = __nv_bfloat16;
-
-// Copy `rows` rows of `cols` bf16 (a multiple of 8) from a row-major global
-// source with row stride `ld` into shared memory with row stride cols +
-// PAD16; rows past `valid` are zeros.
-template <int ROWS_, int COLS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t ld, int valid) {
-  constexpr int VECS = COLS / 8;
-  for (int e = threadIdx.x; e < ROWS_ * VECS; e += W_THREADS) {
-    const int r = e / VECS, c = (e % VECS) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * (COLS + PAD16) + c) = val;
-  }
-}
-
-// Dynamic shared memory of both bf16 passes (row strides padded): f32 first,
-// per warp two 16 x TC tiles (scores and dP, or their transposes) and 3 x TC
-// row statistics; then bf16: the block's own 64 rows of the narrow (KD) and
-// wide (HD) operand, one streamed tile of each, and per warp two 16 x TC
-// tiles (P and dS, rounded to bf16).
+// Dynamic shared memory of both passes, from its first 1024-byte boundary:
+// the ring's wide (HD) and narrow (KD) tiles, the block's own narrow and
+// wide rows, the barriers (the own rows', one a stage), then pass (b)'s
+// per-query-row statistics (m, 1/l, D). Every tile starts on a 1024-byte
+// boundary.
 template <int KD, int HD>
-struct Smem {
-  static constexpr int LS = TC + PAD32;                         // f32 row stride
-  static constexpr int LN = KD + PAD16, LW = HD + PAD16, LP = TC + PAD16;
-  static constexpr int SS = 4 * T * LS, RS = 3 * TC;
-  static constexpr int NS = TR * LN, WS = TR * LW, PS = 4 * T * LP;
-  static constexpr size_t bytes =
-      (2 * SS + RS) * sizeof(float) + (2 * NS + 2 * WS + 2 * PS) * sizeof(bf16);
+struct BwdSmem {
+  static constexpr int WIDE = KT * HD * 2, NARROW = KT * KD * 2;
+  static constexpr int OWN_N = QT * KD * 2, OWN_W = QT * HD * 2;
+  static constexpr int W_OFF = 0, N_OFF = STAGES * WIDE, ON_OFF = N_OFF + STAGES * NARROW;
+  static constexpr int OW_OFF = ON_OFF + OWN_N, BAR_OFF = OW_OFF + OWN_W;
+  static constexpr int STATS_OFF = BAR_OFF + 8 * (STAGES + 1);
+  static_assert(WIDE % 1024 == 0 && NARROW % 1024 == 0 && OWN_N % 1024 == 0 &&
+                    OWN_W % 1024 == 0, "tiles on 1024-byte boundaries");
+  static_assert(staging_bytes<HD / 8>() <= STAGES * WIDE, "the epilogue stages in the ring");
+  static size_t bytes(int stat_rows) { return STATS_OFF + 12 * (size_t)stat_rows + 1024; }
 };
 
-// One warp's 16 x TC tile (transposes of) A.B^T for A = 16 rows in
-// fragments (KSTEPS of 16 columns) and B = TC rows of a shared tile with
-// row stride ldb; stored as f32 with row stride LS.
-template <int KSTEPS, int LS>
-__device__ __forceinline__ void rows_times_tile_t(
-    float* dst, const wmma::fragment<wmma::matrix_a, T, T, T, bf16, wmma::row_major>* a,
-    const bf16* tile, int ldb) {
-#pragma unroll
-  for (int nt = 0; nt < TC / T; ++nt) {
-    wmma::fragment<wmma::accumulator, T, T, T, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      wmma::fragment<wmma::matrix_b, T, T, T, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, tile + nt * T * ldb + kk * T, ldb);
-      wmma::mma_sync(acc, a[kk], b, acc);
-    }
-    wmma::store_matrix_sync(dst + nt * T, acc, LS, wmma::mem_row_major);
-  }
-}
+// TMA maps of one pass: the block's own rows (QT rows) and the streamed
+// tiles (KT rows) of the narrow and the wide operand.
+struct BwdMaps {
+  CUtensorMap own_n, own_w, tile_n, tile_w;
+};
 
-// acc[nt] += A (16 x TC bf16 in shared memory, stride lda) . B (TC x NT*16
-// rows of a shared tile, stride ldb)
-template <int NT>
-__device__ __forceinline__ void accumulate_product(
-    wmma::fragment<wmma::accumulator, T, T, T, float>* acc, const bf16* a, int lda,
-    const bf16* b, int ldb) {
-#pragma unroll
-  for (int kk = 0; kk < TC / T; ++kk) {
-    wmma::fragment<wmma::matrix_a, T, T, T, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, a + kk * T, lda);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      wmma::fragment<wmma::matrix_b, T, T, T, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, b + kk * T * ldb + nt * T, ldb);
-      wmma::mma_sync(acc[nt], fa, fb, acc[nt]);
-    }
-  }
-}
-
-// Write one warp's 16 x COLS f32 accumulators as bf16 rows of `dst` (row
-// stride ld), adding `extra` (bf16, row stride ld_extra) when given. `stage`
-// is the warp's 16 x LS f32 scratch.
-template <int COLS, int LS>
-__device__ __forceinline__ void write_rows(
-    bf16* dst, size_t ld, const bf16* extra, size_t ld_extra,
-    wmma::fragment<wmma::accumulator, T, T, T, float>* acc, float* stage, int row0, int n,
-    int lane) {
-#pragma unroll
-  for (int nt = 0; nt < COLS / T; ++nt)
-    wmma::store_matrix_sync(stage + nt * T, acc[nt], LS, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < T * COLS; e += 32) {
-    const int r = e / COLS, c = e % COLS, row = row0 + r;
-    if (row < n) {
-      float val = stage[r * LS + c];
-      if (extra) val += __bfloat162float(extra[(size_t)row * ld_extra + c]);
-      dst[(size_t)row * ld + c] = __float2bfloat16(val);
-    }
-  }
-  __syncwarp();
-}
-
-// Pass (a): one block per (chunk, head, TR query rows).
+// The ring of one pass: thread 0 issues, every thread waits.
 template <int KD, int HD>
-__global__ void __launch_bounds__(W_THREADS)
-bwd_query_rows_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                    bf16* __restrict__ dqkv, float* __restrict__ stats, int ba, int n,
-                    int heads, float scale) {
-  using L = Smem<KD, HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* ss = reinterpret_cast<float*>(smem);
-  float* dps = ss + L::SS;
-  bf16* qs = reinterpret_cast<bf16*>(dps + L::SS + L::RS);
-  bf16* dos = qs + L::NS;
-  bf16* ks = dos + L::WS;
-  bf16* vs = ks + L::NS;
-  bf16* dss = vs + L::WS;
+struct Ring {
+  using L = BwdSmem<KD, HD>;
+  const BwdMaps* maps;
+  uint32_t base;
+  int chunk, col_n, col_w, tiles;
 
-  const int chunk = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * TR;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int stride = 2 * KD + HD, total = heads * stride, dim = heads * HD;
-  const bf16* base = qkv + (size_t)chunk * n * total + (size_t)head * stride;
-  const bf16* dbase = dout + (size_t)chunk * n * dim + (size_t)head * HD;
-  float* s_w = ss + warp * T * L::LS;
-  float* dp_w = dps + warp * T * L::LS;
-  bf16* ds_w = dss + warp * T * L::LP;
-
-  load_tile<TR, KD>(qs, base + (size_t)q0 * total, total, n - q0);
-  load_tile<TR, HD>(dos, dbase + (size_t)q0 * dim, dim, n - q0);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, T, T, T, bf16, wmma::row_major> qa[KD / T], doa[HD / T];
-#pragma unroll
-  for (int kk = 0; kk < KD / T; ++kk)
-    wmma::load_matrix_sync(qa[kk], qs + warp * T * L::LN + kk * T, L::LN);
-#pragma unroll
-  for (int kk = 0; kk < HD / T; ++kk)
-    wmma::load_matrix_sync(doa[kk], dos + warp * T * L::LW + kk * T, L::LW);
-
-  // two lanes a row; columns are visited in an order rotated by lane so
-  // that the 32 lanes hit 32 different banks
-  const int r = lane / 2, half = lane % 2;
-  float m = -CUDART_INF_F, l = 0.f, dn = 0.f;
-
-  // sweep 1: m, l and D (online, rescaled as the max grows)
-  for (int k0 = 0; k0 < n; k0 += TC) {
-    const int kn = min(TC, n - k0);
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<TC, KD>(ks, base + (size_t)k0 * total + KD, total, kn);
-    load_tile<TC, HD>(vs, base + (size_t)k0 * total + 2 * KD, total, kn);
-    __syncthreads();
-    rows_times_tile_t<KD / T, L::LS>(s_w, qa, ks, L::LN);   // S  = Q K^T
-    rows_times_tile_t<HD / T, L::LS>(dp_w, doa, vs, L::LW); // dP = dO V^T
-    __syncwarp();
-    float tmax = -CUDART_INF_F;
-#pragma unroll
-    for (int c = 0; c < SC; ++c) {
-      const int col = half * SC + ((c + lane) & (SC - 1));
-      tmax = fmaxf(tmax, col < kn ? s_w[r * L::LS + col] * scale : -CUDART_INF_F);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 1));
-    const float m_new = fmaxf(m, tmax);     // finite: kn >= 1
-    const float corr = __expf(m - m_new);   // 0 on the first tile
-    float psum = 0.f, dsum = 0.f;
-#pragma unroll
-    for (int c = 0; c < SC; ++c) {
-      const int col = half * SC + ((c + lane) & (SC - 1));
-      if (col < kn) {
-        const float p = __expf(s_w[r * L::LS + col] * scale - m_new);
-        psum += p;
-        dsum += p * dp_w[r * L::LS + col];
-      }
-    }
-    psum += __shfl_xor_sync(FULL, psum, 1);
-    dsum += __shfl_xor_sync(FULL, dsum, 1);
-    l = l * corr + psum;
-    dn = dn * corr + dsum;
-    m = m_new;
+  __device__ __forceinline__ uint32_t bar(int s) const { return base + L::BAR_OFF + 8 * (s + 1); }
+  __device__ __forceinline__ uint32_t own_bar() const { return base + L::BAR_OFF; }
+  // load i brings tile i % tiles into stage i % STAGES
+  __device__ __forceinline__ void load(int i) const {
+    const int s = i % STAGES, tile = i % tiles;
+    mbar_expect_tx(bar(s), L::NARROW + L::WIDE);
+    tma_load(base + L::N_OFF + s * L::NARROW, &maps->tile_n, bar(s), col_n, tile * KT, chunk);
+    tma_load(base + L::W_OFF + s * L::WIDE, &maps->tile_w, bar(s), col_w, tile * KT, chunk);
   }
-  const float d_row = dn / l;
-  const int row = q0 + warp * T + r;
-  if (half == 0 && row < n) {
-    const size_t at = ((size_t)chunk * heads + head) * n + row, plane = (size_t)ba * heads * n;
-    stats[at] = m;
-    stats[plane + at] = l;
-    stats[2 * plane + at] = d_row;
+  // thread 0, after the barriers are initialised: the own rows and the
+  // first STAGES of `loads` loads
+  __device__ __forceinline__ void start(int own_n_col, int own_w_col, int row0, int loads) const {
+    mbar_expect_tx(own_bar(), L::OWN_N + L::OWN_W);
+    tma_load(base + L::ON_OFF, &maps->own_n, own_bar(), own_n_col, row0, chunk);
+    tma_load(base + L::OW_OFF, &maps->own_w, own_bar(), own_w_col, row0, chunk);
+    for (int i = 0; i < min(STAGES, loads); ++i) load(i);
+  }
+  __device__ __forceinline__ void wait(int i) const { mbar_wait(bar(i % STAGES), (i / STAGES) & 1); }
+  // every thread, when the warpgroup is done with load i's stage
+  __device__ __forceinline__ void release(int i, int loads) const {
+    __syncthreads();
+    if (threadIdx.x == 0 && i + STAGES < loads) load(i + STAGES);
+  }
+};
+
+__device__ __forceinline__ void init_barriers(uint32_t first) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(first + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// Issue acc_a (64 x NW) = A_a . B_a^T over KD, then acc_b (64 x NW) =
+// A_b . B_b^T over HD, as two groups: the block's own narrow and wide rows
+// against NW rows of the streamed narrow and wide tiles at (shared
+// addresses) b_n and b_w. wgmma_wait<1>() then finds acc_a done while acc_b
+// (the longer product) still runs.
+template <int KD, int HD, int NW>
+__device__ __forceinline__ void two_products(float (&acc_a)[NW / 2], float (&acc_b)[NW / 2],
+                                             uint32_t base, uint32_t b_n, uint32_t b_w) {
+  using L = BwdSmem<KD, HD>;
+  using N = Tile<KD * 2>;
+  using W = Tile<HD * 2>;
+  const uint64_t an = N::desc(base + L::ON_OFF), bn = N::desc(b_n);
+  const uint64_t aw = W::desc(base + L::OW_OFF), bw = W::desc(b_w);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KD / 16; ++kk)
+    wgmma_ss(acc_a, an + kk * N::K_STEP, bn + kk * N::K_STEP, kk);
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss(acc_b, aw + kk * W::K_STEP, bw + kk * W::K_STEP, kk);
+  wgmma_commit();
+}
+
+// acc (64 x 32) += A (64 x 80, registers) . B (80 x 32, an MN-major narrow tile)
+template <int KD>
+__device__ __forceinline__ void narrow_product(float (&acc)[KD / 2], const uint32_t (&a)[KT / 16][4],
+                                               uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk)
+    wgmma_rs_tb(acc, a[kk], b + kk * Tile<KD * 2>::MN_STEP);
+}
+
+// Pass (a): one block per (chunk, head, QT query rows).
+template <int KD, int HD>
+__global__ void __launch_bounds__(W_THREADS, 4)
+bwd_query_rows_bf16(const __grid_constant__ BwdMaps maps, bf16* __restrict__ dqkv,
+                    float* __restrict__ stats, int ba, int n, int heads, float scale) {
+  static_assert(KD == 32 && HD == 64, "wgmma shapes instantiated here");
+  using L = BwdSmem<KD, HD>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int chunk = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * QT;
+  const int stride = 2 * KD + HD, total = heads * stride;
+  const int col = head * stride, tiles = (n + KT - 1) / KT, loads = 2 * tiles;
+  const Ring<KD, HD> ring{&maps, base, chunk, col + KD, col + 2 * KD, tiles};
+  init_barriers(ring.own_bar());
+  if (threadIdx.x == 0) ring.start(col, head * HD, q0, loads);  // own rows: Q and dO
+
+  const float c = scale * LOG2E;  // scores in log2 units
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f, d0 = 0.f, d1 = 0.f;
+  mbar_wait(ring.own_bar(), 0);
+
+  // sweep 1: m, l and D, online (this lane's parts of l and D, rescaled as
+  // the row max grows)
+  for (int i = 0; i < tiles; ++i) {
+    ring.wait(i);
+    const int s = i % STAGES;
+    float sc[KT / 2], dp[KT / 2];
+    two_products<KD, HD, KT>(sc, dp, base, base + L::N_OFF + s * L::NARROW,
+                             base + L::W_OFF + s * L::WIDE);  // S = Q K^T, dP = dO V^T
+    wgmma_wait<1>();
+    fence_regs(sc);
+    if ((i + 1) * KT > n) mask_columns<KT / 8>(sc, i * KT, n);
+    float x0 = -CUDART_INF_F, x1 = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    const float n0 = fmaxf(m0, quad_max(x0) * c), n1 = fmaxf(m1, quad_max(x1) * c);  // finite
+    const float corr0 = exp2_ftz(m0 - n0), corr1 = exp2_ftz(m1 - n1);  // 0 on the first tile
+    m0 = n0;
+    m1 = n1;
+    float p0 = 0.f, p1 = 0.f, s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = exp2_ftz(fmaf(sc[4 * j + e], c, -n0));  // 0 where masked
+        sc[4 * j + 2 + e] = exp2_ftz(fmaf(sc[4 * j + 2 + e], c, -n1));
+        p0 += sc[4 * j + e];
+        p1 += sc[4 * j + 2 + e];
+      }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s0 += sc[4 * j + e] * dp[4 * j + e];
+        s1 += sc[4 * j + 2 + e] * dp[4 * j + 2 + e];
+      }
+    l0 = l0 * corr0 + p0;
+    l1 = l1 * corr1 + p1;
+    d0 = d0 * corr0 + s0;
+    d1 = d1 * corr1 + s1;
+    ring.release(i, loads);
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float D0 = quad_sum(d0) / l0, D1 = quad_sum(d1) / l1;
+  const float f0 = scale / l0, f1 = scale / l1;
+  const int lane = threadIdx.x % 32, row0 = q0 + threadIdx.x / 32 * 16 + lane / 4;
+  if (lane % 4 == 0) {
+    const size_t at = ((size_t)chunk * heads + head) * n + row0, plane = (size_t)ba * heads * n;
+    if (row0 < n) {
+      stats[at] = m0;
+      stats[plane + at] = l0;
+      stats[2 * plane + at] = D0;
+    }
+    if (row0 + 8 < n) {
+      stats[at + 8] = m1;
+      stats[plane + at + 8] = l1;
+      stats[2 * plane + at + 8] = D1;
+    }
   }
 
   // sweep 2: dS, then dQ += dS K
-  wmma::fragment<wmma::accumulator, T, T, T, float> dq[KD / T];
+  float dq[KD / 2];
 #pragma unroll
-  for (int nt = 0; nt < KD / T; ++nt) wmma::fill_fragment(dq[nt], 0.f);
-  const float inv_l = 1.f / l;
-  for (int k0 = 0; k0 < n; k0 += TC) {
-    const int kn = min(TC, n - k0);
-    __syncthreads();
-    load_tile<TC, KD>(ks, base + (size_t)k0 * total + KD, total, kn);
-    load_tile<TC, HD>(vs, base + (size_t)k0 * total + 2 * KD, total, kn);
-    __syncthreads();
-    rows_times_tile_t<KD / T, L::LS>(s_w, qa, ks, L::LN);
-    rows_times_tile_t<HD / T, L::LS>(dp_w, doa, vs, L::LW);
-    __syncwarp();
+  for (int i = 0; i < KD / 2; ++i) dq[i] = 0.f;
+  for (int i = tiles; i < loads; ++i) {
+    const int s = i % STAGES, k0 = (i - tiles) * KT;
+    ring.wait(i);
+    float sc[KT / 2], dp[KT / 2];
+    two_products<KD, HD, KT>(sc, dp, base, base + L::N_OFF + s * L::NARROW,
+                             base + L::W_OFF + s * L::WIDE);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    if (k0 + KT > n) mask_columns<KT / 8>(sc, k0, n);
 #pragma unroll
-    for (int c = 0; c < SC; ++c) {
-      const int col = half * SC + ((c + lane) & (SC - 1));
-      float ds = 0.f;
-      if (col < kn) {
-        const float p = __expf(s_w[r * L::LS + col] * scale - m) * inv_l;
-        ds = p * (dp_w[r * L::LS + col] - d_row) * scale;
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = exp2_ftz(fmaf(sc[4 * j + e], c, -m0)) * f0;  // P * scale
+        sc[4 * j + 2 + e] = exp2_ftz(fmaf(sc[4 * j + 2 + e], c, -m1)) * f1;
       }
-      ds_w[r * L::LP + col] = __float2bfloat16(ds);  // dS in bf16, as the TPU kernel
-    }
-    __syncwarp();
-    accumulate_product<KD / T>(dq, ds_w, L::LP, ks, L::LN);
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] *= dp[4 * j + e] - D0;
+        sc[4 * j + 2 + e] *= dp[4 * j + 2 + e] - D1;
+      }
+    uint32_t da[KT / 16][4];  // dS in bf16, as the TPU kernel
+    to_operand<KT / 16>(sc, da);
+    wgmma_fence();
+    narrow_product<KD>(dq, da, Tile<KD * 2>::desc(base + L::N_OFF + s * L::NARROW));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    ring.release(i, loads);
   }
-  write_rows<KD, L::LS>(dqkv + (size_t)chunk * n * total + (size_t)head * stride, total,
-                        nullptr, 0, dq, s_w, q0 + warp * T, n, lane);
+  store_rows<KD / 8>(dq, 1.f, 1.f, nullptr, 0, smem + L::W_OFF,
+                     dqkv + (size_t)chunk * n * total + col, total, q0, n);
 }
 
-// Pass (b): one block per (chunk, head, TR key rows).
+// Pass (b), columns C0..C0+NW-1 of stage s's query tile (query rows
+// q0 + C0..): S^T and dP^T; P^T, rounded to bf16, for dV += P^T dO, whose
+// product runs while dS^T is formed; then dK += dS^T Q. A tile is done in
+// two such parts (48 + 32 columns) so that a thread holds at most 128
+// registers and 4 blocks fit on an SM.
+template <int KD, int HD, int C0, int NW>
+__device__ __forceinline__ void key_rows_part(float (&dk)[KD / 2], float (&dv)[HD / 2],
+                                              uint32_t base, int s, int q0, const float* ms,
+                                              const float* ils, const float* ds, float c,
+                                              float scale) {
+  using L = BwdSmem<KD, HD>;
+  using N = Tile<KD * 2>;
+  using W = Tile<HD * 2>;
+  const uint32_t q_tile = base + L::N_OFF + s * L::NARROW + C0 * KD * 2;
+  const uint32_t do_tile = base + L::W_OFF + s * L::WIDE + C0 * HD * 2;
+  float st[NW / 2], dpt[NW / 2];
+  two_products<KD, HD, NW>(st, dpt, base, q_tile, do_tile);  // S^T = K Q^T, dP^T = V dO^T
+  wgmma_wait<1>();
+  fence_regs(st);
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = q0 + C0 + 8 * j + 2 * t + e;  // the query row of this column
+      const float mq = ms[q], il = ils[q];
+      st[4 * j + e] = exp2_ftz(fmaf(st[4 * j + e], c, -mq)) * il;
+      st[4 * j + 2 + e] = exp2_ftz(fmaf(st[4 * j + 2 + e], c, -mq)) * il;
+    }
+  uint32_t pa[NW / 16][4], da[NW / 16][4];  // P^T and dS^T in bf16, as the TPU kernel
+  to_operand<NW / 16>(st, pa);
+  const uint64_t do_mn = W::desc(do_tile), q_mn = N::desc(q_tile);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NW / 16; ++kk) wgmma_rs_tb(dv, pa[kk], do_mn + kk * W::MN_STEP);
+  wgmma_commit();
+  wgmma_wait<1>();  // dP^T is done; dV's product may still run
+  fence_regs(dpt);
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float dq = ds[q0 + C0 + 8 * j + 2 * t + e];
+      dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dq) * scale;
+      dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * (dpt[4 * j + 2 + e] - dq) * scale;
+    }
+  to_operand<NW / 16>(dpt, da);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NW / 16; ++kk) wgmma_rs_tb(dk, da[kk], q_mn + kk * N::MN_STEP);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dv);
+  fence_regs(dk);
+}
+
+// Pass (b): one block per (chunk, head, QT key rows).
 template <int KD, int HD>
-__global__ void __launch_bounds__(W_THREADS)
-bwd_key_rows_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                  const bf16* __restrict__ dvo, bf16* __restrict__ dqkv,
-                  const float* __restrict__ stats, int ba, int n, int heads, float scale) {
-  using L = Smem<KD, HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sts = reinterpret_cast<float*>(smem);
-  float* dpts = sts + L::SS;
-  float* ms = dpts + L::SS;
-  float* ls = ms + TC;
-  float* dsum = ls + TC;
-  bf16* ks = reinterpret_cast<bf16*>(ms + L::RS);
-  bf16* vs = ks + L::NS;
-  bf16* qs = vs + L::WS;
-  bf16* dos = qs + L::NS;
-  bf16* pts = dos + L::WS;
-  bf16* dsts = pts + L::PS;
-
-  const int chunk = blockIdx.z, head = blockIdx.y, k0 = blockIdx.x * TR;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+__global__ void __launch_bounds__(W_THREADS, 4)
+bwd_key_rows_bf16(const __grid_constant__ BwdMaps maps, const bf16* __restrict__ dvo,
+                  bf16* __restrict__ dqkv, const float* __restrict__ stats, int ba, int n,
+                  int heads, float scale) {
+  static_assert(KD == 32 && HD == 64 && KT == 48 + 32, "wgmma shapes instantiated here");
+  using L = BwdSmem<KD, HD>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int chunk = blockIdx.z, head = blockIdx.y, k0 = blockIdx.x * QT;
   const int stride = 2 * KD + HD, total = heads * stride, dim = heads * HD;
-  const bf16* base = qkv + (size_t)chunk * n * total + (size_t)head * stride;
-  const bf16* dbase = dout + (size_t)chunk * n * dim + (size_t)head * HD;
+  const int col = head * stride, tiles = (n + KT - 1) / KT;
+  const Ring<KD, HD> ring{&maps, base, chunk, col, head * HD, tiles};  // tiles: Q and dO
+  init_barriers(ring.own_bar());
+  if (threadIdx.x == 0) ring.start(col + KD, col + 2 * KD, k0, tiles);  // own rows: K and V
+
+  // every query row's (m, 1/l, D); rows past n get m = +inf, so P = 0 there
+  float* ms = reinterpret_cast<float*>(smem + L::STATS_OFF);
+  float* ils = ms + tiles * KT;
+  float* ds = ils + tiles * KT;
   const size_t srow = ((size_t)chunk * heads + head) * n, plane = (size_t)ba * heads * n;
-  float* st_w = sts + warp * T * L::LS;    // S^T  for this warp's 16 key rows
-  float* dpt_w = dpts + warp * T * L::LS;  // dP^T
-  bf16* pt_w = pts + warp * T * L::LP;
-  bf16* dst_w = dsts + warp * T * L::LP;
-
-  load_tile<TR, KD>(ks, base + (size_t)k0 * total + KD, total, n - k0);
-  load_tile<TR, HD>(vs, base + (size_t)k0 * total + 2 * KD, total, n - k0);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, T, T, T, bf16, wmma::row_major> ka[KD / T], va[HD / T];
-#pragma unroll
-  for (int kk = 0; kk < KD / T; ++kk)
-    wmma::load_matrix_sync(ka[kk], ks + warp * T * L::LN + kk * T, L::LN);
-#pragma unroll
-  for (int kk = 0; kk < HD / T; ++kk)
-    wmma::load_matrix_sync(va[kk], vs + warp * T * L::LW + kk * T, L::LW);
-  wmma::fragment<wmma::accumulator, T, T, T, float> dk[KD / T], dv[HD / T];
-#pragma unroll
-  for (int nt = 0; nt < KD / T; ++nt) wmma::fill_fragment(dk[nt], 0.f);
-#pragma unroll
-  for (int nt = 0; nt < HD / T; ++nt) wmma::fill_fragment(dv[nt], 0.f);
-
-  const int r = lane / 2, half = lane % 2;
-  for (int q0 = 0; q0 < n; q0 += TC) {
-    const int qn = min(TC, n - q0);
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile<TC, KD>(qs, base + (size_t)q0 * total, total, qn);
-    load_tile<TC, HD>(dos, dbase + (size_t)q0 * dim, dim, qn);
-    for (int i = threadIdx.x; i < TC; i += W_THREADS) {
-      const bool live = i < qn;
-      ms[i] = live ? stats[srow + q0 + i] : 0.f;
-      ls[i] = live ? stats[plane + srow + q0 + i] : 1.f;
-      dsum[i] = live ? stats[2 * plane + srow + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    rows_times_tile_t<KD / T, L::LS>(st_w, ka, qs, L::LN);   // S^T  = K Q^T
-    rows_times_tile_t<HD / T, L::LS>(dpt_w, va, dos, L::LW); // dP^T = V dO^T
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < SC; ++c) {
-      const int col = half * SC + ((c + lane) & (SC - 1));  // a query row of the tile
-      float p = 0.f, ds = 0.f;
-      if (col < qn) {
-        p = __expf(st_w[r * L::LS + col] * scale - ms[col]) / ls[col];
-        ds = p * (dpt_w[r * L::LS + col] - dsum[col]) * scale;
-      }
-      pt_w[r * L::LP + col] = __float2bfloat16(p);    // P in bf16 for dV, as the TPU kernel
-      dst_w[r * L::LP + col] = __float2bfloat16(ds);  // dS in bf16
-    }
-    __syncwarp();
-    accumulate_product<HD / T>(dv, pt_w, L::LP, dos, L::LW);  // dV += P^T dO
-    accumulate_product<KD / T>(dk, dst_w, L::LP, qs, L::LN);  // dK += dS^T Q
+  for (int q = threadIdx.x; q < tiles * KT; q += W_THREADS) {
+    const bool live = q < n;
+    ms[q] = live ? stats[srow + q] : CUDART_INF_F;
+    ils[q] = live ? 1.f / stats[plane + srow + q] : 0.f;
+    ds[q] = live ? stats[2 * plane + srow + q] : 0.f;
   }
-  bf16* out = dqkv + (size_t)chunk * n * total + (size_t)head * stride;
-  write_rows<KD, L::LS>(out + KD, total, nullptr, 0, dk, st_w, k0 + warp * T, n, lane);
-  write_rows<HD, L::LS>(out + 2 * KD, total, dvo + (size_t)chunk * n * dim + (size_t)head * HD,
-                        dim, dv, dpt_w, k0 + warp * T, n, lane);
+  __syncthreads();
+
+  const float c = scale * LOG2E;
+  float dk[KD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < KD / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dv[i] = 0.f;
+  mbar_wait(ring.own_bar(), 0);
+
+  for (int i = 0; i < tiles; ++i) {
+    ring.wait(i);
+    key_rows_part<KD, HD, 0, 48>(dk, dv, base, i % STAGES, i * KT, ms, ils, ds, c, scale);
+    key_rows_part<KD, HD, 48, 32>(dk, dv, base, i % STAGES, i * KT, ms, ils, ds, c, scale);
+    ring.release(i, tiles);
+  }
+  bf16* out = dqkv + (size_t)chunk * n * total + col;
+  store_rows<KD / 8>(dk, 1.f, 1.f, nullptr, 0, smem + L::W_OFF, out + KD, total, k0, n);
+  store_rows<HD / 8>(dv, 1.f, 1.f, dvo + (size_t)chunk * n * dim + (size_t)head * HD, dim,
+                     smem + L::W_OFF, out + 2 * KD, total, k0, n);
 }
 
 // ------------------------------------------------------ f32, CUDA cores
@@ -525,23 +586,40 @@ bwd_key_rows_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
 }
 
 template <int KD, int HD>
-void launch(int is_bf16, const void* qkv, const void* dout, const void* dvo, void* dqkv,
-            float* stats, int ba, int n, int heads, float scale, cudaStream_t stream) {
+int launch(int is_bf16, const void* qkv, const void* dout, const void* dvo, void* dqkv,
+           float* stats, int ba, int n, int heads, float scale, cudaStream_t stream) {
+  const dim3 grid((n + (is_bf16 ? QT : BR) - 1) / (is_bf16 ? QT : BR), heads, ba);
   if (is_bf16) {
-    const dim3 grid((n + TR - 1) / TR, heads, ba);
-    constexpr size_t smem = Smem<KD, HD>::bytes;
-    cudaFuncSetAttribute(bwd_query_rows_bf16<KD, HD>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    cudaFuncSetAttribute(bwd_key_rows_bf16<KD, HD>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    bwd_query_rows_bf16<KD, HD><<<grid, W_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
-        static_cast<bf16*>(dqkv), stats, ba, n, heads, scale);
-    bwd_key_rows_bf16<KD, HD><<<grid, W_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
-        static_cast<const bf16*>(dvo), static_cast<bf16*>(dqkv), stats, ba, n, heads, scale);
+    using L = BwdSmem<KD, HD>;
+    const int stat_rows = (n + KT - 1) / KT * KT;
+    const size_t smem_a = L::bytes(0), smem_b = L::bytes(stat_rows);
+    if (smem_b > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    // once a process: both passes may use up to SMEM_MAX bytes
+    static const cudaError_t attr = [] {
+      const cudaError_t a = cudaFuncSetAttribute(
+          bwd_query_rows_bf16<KD, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+      return a != cudaSuccess ? a
+                              : cudaFuncSetAttribute(bwd_key_rows_bf16<KD, HD>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                     SMEM_MAX);
+    }();
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const int total = heads * (2 * KD + HD), dim = heads * HD;
+    BwdMaps a, b;  // pass (a): own Q and dO, tiles K and V; pass (b): own K and V, tiles Q and dO
+    if (!make_map(&a.own_n, qkv, ba, n, total, KD, QT) ||
+        !make_map(&a.own_w, dout, ba, n, dim, HD, QT) ||
+        !make_map(&a.tile_n, qkv, ba, n, total, KD, KT) ||
+        !make_map(&a.tile_w, qkv, ba, n, total, HD, KT) ||
+        !make_map(&b.own_w, qkv, ba, n, total, HD, QT) ||
+        !make_map(&b.tile_w, dout, ba, n, dim, HD, KT))
+      return static_cast<int>(cudaErrorInvalidValue);
+    b.own_n = a.own_n;
+    b.tile_n = a.tile_n;
+    bwd_query_rows_bf16<KD, HD><<<grid, W_THREADS, smem_a, stream>>>(
+        a, static_cast<bf16*>(dqkv), stats, ba, n, heads, scale);
+    bwd_key_rows_bf16<KD, HD><<<grid, W_THREADS, smem_b, stream>>>(
+        b, static_cast<const bf16*>(dvo), static_cast<bf16*>(dqkv), stats, ba, n, heads, scale);
   } else {
-    const dim3 grid((n + BR - 1) / BR, heads, ba);
     bwd_query_rows_f32<KD, HD><<<grid, F_THREADS, 0, stream>>>(
         static_cast<const float*>(qkv), static_cast<const float*>(dout),
         static_cast<float*>(dqkv), stats, ba, n, heads, scale);
@@ -549,6 +627,7 @@ void launch(int is_bf16, const void* qkv, const void* dout, const void* dvo, voi
         static_cast<const float*>(qkv), static_cast<const float*>(dout),
         static_cast<const float*>(dvo), static_cast<float*>(dqkv), stats, ba, n, heads, scale);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -560,7 +639,6 @@ extern "C" int area_attention_bwd(const void* qkv, const void* d_out, const void
                                   int key_dim, int head_dim, float scale, int is_bf16,
                                   void* stream) {
   if (key_dim != 32 || head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
-  launch<32, 64>(is_bf16, qkv, d_out, d_v, d_qkv, static_cast<float*>(stats), ba, n, heads,
-                 scale, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return launch<32, 64>(is_bf16, qkv, d_out, d_v, d_qkv, static_cast<float*>(stats), ba, n,
+                        heads, scale, static_cast<cudaStream_t>(stream));
 }

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into
 ``_build/lib<name>-<hash>.so`` (a plain C interface, loaded with ``ctypes``),
-at first use. The hash covers the source and the flags, so an edited source
-builds anew and an unchanged one is reused. Nothing here runs at import: the
+at first use. The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source builds anew and an
+unchanged one is reused. Nothing here runs at import: the
 CPU tests import every module on a machine with no ``nvcc``.
 """
 
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
@@ -33,6 +34,7 @@ EXTRA: Dict[str, List[str]] = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -52,6 +54,8 @@ def _flags(name: str) -> List[str]:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(_flags(name)).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -98,6 +102,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of ``csrc/<name>.cu`` returning an int
+    error code, its argument types set once, when it is first asked for."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _FUNCS[(name, symbol)] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

@@ -18,10 +18,13 @@ of 400 tokens, 2 heads, key_dim 32, head_dim 64, bf16) the forward moves
 13 MB for ~2 GFLOP and the backward 19.7 MB for ~4.6 GFLOP. The TPU kernels
 held a chunk's whole (n, n) f32 score tile in VMEM; on Hopper that tile
 (640 KB) does not fit in a block's 227 KB of shared memory, so both CUDA
-kernels stream tiles through shared memory and recompute scores: the (n, n)
-scores never reach device memory, and the ragged edge (n = 400 is not a
-multiple of the tile) is masked in the kernels. In bf16 the products run on
-the tensor cores (WMMA); in f32 the kernels stay on the f32 CUDA cores.
+kernels stream key (or query) tiles into shared memory by TMA and recompute
+scores: the (n, n) scores never reach device memory, and the ragged edge
+(n = 400 is not a multiple of the tile) is zero-filled and masked. In bf16
+the products are Hopper's wgmma with the scores, P and the sums in
+registers; in f32 the kernels stay on the f32 CUDA cores. The wrappers set
+the C functions' argument types once (``_build.function``) and build the
+TMA descriptors in C on every call: they hold the tensors' addresses.
 
 ``area_attention`` goes through ``AreaAttention`` on every device: the plain
 versions for a CPU tensor, the kernels for a CUDA tensor. ``launches`` and
@@ -41,6 +44,12 @@ launches = 0
 bwd_launches = 0
 
 SUPPORTED = {(32, 64)}  # (key_dim, head_dim) pairs the kernels are built for
+
+# the C entry points' arguments: pointers, ints (dims), scale, is_bf16, stream
+_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                                          ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                                          ctypes.c_void_p]
 
 
 def _split(qkv: torch.Tensor, num_heads: int, head_dim: int, key_dim: int):
@@ -116,10 +125,7 @@ def area_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int, key_dim
     v = torch.empty_like(out)
     if ba == 0 or n == 0:
         return out, v
-    fn = _build.load("area_attention").area_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("area_attention", "area_attention_fwd", _FWD_ARGS)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(qkv.data_ptr(), out.data_ptr(), v.data_ptr(), ba, n, num_heads,
@@ -150,10 +156,7 @@ def area_attention_bwd(qkv: torch.Tensor, d_out: torch.Tensor, d_v: torch.Tensor
         return d_qkv
     # per query row: softmax max, denominator and rowsum(dP * P), f32
     stats = torch.empty((3, ba, num_heads, n), dtype=torch.float32, device=qkv.device)
-    fn = _build.load("area_attention_bwd").area_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("area_attention_bwd", "area_attention_bwd", _BWD_ARGS)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(qkv.data_ptr(), d_out.data_ptr(), d_v.data_ptr(), d_qkv.data_ptr(),

@@ -22,7 +22,13 @@ from deal_yolo_daya_tpu_torch.ops.kernels.nms_suppress import nms_suppress
 from deal_yolo_daya_tpu_torch.ops.kernels.score_reduce import score_reduce
 
 
-@pytest.mark.parametrize("ba,n,heads,kd,hd", [(2, 35, 2, 32, 64), (3, 20, 1, 8, 16)])
+# yolo11n's C2PSA widths at n = 35, one 80-row key tile of the CUDA kernels,
+# one past it and the main shape's 400; and a narrow head
+ATTN_SHAPES = [(2, 35, 2, 32, 64), (2, 80, 2, 32, 64), (2, 81, 2, 32, 64), (2, 400, 2, 32, 64),
+               (3, 20, 1, 8, 16)]
+
+
+@pytest.mark.parametrize("ba,n,heads,kd,hd", ATTN_SHAPES)
 def test_area_attention_plain_matches_jax_kernel(ba, n, heads, kd, hd):
     rng = np.random.default_rng(0)
     qkv = rng.normal(0, 1, (ba, n, heads * (2 * kd + hd))).astype(np.float32)
@@ -60,7 +66,7 @@ BWD_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=1.6e-2, 
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("ba,n,heads,kd,hd", [(2, 35, 2, 32, 64), (3, 20, 1, 8, 16)])
+@pytest.mark.parametrize("ba,n,heads,kd,hd", ATTN_SHAPES)
 def test_area_attention_bwd_plain_matches_jax_vjp(ba, n, heads, kd, hd, dtype):
     qkv, d_out, d_v = _bwd_inputs(3, ba, n, heads, kd, hd)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
@@ -277,3 +283,41 @@ def test_kernel_wrappers_reject_other_devices():
                      torch.empty((1, 4), dtype=torch.bool, device="meta"), 0.5)
     with pytest.raises(ValueError, match="no kernel"):
         score_reduce(torch.empty((1, 4, 80), device="meta"))
+
+
+def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh gives every source a new library path, so a
+    kernel never loads a library built against an older header."""
+    from deal_yolo_daya_tpu_torch.ops.kernels import _build
+
+    (tmp_path / "area_attention.cu").write_text('#include "hopper.cuh"\n')
+    header = tmp_path / "hopper.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("area_attention")
+    assert _build.library_path("area_attention") == before
+    header.write_text("// two\n")
+    assert _build.library_path("area_attention") != before
+
+
+def test_build_function_sets_argument_types_once(monkeypatch):
+    """The wrappers' C functions get argtypes and restype when first asked
+    for; later calls return the same configured function."""
+    import ctypes
+    import types
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import _build
+
+    loads = []
+
+    def fake_load(name):
+        loads.append(name)
+        return types.SimpleNamespace(entry=types.SimpleNamespace())
+
+    monkeypatch.setattr(_build, "load", fake_load)
+    monkeypatch.setattr(_build, "_FUNCS", {})
+    fn = _build.function("area_attention", "entry", aa_mod._FWD_ARGS)
+    assert fn.argtypes == aa_mod._FWD_ARGS and fn.restype is ctypes.c_int
+    fn.argtypes = None  # a second ask must not set them again
+    assert _build.function("area_attention", "entry", aa_mod._FWD_ARGS) is fn
+    assert fn.argtypes is None and loads == ["area_attention"]
