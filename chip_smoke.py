@@ -9,12 +9,15 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
 1. environment: card name and power limit, torch and CUDA versions;
 2. build: every kernel under ``deal_yolo_daya_tpu_torch/csrc`` is compiled
    (all nvcc processes at once) and ptxas' registers, shared memory and spills
-   are printed; the attention sources must show 0 spill bytes;
+   are printed; every source must show 0 spill bytes;
 3. attention kernels vs plain: yolo11n's C2PSA shape (32 x 400 tokens, 2
    heads, key_dim 32, head_dim 64) and the ragged 35 and 1600 tokens, in bf16
    and f32, at stated tolerances, the forward (``v`` exact) and the backward;
 4. NMS kernel vs plain: dense class-offset scenes, B=32, K=1000, at iou 0.45
-   and 0.7; the keep masks must be bit-identical;
+   and 0.7, and an edge grid (B 1, 3, 32 x K 1, 31, 33, 300, 1000, 1344 x
+   iou 0, 0.45, 0.7, with holes in ``valid``); the keep masks must be
+   bit-identical, and on the grid identical over two launches. The cluster
+   geometry and ``cudaOccupancyMaxActiveClusters`` are printed;
 5. predict, the main path: ``YOLO("yolo11n", nc=80, imgsz=640)`` with random
    weights from ``--seed`` predicts 64 numpy-made images of mixed sizes at
    batch 32 and conf 0.001, in bf16. The launch counts are set to 0 just
@@ -51,15 +54,19 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    random weights. The launch counts are set to 0 just before ``train()``
    and read just after: the attention forward once a train step and a
    validation batch, the backward once a train step, NMS once a validation
-   batch. Checks: finite losses, results.csv's 3 rows of 15 columns,
+   batch. The NMS inputs of the validation batches are recorded and the
+   kernel is held against its plain version on them. Checks: finite losses,
+   results.csv's 3 rows of 15 columns,
    ``weights/last.pt`` reloading bit for bit, and ``YOLO(best.pt)`` detecting
    on a val batch what validation's EMA model detects (f32). Per epoch: wall,
    train img/s, augment and step ms (CUDA events), val ms a batch, host
    metric ms; the device cache's build time; one more epoch under
    torch.profiler;
 13. score_reduce: the kernel on the class logits the predict and validation
-   paths handed to decode (bf16, and an f32 copy), in both thread mappings,
-   and on crafted rows (exact ties, rows of -inf or -3e38, 37 classes),
+   paths handed to decode (bf16, and an f32 copy), in every mapping (nc 1,
+   8, 80, 81 in both dtypes, a view one element off a 16-byte boundary, an
+   anchor-contiguous view), and on crafted rows (exact ties, rows of -inf
+   or -3e38, 37 classes),
    against its plain version: classes and scores bit-identical. Against
    batched_nms' sigmoid-then-argmax on the same logits, every differing
    class must be a tie of f32 sigmoids. Times (as in 6): kernel, plain,
@@ -67,7 +74,9 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    reduces sigmoid scores.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
-the JSON ``kernels`` record and the last line the device record.
+the JSON ``kernels`` record (with each kernel's profiler device time by
+kernel name, and NMS's split into its mask phase and walk by SM clock
+stamps) and the last line the device record.
 """
 
 from __future__ import annotations
@@ -104,6 +113,8 @@ BWD_TOL = {"bfloat16": (4e-3, 1.6e-2), "float32": (2e-5, 1e-4)}
 # f32 train-step gradients through the kernels vs through the plain
 # attention, per parameter: <= rtol * max |plain grad| + atol
 GRAD_TOL = (1e-3, 1e-6)
+NMS_EDGE_B = (1, 3, 32)                   # the NMS edge grid: images,
+NMS_EDGE_K = (1, 31, 33, 300, 1000, 1344)  # candidates (1344: the kernel's limit)
 TRAIN_STEPS = 4       # train steps on the main path
 TIMED_STEPS = 10      # warm train steps under CUDA events
 # score_reduce vs its plain version: classes exact, and scores exact too (the
@@ -175,14 +186,14 @@ def device_time_ms(fn, calls: int = 50):
 def call_and_device_ms(fn, what: str):
     """The time a call of ``fn`` costs its caller, host included (CUDA events
     around 200 calls in a row), and its device time (``device_time_ms``)
-    -> (call ms, device ms, text for the log). Fails when the profiler saw
-    no device time."""
+    -> (call ms, device ms, text for the log, {kernel name: its device ms}).
+    Fails when the profiler saw no device time."""
     call_ms = cuda_time_ms(fn, 200)
     dev_ms, per_kernel = device_time_ms(fn)
     check(dev_ms > 0, f"the profiler recorded no device time for {what}")
     parts = "; ".join(f"{k[:70]} {v:.4f}" for k, v in sorted(per_kernel.items()))
     return call_ms, dev_ms, (f"device {dev_ms:.4f} ms ({parts}), a call {call_ms:.4f} ms with "
-                             "the host")
+                             "the host"), {k[:90]: v for k, v in per_kernel.items()}
 
 
 def make_images(seed: int, count: int):
@@ -436,8 +447,9 @@ def main() -> int:
                  if any(w in ln for w in ("registers", "spill", "smem", "Compiling", "built"))]
         for ln in lines:
             log(f"[ptxas {name}] {ln}")
-    # the wgmma kernels keep their accumulators in registers: no spills
-    for name in ("area_attention", "area_attention_bwd"):
+    # the wgmma kernels keep their accumulators in registers, NMS its chain's
+    # 32 row words and score_reduce a row's 16-byte vectors: no spills
+    for name in ("area_attention", "area_attention_bwd", "nms_suppress", "score_reduce"):
         if name in logs:
             spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
             check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -479,7 +491,8 @@ def main() -> int:
         first, second = ((x if isinstance(x, tuple) else (x,))
                          for x in (kernel(*args), kernel(*args)))
         torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(first, second))
+        same = all(torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))
+                   for x, y in zip(first, second))  # bits, so NaN equals NaN
         log(f"[determinism] {label}: two launches bit-identical {same}")
         check(same, f"{label}: two launches differ")
 
@@ -521,6 +534,33 @@ def main() -> int:
         boxes = torch.tensor(np.concatenate([xy, xy + wh], -1) + offset,
                              dtype=torch.float32, device=dev)
         nms_parity("random", boxes, torch.ones((32, 1000), dtype=torch.bool, device=dev), thr)
+    # the launch geometry, and how many of its clusters the card holds at once
+    for b_, k_ in ((1, 1000), (3, 1000), (32, 1000), (32, ns.MAX_K)):
+        geo = ns.nms_geometry(b_, k_)
+        log(f"[nms] geometry B={b_} K={k_}: {geo._asdict()}, {b_ * geo.cluster} CTAs; "
+            f"cudaOccupancyMaxActiveClusters {ns.max_active_clusters(geo)}")
+    # the edge grid: ragged and limit K, one and few images, iou 0 (any
+    # overlap suppresses), holes in valid; bit for bit against plain and
+    # against itself
+    for b_ in NMS_EDGE_B:
+        for k_ in NMS_EDGE_K:
+            xy = rng.uniform(0, 600, (b_, k_, 2))
+            wh = rng.uniform(8, 200, (b_, k_, 2))
+            offset = rng.integers(0, 3, (b_, k_, 1)) * 7680.0
+            boxes = torch.tensor(np.concatenate([xy, xy + wh], -1) + offset,
+                                 dtype=torch.float32, device=dev)
+            valid = torch.tensor(rng.random((b_, k_)) > 0.15, device=dev)
+            for thr in (0.0, 0.45, 0.7):
+                nms_parity("edge grid", boxes, valid, thr)
+                bit_identical(f"nms edge grid B={b_} K={k_} iou {thr}", ns.nms_suppress, boxes,
+                              valid, thr)
+    try:
+        ns.nms_suppress(boxes[:, :1].expand(-1, ns.MAX_K + 1, -1).contiguous(),
+                        torch.ones((boxes.shape[0], ns.MAX_K + 1), dtype=torch.bool, device=dev),
+                        0.5)
+        check(False, f"nms_suppress accepted K={ns.MAX_K + 1}")
+    except ValueError as e:
+        log(f"[nms] K={ns.MAX_K + 1} raises: {e}")
 
     # 5. predict, the main path (bf16)
     images = make_images(args.seed, 64)
@@ -612,13 +652,13 @@ def main() -> int:
     kernels = []
     qkv, (heads, hd, kd) = recorded["attn"][0]
     ba, n, _ = qkv.shape
-    ms, dev_ms, kernel_text = call_and_device_ms(
+    ms, dev_ms, kernel_text, by_kernel = call_and_device_ms(
         lambda: aa.area_attention(qkv, heads, hd, kd), "area_attention")
     plain_ms = cuda_time_ms(lambda: aa.area_attention_plain(qkv, heads, hd, kd), 50)
     split = qkv.view(ba, n, heads, 2 * kd + hd)
     q, k, v = (t.transpose(1, 2) for t in (split[..., :kd], split[..., kd:2 * kd],
                                            split[..., 2 * kd:]))
-    library_ms, lib_dev_ms, library_text = call_and_device_ms(
+    library_ms, lib_dev_ms, library_text, _ = call_and_device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), "sdpa")
     nbytes = qkv.numel() * qkv.element_size() * (1 + 2 * heads * hd / qkv.shape[2])
     flops = 2.0 * ba * heads * n * n * (kd + hd)
@@ -632,15 +672,26 @@ def main() -> int:
         "tol": ATTN_TOL["bfloat16"], "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms, "library_device_ms": lib_dev_ms, "shape": list(qkv.shape),
-        "dtype": str(qkv.dtype),
+        "dtype": str(qkv.dtype), "device_ms_by_kernel": by_kernel,
     })
     log(f"[time] area_attention {tuple(qkv.shape)} {qkv.dtype}: kernel {kernel_text}; plain "
         f"{plain_ms:.4f} ms; sdpa {library_text}; bound {max(t_bytes, t_ops):.4f} ms (bytes "
         f"{t_bytes:.4f}, ops {t_ops:.4f})")
 
     boxes, valid, thr = recorded["nms"][0]
-    ms, dev_ms, kernel_text = call_and_device_ms(lambda: ns.nms_suppress(boxes, valid, thr),
-                                                 "nms_suppress")
+    ms, dev_ms, kernel_text, by_kernel = call_and_device_ms(
+        lambda: ns.nms_suppress(boxes, valid, thr), "nms_suppress")
+    # the walking CTAs' SM clocks split the device time: the mask phase (until
+    # the bitmask's last row tile is in) and the walk's tail after it; the
+    # walk overlaps the mask phase, waiting for each row tile
+    stamps = torch.zeros((boxes.shape[0], 3), dtype=torch.int64, device=dev)
+    ns.launch(boxes, valid, thr, stamps)
+    torch.cuda.synchronize()
+    cycles = stamps.double().mean(0).tolist()  # to the last tile, whole kernel, waiting
+    total_cycles = max(cycles[1], 1.0)
+    nms_phases = {"mask": dev_ms * cycles[0] / total_cycles,
+                  "walk_tail": dev_ms * (cycles[1] - cycles[0]) / total_cycles,
+                  "walk_waiting_share": cycles[2] / total_cycles}
     plain_ms = cuda_time_ms(lambda: ns.nms_suppress_plain(boxes, valid, thr), 10)
     nv = valid.sum(1).double()
     pairs = float((nv * (nv - 1) / 2).sum())
@@ -654,11 +705,14 @@ def main() -> int:
         "tol": 0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "library_device_ms": None, "shape": list(boxes.shape),
-        "valid_pairs": pairs,
+        "valid_pairs": pairs, "device_ms_by_kernel": by_kernel, "phase_device_ms": nms_phases,
+        "phase_sm_cycles": cycles, "geometry": ns.nms_geometry(*valid.shape)._asdict(),
     })
     log(f"[time] nms_suppress {tuple(boxes.shape)}: kernel {kernel_text}; plain {plain_ms:.4f} "
         f"ms; bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.5f}, ops {t_ops:.4f}; "
-        f"{pairs:.0f} valid pairs)")
+        f"{pairs:.0f} valid pairs); by SM clock: mask phase {nms_phases['mask']:.4f} ms, walk "
+        f"after it {nms_phases['walk_tail']:.4f} ms (mean cycles: to the last row tile "
+        f"{cycles[0]:.0f}, whole kernel {cycles[1]:.0f}, the walk waiting {cycles[2]:.0f})")
 
     # the host letterbox alone, warm, median of 3 passes; each canvas is
     # dropped at once, as predict drops it after copying it into the batch
@@ -801,7 +855,7 @@ def main() -> int:
     # version, SDPA's backward alone, the bound; then the train step
     qkv_b, do_b, dv_b, (heads, hd, kd) = train_rec["bwd"][0]
     ba, n, _ = qkv_b.shape
-    ms, dev_ms, kernel_text = call_and_device_ms(
+    ms, dev_ms, kernel_text, by_kernel = call_and_device_ms(
         lambda: aa.area_attention_bwd(qkv_b, do_b, dv_b, heads, hd, kd), "area_attention_bwd")
     plain_ms = cuda_time_ms(lambda: aa.area_attention_bwd_plain(qkv_b, do_b, dv_b, heads, hd, kd),
                             20)
@@ -814,7 +868,7 @@ def main() -> int:
     def sdpa_backward():
         torch.autograd.grad(sdpa_out, (q, k, v), sdpa_grad, retain_graph=True)
 
-    library_ms, lib_dev_ms, library_text = call_and_device_ms(sdpa_backward, "sdpa backward")
+    library_ms, lib_dev_ms, library_text, _ = call_and_device_ms(sdpa_backward, "sdpa backward")
     nbytes = (2 * qkv_b.numel() + do_b.numel() + dv_b.numel()) * qkv_b.element_size()
     flops = 2.0 * ba * heads * n * n * (3 * kd + 2 * hd)  # QK^T, dP, dV, dQ, dK
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
@@ -828,7 +882,7 @@ def main() -> int:
         "tol": BWD_TOL["bfloat16"], "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms, "library_device_ms": lib_dev_ms, "shape": list(qkv_b.shape),
-        "dtype": str(qkv_b.dtype),
+        "dtype": str(qkv_b.dtype), "device_ms_by_kernel": by_kernel,
     })
     log(f"[time] area_attention_bwd {tuple(qkv_b.shape)} {qkv_b.dtype}: kernels {kernel_text}; "
         f"plain {plain_ms:.4f} ms; sdpa backward {library_text}; bound {max(t_bytes, t_ops):.4f} "
@@ -938,8 +992,15 @@ def main() -> int:
         return epoch_batches(epoch)
 
     trainer._epoch_batches = epoch_start
+    recorded["val_nms"] = []
+
+    def rec_val_suppress(boxes, valid, thr):
+        recorded["val_nms"].append((boxes.clone(), valid.clone(), thr))
+        return orig_val_suppress(boxes, valid, thr)
+
     with patched(trainer_mod, "decode_predictions",
                  logits_recorder("validation", trainer_mod.decode_predictions)), \
+            patched(nms_ops, "nms_suppress", rec_val_suppress) as orig_val_suppress, \
             patched(metrics_mod.DetMetrics, "update",
                     host_timed(metrics_mod.DetMetrics.update, "metric_s", add=True)), \
             patched(metrics_mod.DetMetrics, "compute",
@@ -965,6 +1026,11 @@ def main() -> int:
     check(trainer_launches["area_attention_bwd"] == n_steps,
           "attention backward launches != train steps")
     check(trainer_launches["nms_suppress"] == n_val_batches, "NMS launches != val batches")
+    # NMS against its plain version on the validation batches' own inputs (nc 3)
+    log(f"[trainer] validation NMS inputs: valid candidates per image, min and max over each "
+        f"batch {[(int(v.sum(1).min()), int(v.sum(1).max())) for _, v, _ in recorded['val_nms']]}")
+    val_mismatched = sum(nms_parity(f"validation call {i}", b, v, t)
+                         for i, (b, v, t) in enumerate(recorded["val_nms"]))
 
     # the run's artifacts
     save_dir = Path(result["save_dir"])
@@ -1141,16 +1207,21 @@ def main() -> int:
     # validation paths handed to decode, bf16 as recorded and an f32 copy,
     # against its plain version; then against batched_nms' front half
     # (sigmoid, then amax/argmax) on the same logits
+    mappings_run = set()
+
     def reduce_parity(label, x):
         s, c = sr.score_reduce(x)
         ps, pc = sr.score_reduce_plain(x)
         torch.cuda.synchronize()
+        mapping = sr.reduce_mapping(x.dtype, x.shape, x.stride(), x.data_ptr())
+        mappings_run.add(mapping)
         bad = int((c != pc).sum())
-        err = (s - ps).abs().max().item()
-        log(f"[score_reduce] {label} {tuple(x.shape)} {x.dtype} strides {x.stride()}: classes "
-            f"differing {bad}, scores max_abs_err {err:.3e} (tol {SCORE_TOL})")
+        # a NaN logit gives a NaN score in both: equal there, any other NaN fails
+        err = torch.where(s.isnan() & ps.isnan(), 0.0, s - ps).abs().max().item()
+        log(f"[score_reduce] {label} {tuple(x.shape)} {x.dtype} strides {x.stride()} by "
+            f"{mapping}: classes differing {bad}, scores max_abs_err {err:.3e} (tol {SCORE_TOL})")
         check(bad == 0, f"score_reduce {label}: {bad} classes differ from the plain version")
-        check(err <= SCORE_TOL, f"score_reduce {label}: scores off by {err}")
+        check(err <= SCORE_TOL, f"score_reduce {label}: scores off by {err}")  # NaN fails
         return s, c, err
 
     sr.launches = 0
@@ -1193,15 +1264,33 @@ def main() -> int:
               "score_reduce floors or saturated scores are off")
         reduce_parity("crafted, anchor-contiguous view", xc.transpose(1, 2).contiguous()
                       .transpose(1, 2))
+    # every mapping: widths of whole and partial 16-byte vectors in both
+    # dtypes, and a view one element off a 16-byte boundary
+    for dt in (torch.bfloat16, torch.float32):
+        for nc in (1, 8, 80, 81):
+            xw = torch.randn((4, 2100, nc), generator=gen, device=dev) * 3
+            xw[:, :16] = 5.0                                     # every class tied
+            xw[:, 16:24, nc // 2] = float("nan")                 # a NaN wins
+            xw = xw.to(dt)
+            reduce_parity(f"nc {nc}", xw)
+            flat = torch.empty(xw.numel() + 1, dtype=dt, device=dev)
+            flat[1:] = xw.flatten()
+            reduce_parity(f"nc {nc}, one element off", flat[1:].view(xw.shape))
+            bit_identical(f"score_reduce nc {nc} {dt}", sr.score_reduce, xw)
+    log(f"[score_reduce] mappings run: {sorted(mappings_run)}")
+    check(mappings_run == set(sr.MAPPINGS),
+          f"score_reduce mappings not run: {set(sr.MAPPINGS) - mappings_run}")
     # times at the predict path's shape: the kernel, its plain version, and
     # the library call torch.max(x, -1) followed by the sigmoid of its values
     xb = logits_rec["predict"][0]
-    ms, dev_ms, kernel_text = call_and_device_ms(lambda: sr.score_reduce(xb), "score_reduce")
+    ms, dev_ms, kernel_text, by_kernel = call_and_device_ms(lambda: sr.score_reduce(xb),
+                                                            "score_reduce")
     plain_ms = cuda_time_ms(lambda: sr.score_reduce_plain(xb), 50)
-    library_ms, lib_dev_ms, library_text = call_and_device_ms(
+    library_ms, lib_dev_ms, library_text, _ = call_and_device_ms(
         lambda: torch.sigmoid(torch.max(xb, dim=-1).values.float()), "torch.max + sigmoid")
     xf = xb.float()
-    ms_f32 = cuda_time_ms(lambda: sr.score_reduce(xf), 200)
+    ms_f32, dev_ms_f32, f32_text, by_kernel_f32 = call_and_device_ms(lambda: sr.score_reduce(xf),
+                                                                     "score_reduce f32")
     nbytes = xb.numel() * xb.element_size() + xb.shape[0] * xb.shape[1] * 8
     ops = xb.numel() + xb.shape[0] * xb.shape[1] * 4   # a compare a logit; sigmoid a row
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
@@ -1219,15 +1308,19 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms,
         "library_device_ms": lib_dev_ms, "shape": list(xb.shape), "dtype": str(xb.dtype),
-        "classes_differing_from_nms_front_half": nms_diffs,
+        "classes_differing_from_nms_front_half": nms_diffs, "device_ms_by_kernel": by_kernel,
+        "mapping": sr.reduce_mapping(xb.dtype, xb.shape, xb.stride(), xb.data_ptr()),
+        "f32": {"ms": ms_f32, "device_ms": dev_ms_f32, "device_ms_by_kernel": by_kernel_f32},
+        "mappings_run": sorted(mappings_run),
     })
     kernels[0]["launches_trainer"] = trainer_launches["area_attention"]
     kernels[1]["launches_trainer"] = trainer_launches["nms_suppress"]
+    kernels[1]["mismatched_bits_trainer"] = float(val_mismatched)
     kernels[2]["launches_trainer"] = trainer_launches["area_attention_bwd"]
     log(f"[time] score_reduce {tuple(xb.shape)} {xb.dtype}: kernel {kernel_text}; plain "
         f"{plain_ms:.4f} ms; torch.max + sigmoid {library_text}; bound "
         f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} for {nbytes / 1e6:.2f} MB, ops "
-        f"{t_ops:.5f}); f32 input {ms_f32:.4f} ms")
+        f"{t_ops:.5f}); f32 input: kernel {f32_text}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

@@ -8,12 +8,20 @@ returns the exact greedy keep mask
 
 with IoU in f32 and eps 1e-7, batched over images.
 
-What bounds it on an H100: the ~K^2/2 f32 IoU evaluations and the scan that
-follows them, which is sequential by nature; the inputs are only 16 KB of
-boxes an image. ``csrc/nms_suppress.cu`` builds the K x K suppression
-bitmask over many blocks into a scratch buffer, then walks each image's
-bitmask with one warp from shared memory. The keep mask is bit-identical to
-the plain version's: every IoU operation is correctly rounded and never
+What bounds it on an H100: the ~K^2/2 pair tests, f32 work on the CUDA
+cores, and a walk over the K x ceil(K/32) suppression bitmask that is
+sequential by nature; the inputs are only 16 KB of boxes an image.
+``csrc/nms_suppress.cu`` is one launch with no global scratch: a
+thread-block cluster an image, whose warps share the bitmask's upper
+triangle in equal units. A cheap necessary test (centre distance against
+(1 - iou) of the half widths, with slack) picks the pairs that may pass;
+only those get the exact IoU. Each unit's words go straight into the walking
+CTA's shared memory (``st.async`` onto a row tile's mbarrier), and that CTA
+walks them a 32-bit word at a time as the row tiles arrive, overlapped with
+the rest of the mask. ``nms_geometry`` picks the cluster size (the largest
+of which the card runs all B at once), whether the walking CTA computes too,
+and the shared memory bytes. The keep mask is bit-identical to the plain
+version's: every IoU that decides a bit is correctly rounded and never
 contracted, in the plain version's order.
 
 ``nms_suppress`` takes the plain version for CPU tensors and launches the
@@ -23,6 +31,7 @@ kernel for CUDA tensors; ``launches`` counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,6 +41,62 @@ from . import _build
 launches = 0
 
 SMEM_LIMIT = 232448  # bytes of shared memory an H100 block may use
+SMS = 132            # an H100's SMs
+MAX_CLUSTER = 8      # the portable cluster size
+HEAD_BYTES = 512     # the walking CTA's row-tile mbarriers (csrc/nms_suppress.cu)
+SCRATCH_BYTES = 4096  # a computing CTA's candidate and hit words, 32 a warp
+PAD = 32             # boxes staged past K (csrc/nms_suppress.cu)
+# clusters of each size (index) that an H100 holds at once at one CTA an SM
+# (cudaOccupancyMaxActiveClusters; chip_smoke.py prints it): its GPCs do not
+# split into equal clusters, so 132 // C overstates it from C = 3
+ACTIVE_CLUSTERS = (0, 132, 66, 39, 30, 22, 17, 15, 15)
+
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] + \
+    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+
+
+class NmsGeometry(NamedTuple):
+    """One launch's shape: ``cluster`` CTAs an image; ``first`` is the first
+    rank that computes mask units (0: the walking CTA too; 1: only its
+    peers); ``smem`` the dynamic shared memory bytes of every CTA."""
+    cluster: int
+    first: int
+    smem: int
+
+
+def walker_bytes(k: int) -> int:
+    """The walking CTA's shared memory: header, the K x ceil(K/32) u32
+    bitmask and the K validity bytes."""
+    return HEAD_BYTES + 4 * k * ((k + 31) // 32) + k
+
+
+MAX_K = max(k for k in range(1, 2049) if walker_bytes(k) <= SMEM_LIMIT)  # 1344
+
+
+def nms_geometry(b: int, k: int) -> NmsGeometry:
+    """The launch geometry for B images of K candidates; raises ValueError
+    when K is beyond what a CTA's shared memory holds (K > MAX_K)."""
+    if k < 1 or k > MAX_K:
+        raise ValueError(f"nms_suppress: K={k} candidates exceed a block's shared memory")
+    boxes_at = (walker_bytes(k) + 15) // 16 * 16
+    held = 16 * (k + PAD) + SCRATCH_BYTES  # the staged boxes and the warps' words
+    if boxes_at + held <= SMEM_LIMIT:    # the walking CTA holds the boxes too
+        first, smem = 0, boxes_at + held
+    else:                                # peers hold them and the validity
+        first, smem = 1, max(walker_bytes(k), held + k)
+    # the largest cluster whose B copies all run at once, else the smallest
+    fits = [c for c in range(first + 1, MAX_CLUSTER + 1) if b <= ACTIVE_CLUSTERS[c]]
+    return NmsGeometry(max(fits) if fits else first + 1, first, smem)
+
+
+def max_active_clusters(geometry: NmsGeometry) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for the geometry on the current card."""
+    fn = _build.function("nms_suppress", "nms_suppress_max_active_clusters",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    out = ctypes.c_int(0)
+    _build.check(fn(geometry.cluster, geometry.smem, ctypes.addressof(out)),
+                 "nms_suppress occupancy")
+    return out.value
 
 
 def nms_suppress_plain(boxes: torch.Tensor, valid: torch.Tensor,
@@ -61,6 +126,15 @@ def nms_suppress(boxes: torch.Tensor, valid: torch.Tensor,
     -> keep (B, K) bool."""
     if boxes.device.type == "cpu":
         return nms_suppress_plain(boxes, valid, iou_thres)
+    return launch(boxes, valid, iou_thres)
+
+
+def launch(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+           stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel launch behind ``nms_suppress`` for a CUDA tensor. With
+    ``stamps`` ((B, 3) int64 on the card), the walking CTA of each image
+    writes its SM clock counts there: staging and its own mask units, the
+    whole mask phase (to the cluster barrier), the walk."""
     if boxes.device.type != "cuda":
         raise ValueError(f"nms_suppress: no kernel for device {boxes.device}")
     if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
@@ -77,23 +151,15 @@ def nms_suppress(boxes: torch.Tensor, valid: torch.Tensor,
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
         return keep
-    lib = _build.load("nms_suppress")
-    lib.nms_suppress_smem_bytes.argtypes = [ctypes.c_int]
-    lib.nms_suppress_smem_bytes.restype = ctypes.c_longlong
-    if lib.nms_suppress_smem_bytes(k) > SMEM_LIMIT:
-        raise ValueError(f"nms_suppress: K={k} candidates exceed a block's shared memory")
-    lib.nms_suppress_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.nms_suppress_scratch_words.restype = ctypes.c_longlong
-    scratch = torch.empty(lib.nms_suppress_scratch_words(b, k), dtype=torch.int32,
-                          device=boxes.device)  # the (B, K, ceil(K/32)) suppression bitmask
-    fn = lib.nms_suppress
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    geometry = nms_geometry(b, k)
+    if stamps is not None and (stamps.shape != (b, 3) or stamps.dtype != torch.int64
+                               or stamps.device != boxes.device):
+        raise ValueError("nms_suppress: stamps must be (B, 3) int64 on the boxes' device")
+    fn = _build.function("nms_suppress", "nms_suppress", _ARGS)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(), keep.data_ptr(),
-                 b, k, float(iou_thres), stream)
+        err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k, float(iou_thres),
+                 *geometry, None if stamps is None else stamps.data_ptr(), stream)
     _build.check(err, "nms_suppress launch")
     global launches
     launches += 1

@@ -220,6 +220,204 @@ def test_suppress_plain_bit_exact_with_jax_kernel(iou):
     assert 0 < int(keep.sum()) < int(valid.sum())  # cascades and suppressions both occur
 
 
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 100])
+@pytest.mark.parametrize("iou", [0.0, 0.45, 0.7])
+def test_suppress_plain_bit_exact_with_jax_kernel_at_edges(k, iou):
+    """Ragged K around a 32-bit word, iou 0 (any overlap suppresses), and
+    invalid candidates scattered among the valid ones."""
+    boxes, valid = _candidates(seed=k, k=k)
+    valid &= np.random.default_rng(k + 1).random(valid.shape) > 0.2
+    keep = nms_suppress(torch.from_numpy(boxes), torch.from_numpy(valid), iou)
+    for i in range(len(boxes)):
+        want = np.asarray(jax_suppress(jnp.asarray(boxes[i]), jnp.asarray(valid[i], jnp.float32),
+                                       iou, interpret=True)) > 0
+        np.testing.assert_array_equal(keep[i].numpy(), want)
+    assert not (keep.numpy() & ~valid).any()
+
+
+def _mask_units(words, cluster, first, warps=32):
+    """The CUDA kernel's deal of bitmask units (row tile, word >= tile) to the
+    computing warps of a cluster (the peers' and, with first 0, rank 0's off
+    the walker's scheduler, warp % 4 != 0), decoded as the kernel decodes it."""
+    units = words * (words + 1) // 2
+    own = 0 if first else warps - warps // 4
+    stride = own + (cluster - 1) * warps
+    seen = []
+    for rank in range(first, cluster):
+        for warp in range(warps):
+            slot = (warp - warp // 4 - 1 if warp % 4 else -1) if rank == 0 else \
+                own + (rank - 1) * warps + warp
+            if slot < 0:
+                continue
+            rt, rest = 0, slot
+            u = rest
+            while u < units:
+                while rest >= words - rt:
+                    rest -= words - rt
+                    rt += 1
+                seen.append((rt, rt + rest))
+                u += stride
+                rest += stride
+    return seen
+
+
+@pytest.mark.parametrize("words,cluster,first", [(1, 8, 0), (2, 2, 1), (32, 4, 0), (42, 8, 1),
+                                                 (42, 2, 1), (33, 1, 0)])
+def test_nms_mask_units_cover_the_upper_triangle_once(words, cluster, first):
+    seen = _mask_units(words, cluster, first)
+    assert sorted(seen) == [(rt, w) for rt in range(words) for w in range(rt, words)]
+
+
+def _walk_model(sup: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """The CUDA kernel's walk in numpy: the column-major bitmask (word w of
+    row i), then word by word the 32-step greedy chain and the kept rows'
+    removals ORed into each later word column."""
+    k = len(valid)
+    words = (k + 31) // 32
+    bits = [[0] * k for _ in range(words)]
+    for i, c in zip(*np.nonzero(np.triu(sup, 1))):
+        bits[c // 32][i] |= 1 << (c % 32)
+    removed = [0] * words
+    keep = np.zeros(k, bool)
+    for w in range(words):
+        rows = range(32 * w, min(k, 32 * w + 32))
+        avail = sum(1 << (r - 32 * w) for r in rows if valid[r]) & ~removed[w]
+        kept = 0
+        for t, r in enumerate(rows):  # the chain within the word
+            if (avail >> t) & 1:
+                kept |= 1 << t
+                avail &= ~bits[w][r]
+        for t, r in enumerate(rows):
+            keep[r] = bool((kept >> t) & 1)
+        for c in range(w + 1, words):  # one OR-reduction a later column
+            for t, r in enumerate(rows):
+                if (kept >> t) & 1:
+                    removed[c] |= bits[c][r]
+    return keep
+
+
+@pytest.mark.parametrize("seed,k,iou", [(0, 1, 0.5), (1, 33, 0.3), (2, 100, 0.0), (3, 100, 0.6),
+                                        (4, 300, 0.45), (5, 300, 0.7)])
+def test_nms_walk_model_matches_plain_on_dense_scenes(seed, k, iou):
+    """The kernel's word-wise walk (a chain a word, then column ORs) reaches
+    the plain version's greedy fixed point on dense, overlapping scenes."""
+    from deal_yolo_daya_tpu_torch.ops.boxes import bbox_iou
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 150, (k, 2))
+    wh = rng.uniform(10, 80, (k, 2))
+    boxes = torch.tensor(np.concatenate([xy, xy + wh], -1), dtype=torch.float32)
+    valid = rng.random(k) > 0.1
+    iou_m = bbox_iou(boxes[:, None, :], boxes[None, :, :])
+    sup = ((iou_m > torch.tensor(iou, dtype=torch.float32)).numpy() & valid[:, None]
+           & valid[None, :])
+    want = nms_mod.nms_suppress_plain(boxes[None], torch.from_numpy(valid)[None], iou)[0]
+    np.testing.assert_array_equal(_walk_model(sup, valid), want.numpy())
+    if k >= 100:
+        assert 0 < want.sum() < valid.sum()
+
+
+def _reach(boxes: np.ndarray, thr: float) -> np.ndarray:
+    """csrc/nms_suppress.cu::reach_box in f32 numpy: (center x, center y,
+    reach x, reach y), a non-finite box reaching everywhere."""
+    f = np.float32
+    x1, y1, x2, y2 = (boxes[:, i].astype(np.float32) for i in range(4))
+    scale = np.maximum(f(1) - f(thr), f(0)) + f(1e-5)
+    cx, hx = f(0.5) * x1 + f(0.5) * x2, f(0.5) * x2 - f(0.5) * x1
+    cy, hy = f(0.5) * y1 + f(0.5) * y2, f(0.5) * y2 - f(0.5) * y1
+    gx = scale * hx + f(1e-5) * (np.abs(cx) + np.abs(hx)) + f(1e-30)
+    gy = scale * hy + f(1e-5) * (np.abs(cy) + np.abs(hy)) + f(1e-30)
+    out = np.stack([cx, cy, gx, gy], -1)
+    bad = ~np.isfinite(boxes).all(-1)
+    out[bad] = (0, 0, np.inf, np.inf)
+    return out
+
+
+def _adversarial_pairs(rng, thr: float, n: int) -> np.ndarray:
+    """Box pairs at IoU within a few ulps of thr (shifted, nested, both axes),
+    at scales from 1e-3 to 1e4 px and class offsets up to 79 * 7680, plus
+    identical, touching, degenerate and non-finite boxes -> (2n + 8, 4)."""
+    t = np.float64(thr)
+    out = []
+    for _ in range(n):
+        w, h = rng.uniform(0.5, 2.0, 2) * 10.0 ** rng.uniform(-3, 4)
+        x0, y0 = rng.uniform(0, 640, 2) + 7680.0 * rng.integers(0, 80)
+        kind = rng.integers(0, 3)
+        if kind == 0:    # shifted along x: IoU = (w - d) / (w + d)
+            d = w * (1 - t) / (1 + t) * (1 + rng.normal(0, 1e-6))
+            b = (x0 + d, y0, x0 + d + w, y0 + h)
+        elif kind == 1:  # nested, area ratio t
+            s = np.sqrt(t) * (1 + rng.normal(0, 1e-6))
+            b = (x0 + (1 - s) * w / 2, y0 + (1 - s) * h / 2, x0 + (1 + s) * w / 2,
+                 y0 + (1 + s) * h / 2)
+        else:            # shifted along both axes by the same share
+            g = np.sqrt(t) * (1 + rng.normal(0, 1e-6))
+            d = (1 - g) / (1 + g)
+            b = (x0 + d * w, y0 + d * h, x0 + (1 + d) * w, y0 + (1 + d) * h)
+        out += [(x0, y0, x0 + w, y0 + h), b]
+    out += [(0, 0, 10, 10), (0, 0, 10, 10), (10, 0, 20, 10), (5, 5, 5, 9),
+            (np.nan, 0, 10, 10), (0, 0, np.inf, 10), (-np.inf, -np.inf, np.inf, np.inf),
+            (3, 3, 7, 7)]
+    return np.asarray(out, np.float64).astype(np.float32)
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.3, 0.45, 0.5, 0.7, 0.9, 1.0])
+def test_nms_reach_test_keeps_every_suppressing_pair(thr):
+    """The kernel's necessary test (|center difference| < summed reach on
+    both axes) passes every pair whose exact f32 IoU exceeds thr, over
+    adversarial near-threshold pairs and random dense scenes, so it drops
+    only pairs whose bit is 0; at thr 0.7 it also drops most overlaps."""
+    from deal_yolo_daya_tpu_torch.ops.boxes import bbox_iou
+
+    def hits_and_candidates(boxes):
+        t = torch.from_numpy(boxes)
+        with np.errstate(invalid="ignore"):
+            hit = (bbox_iou(t[:, None], t[None]) > torch.tensor(thr, dtype=torch.float32)).numpy()
+            r = _reach(boxes, thr)
+            cand = ((np.abs(r[:, None, 0] - r[None, :, 0]) < r[:, None, 2] + r[None, :, 2])
+                    & (np.abs(r[:, None, 1] - r[None, :, 1]) < r[:, None, 3] + r[None, :, 3]))
+        assert not (hit & ~cand).any(), np.argwhere(hit & ~cand)[:5]
+        return hit, cand
+
+    rng = np.random.default_rng(int(thr * 100))
+    hit, _ = hits_and_candidates(_adversarial_pairs(rng, thr, 400))
+    if 0 < thr < 1:  # the pairs straddle the threshold (at 0 they round to touching)
+        assert 0.05 < hit[np.arange(0, 800, 2), np.arange(1, 800, 2)].mean() < 0.95
+    xy = rng.uniform(0, 600, (600, 2))
+    scene = np.concatenate([xy, xy + rng.uniform(8, 200, (600, 2))], -1).astype(np.float32)
+    _, cand = hits_and_candidates(scene)
+    if thr == 0.7:
+        meet = ((np.minimum(scene[:, None, 2], scene[None, :, 2])
+                 > np.maximum(scene[:, None, 0], scene[None, :, 0]))
+                & (np.minimum(scene[:, None, 3], scene[None, :, 3])
+                   > np.maximum(scene[:, None, 1], scene[None, :, 1])))
+        assert cand.sum() < meet.sum() / 5
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 16, 32, 33, 66, 132])
+def test_nms_geometry_accepts_every_k_to_the_limit(b):
+    """Every K <= 1344 fits a CTA's shared memory, and B clusters fill at
+    most the card's 132 SMs and all run at once where the card holds them;
+    K = 1345 raises as the wrapper does."""
+    assert nms_mod.MAX_K == 1344
+    for k in range(1, nms_mod.MAX_K + 1):
+        g = nms_mod.nms_geometry(b, k)
+        assert g.first in (0, 1) and g.first < g.cluster <= nms_mod.MAX_CLUSTER
+        assert g.smem <= nms_mod.SMEM_LIMIT and g.smem >= nms_mod.walker_bytes(k)
+        held = 16 * (k + nms_mod.PAD) + nms_mod.SCRATCH_BYTES  # staged boxes, warps' words
+        if g.first == 0:  # the walker holds the boxes too, 16-byte aligned
+            assert g.smem >= (nms_mod.walker_bytes(k) + 15) // 16 * 16 + held
+        else:
+            assert g.smem >= held + k
+        assert b * g.cluster <= nms_mod.SMS or b > nms_mod.SMS // (g.first + 1)
+        # every cluster runs at once wherever the card holds B of the smallest
+        if b <= nms_mod.ACTIVE_CLUSTERS[g.first + 1]:
+            assert b <= nms_mod.ACTIVE_CLUSTERS[g.cluster]
+    with pytest.raises(ValueError, match="exceed a block's shared memory"):
+        nms_mod.nms_geometry(b, nms_mod.MAX_K + 1)
+    assert nms_mod.nms_geometry(32, 1000) == (3, 0, 150128)  # predict's batch: 96 CTAs
+
+
 # ---------------------------------------------------------------- score_reduce
 # The cases of tests/test_pallas_kernels.py: scores within 1e-6 of the TPU
 # kernel's interpret mode and of score_reduce_xla (the same f32 sigmoid of the
@@ -273,6 +471,37 @@ def test_score_reduce_f32_input_and_strided_view():
     vs, vc = score_reduce(view)
     np.testing.assert_array_equal(vs.numpy(), s)
     np.testing.assert_array_equal(vc.numpy(), c)
+
+
+def _layouts(x: torch.Tensor):
+    """x contiguous, a view one element off its storage's start, and the
+    anchor-contiguous view of the same values."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype)
+    flat[1:] = x.flatten()
+    return {"contiguous": x, "offset by one": flat[1:].view(x.shape),
+            "anchors contiguous": x.transpose(1, 2).contiguous().transpose(1, 2)}
+
+
+@pytest.mark.parametrize("nc", [1, 8, 37, 80, 81])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_score_reduce_mapping_follows_the_layout(nc, dtype):
+    """bulk_rows exactly where back-to-back rows are whole 16-byte vectors
+    from a 16-byte boundary, warp_rows for other class-contiguous rows,
+    anchors for other strides; the plain version gives the same values in
+    every layout."""
+    x = torch.from_numpy(np.random.default_rng(nc).normal(0, 2, (2, 64, nc)).astype(np.float32))
+    x = x.to(dtype)
+    want = sr_mod.score_reduce_plain(x)
+    esize = 2 if dtype == torch.bfloat16 else 4
+    rows = "bulk_rows" if nc * esize % 16 == 0 else "warp_rows"
+    # at nc 1 the transposed copy is the same layout (a size-1 dim's stride is free)
+    expect = {"contiguous": rows, "offset by one": "warp_rows",
+              "anchors contiguous": "anchors" if nc > 1 else rows}
+    for name, view in _layouts(x).items():
+        got = sr_mod.reduce_mapping(view.dtype, view.shape, view.stride(), view.data_ptr())
+        assert got == expect[name], name
+        s, c = score_reduce(view)
+        assert torch.equal(s, want[0]) and torch.equal(c, want[1])
 
 
 def test_kernel_wrappers_reject_other_devices():
