@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's yolo11n predict, train step and Trainer on one
-NVIDIA card and hold its CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's yolo11n and yolo12n predict, train step and
+Trainer, and yolov8n predict, on one NVIDIA card and hold its CUDA kernels
+against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -17,7 +18,12 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    and 0.7, and an edge grid (B 1, 3, 32 x K 1, 31, 33, 300, 1000, 1344 x
    iou 0, 0.45, 0.7, with holes in ``valid``); the keep masks must be
    bit-identical, and on the grid identical over two launches. The cluster
-   geometry and ``cudaOccupancyMaxActiveClusters`` are printed;
+   geometry and ``cudaOccupancyMaxActiveClusters`` are printed. Beyond the
+   cluster mapping's 1344 candidates, the global-memory mapping at K =
+   1345, 2048 and 4096 (B=32, the same three iou), bit for bit against
+   plain and twice; and ``batched_nms(pre_topk=4096)`` on (4, 8400) anchors
+   of 80 classes on the card against the same call on the CPU, every output
+   equal;
 5. predict, the main path: ``YOLO("yolo11n", nc=80, imgsz=640)`` with random
    weights from ``--seed`` predicts 64 numpy-made images of mixed sizes at
    batch 32 and conf 0.001, in bf16. The launch counts are set to 0 just
@@ -71,12 +77,37 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    batched_nms' sigmoid-then-argmax on the same logits, every differing
    class must be a tie of f32 sigmoids. Times (as in 6): kernel, plain,
    torch.max with sigmoid, bound. No path calls the kernel: like the JAX package, NMS
-   reduces sigmoid scores.
+   reduces sigmoid scores;
+14. yolo12n predict: ``YOLO("yolo12n")``, the same 64 images at b32, 640,
+   bf16, conf 0.001. The counts are set to 0 just before and read just
+   after: 8 attention launches a batch (two ABlocks of two inner modules at
+   ``b6``, area 4, and at ``b8``, area 1), all at (key_dim, head_dim) =
+   (32, 32), and one NMS a batch. The (32, 32) forward is held to its plain
+   version on every recorded call and to itself; img/s end to end, device
+   ms a batch, a profile; the kernel's, its plain version's and SDPA's times
+   at both call shapes, and the bound;
+15. yolo12n train steps: b32, 640, bf16 autocast, the phase 8 batch; 8
+   forward and 8 backward launches a step; both (32, 32) kernels held to
+   their plain versions on the first step's calls and to themselves; every
+   gradient of an f32 b4 step through the kernels against the plain
+   attention; the backward's times at both shapes with SDPA's backward and
+   forward plus backward; the step's ms; a profiled step;
+16. the yolo12n Trainer: 3 epochs at b8 (96 steps, so that eval-mode
+   BatchNorm's running statistics follow the data) on phase 12's shapes
+   dataset. Launches: 8 forward a train step and a validation batch, 8
+   backward a step, one NMS a validation batch. The checkpoint and
+   args.yaml record the family, ``YOLO(best.pt)`` comes back as yolo12 and
+   is held against validation's EMA model in f32 as in phase 12;
+17. yolov8n predict: the same images; no attention launch, one NMS a batch,
+   finite outputs and the head shapes (64 box bins and 80 classes at
+   strides 8, 16, 32).
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
-kernel name, and NMS's split into its mask phase and walk by SM clock
-stamps) and the last line the device record.
+kernel name, NMS's split into its mask phase and walk by SM clock stamps and
+its global-memory mapping's time at K = 4096, the (32, 32) attention builds
+as rows of their own, and the yolo12n and yolov8n records under
+``families``) and the last line the device record.
 """
 
 from __future__ import annotations
@@ -104,6 +135,12 @@ IOU_OPS = 14
 # step (2^-7 relative) from the plain version's
 ATTN_TOL = {"bfloat16": (2e-2, 2 ** -7), "float32": (1e-4, 0.0)}
 PRED_TOL = {"boxes_px": 1e-2, "scores": 1e-4}
+# YOLO(best.pt) (BN folded into the convs) against the yolo12n Trainer's
+# validation model (unfused): the fold's f32 rounding goes through eight
+# attention softmaxes over the still-large eval activations of a 96-step
+# model, and decoded boxes moved 0.012 px on the card (yolo11n's 3-epoch
+# model: 6e-5 px); 0.05 px is still 1/160 of the finest stride
+PRED_TOL_YOLO12_BOXES_PX = 5e-2
 # attention backward, |kernel - plain| <= atol * max |plain| + rtol * |plain|
 # elementwise (cotangents have no fixed scale: on the train path they are
 # ~1e-3): in bf16 both round P, dS and d_qkv to bf16 from f32 sums taken in
@@ -114,7 +151,8 @@ BWD_TOL = {"bfloat16": (4e-3, 1.6e-2), "float32": (2e-5, 1e-4)}
 # attention, per parameter: <= rtol * max |plain grad| + atol
 GRAD_TOL = (1e-3, 1e-6)
 NMS_EDGE_B = (1, 3, 32)                   # the NMS edge grid: images,
-NMS_EDGE_K = (1, 31, 33, 300, 1000, 1344)  # candidates (1344: the kernel's limit)
+NMS_EDGE_K = (1, 31, 33, 300, 1000, 1344)  # candidates (1344: the cluster mapping's limit)
+NMS_LARGE_K = (1345, 2048, 4096)          # the global-memory mapping, B=32
 TRAIN_STEPS = 4       # train steps on the main path
 TIMED_STEPS = 10      # warm train steps under CUDA events
 # score_reduce vs its plain version: classes exact, and scores exact too (the
@@ -126,6 +164,11 @@ TRAINER_IMAGES = (256, 64)   # train, val
 TRAINER_SIDES = (480, 801)   # long side of a source, px
 TRAINER_BATCH = 32
 TRAINER_EPOCHS = 3           # close_mosaic 1: mosaic in epochs 1-2, off in 3
+# the yolo12n Trainer: 3 epochs of 32 steps at b8. Eval-mode BatchNorm needs
+# ~60-100 steps before its running statistics follow the data: after one
+# epoch at b32 (8 steps) validation's outputs grow ~3x a stage, to NaN in
+# bf16, in the JAX Trainer as in the port
+TRAINER12_BATCH = 8
 SHAPES = ["circle", "square", "triangle"]
 
 
@@ -163,34 +206,46 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, calls: int = 50):
-    """Mean device time a call of ``fn`` under torch.profiler: the self
-    device time of every kernel launched in a window of ``calls`` warm calls,
-    over ``calls``. -> (ms, {kernel name: its ms a call}); (0.0, {}) when the
-    profiler saw no device time."""
+def device_time_ms(fn, calls: int = 50, windows: int = 3):
+    """Mean device time a call of ``fn`` under torch.profiler, from a window
+    of ``calls`` warm calls: for every device activity, its mean self device
+    time a launch times its launches a call (its count over ``calls``,
+    rounded). -> (ms, {kernel name: its ms a call}); (0.0, {}) when no window
+    was whole. A window is whole when the profiler recorded device time and
+    every activity at most a tenth short of a whole number of launches a
+    call (on the card it misses a few short launches at a window's edge,
+    and it has dropped a window's events, whole or in part); up to
+    ``windows`` windows are taken."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
-    return sum(us for _, us in rows) / calls / 1e3, {k: us / calls / 1e3 for k, us in rows}
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+        per_call = {k: us / n * round(n / calls) / 1e3 for k, us, n in rows}
+        if rows and all(round(n / calls) >= 1 and n >= 0.9 * calls * round(n / calls)
+                        for _, _, n in rows):
+            return sum(per_call.values()), per_call
+        log(f"[profile] a window of {calls} calls came back with device activities counted "
+            f"{[n for _, _, n in rows]} times; taking another")
+    return 0.0, {}
 
 
 def call_and_device_ms(fn, what: str):
     """The time a call of ``fn`` costs its caller, host included (CUDA events
     around 200 calls in a row), and its device time (``device_time_ms``)
     -> (call ms, device ms, text for the log, {kernel name: its device ms}).
-    Fails when the profiler saw no device time."""
+    Fails when no profiler window was whole."""
     call_ms = cuda_time_ms(fn, 200)
     dev_ms, per_kernel = device_time_ms(fn)
-    check(dev_ms > 0, f"the profiler recorded no device time for {what}")
+    check(dev_ms > 0, f"no whole profiler window with device time for {what}")
     parts = "; ".join(f"{k[:70]} {v:.4f}" for k, v in sorted(per_kernel.items()))
     return call_ms, dev_ms, (f"device {dev_ms:.4f} ms ({parts}), a call {call_ms:.4f} ms with "
                              "the host"), {k[:90]: v for k, v in per_kernel.items()}
@@ -218,7 +273,7 @@ def zero_class_bias(yolo) -> None:
     import torch
 
     with torch.no_grad():
-        for branch in yolo._ensure_built().layer(23).cv3:
+        for branch in yolo._ensure_built().head().cv3:
             branch[2].bias.zero_()
 
 
@@ -269,15 +324,16 @@ def small_gt_batch(images, seed: int):
     return images, boxes, classes, np.ones((batch, 8), bool)
 
 
-def small_box_head(state_dict):
-    """Box-head biases that favour DFL bin 1: random-init boxes ~2.5 grid
-    units wide (20 px at stride 8), so that 12-15 px GTs get candidates."""
+def small_box_head(state_dict, detect: int = 23):
+    """Box-head biases (of the detect module ``detect``) that favour DFL bin
+    1: random-init boxes ~2.5 grid units wide (20 px at stride 8), so that
+    12-15 px GTs get candidates."""
     import torch
 
     for i in range(3):
         bias = torch.zeros((4, 16))
         bias[:, 1] = 6.0
-        state_dict[f"23.cv2.{i}.2.bias"] = bias.reshape(-1)
+        state_dict[f"{detect}.cv2.{i}.2.bias"] = bias.reshape(-1)
     return state_dict
 
 
@@ -535,8 +591,11 @@ def main() -> int:
                              dtype=torch.float32, device=dev)
         nms_parity("random", boxes, torch.ones((32, 1000), dtype=torch.bool, device=dev), thr)
     # the launch geometry, and how many of its clusters the card holds at once
+    active = ns.active_clusters()
+    log(f"[nms] cudaOccupancyMaxActiveClusters by cluster size 1..8: {active[1:]} (the H100 "
+        f"SXM table: {ns.ACTIVE_CLUSTERS[1:]})")
     for b_, k_ in ((1, 1000), (3, 1000), (32, 1000), (32, ns.MAX_K)):
-        geo = ns.nms_geometry(b_, k_)
+        geo = ns.nms_geometry(b_, k_, active)
         log(f"[nms] geometry B={b_} K={k_}: {geo._asdict()}, {b_ * geo.cluster} CTAs; "
             f"cudaOccupancyMaxActiveClusters {ns.max_active_clusters(geo)}")
     # the edge grid: ragged and limit K, one and few images, iou 0 (any
@@ -554,13 +613,41 @@ def main() -> int:
                 nms_parity("edge grid", boxes, valid, thr)
                 bit_identical(f"nms edge grid B={b_} K={k_} iou {thr}", ns.nms_suppress, boxes,
                               valid, thr)
-    try:
-        ns.nms_suppress(boxes[:, :1].expand(-1, ns.MAX_K + 1, -1).contiguous(),
-                        torch.ones((boxes.shape[0], ns.MAX_K + 1), dtype=torch.bool, device=dev),
-                        0.5)
-        check(False, f"nms_suppress accepted K={ns.MAX_K + 1}")
-    except ValueError as e:
-        log(f"[nms] K={ns.MAX_K + 1} raises: {e}")
+    # K beyond the walking CTA's shared memory: the global-memory mapping,
+    # bit for bit against plain and against itself, on dense scenes at B=32
+    large_k = {}
+    for k_ in NMS_LARGE_K:
+        xy = rng.uniform(0, 600, (32, k_, 2))
+        wh = rng.uniform(8, 200, (32, k_, 2))
+        offset = rng.integers(0, 3, (32, k_, 1)) * 7680.0
+        boxes = torch.tensor(np.concatenate([xy, xy + wh], -1) + offset,
+                             dtype=torch.float32, device=dev)
+        valid = torch.tensor(rng.random((32, k_)) > 0.15, device=dev)
+        geo = ns.nms_geometry(32, k_, active)
+        check(geo.in_global, f"K={k_} did not take the global-memory mapping: {geo}")
+        log(f"[nms] geometry B=32 K={k_}: {geo._asdict()} (bitmask "
+            f"{ns.bitmask_words(32, k_) * 4 / 1e6:.1f} MB in device memory)")
+        for thr in (0.0, 0.45, 0.7):
+            nms_parity("large K", boxes, valid, thr)
+            bit_identical(f"nms large K B=32 K={k_} iou {thr}", ns.nms_suppress, boxes, valid, thr)
+        large_k[k_] = (boxes, valid)
+    # batched_nms with pre_topk 4096 on the card against the CPU path on the
+    # same inputs: every output equal
+    xy = torch.rand((4, 8400, 2), generator=gen, device=dev) * 600
+    wh = 8 + torch.rand((4, 8400, 2), generator=gen, device=dev) * 192
+    boxes_a = torch.cat([xy, xy + wh], -1)
+    scores_a = torch.rand((4, 8400, 80), generator=gen, device=dev)
+    before = ns.launches
+    got = nms_ops.batched_nms(boxes_a, scores_a, conf_thres=0.001, iou_thres=0.7, pre_topk=4096)
+    torch.cuda.synchronize()
+    card_launches = ns.launches - before
+    want = nms_ops.batched_nms(boxes_a.cpu(), scores_a.cpu(), conf_thres=0.001, iou_thres=0.7,
+                               pre_topk=4096)
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    log(f"[nms] batched_nms pre_topk 4096 on {tuple(scores_a.shape)} scores: n_det "
+        f"{got[3].tolist()} on the card, {want[3].tolist()} on the CPU, every output equal "
+        f"{same}, kernel launches {card_launches}")
+    check(same and card_launches == 1, "batched_nms(pre_topk=4096) differs from the CPU")
 
     # 5. predict, the main path (bf16)
     images = make_images(args.seed, 64)
@@ -706,13 +793,33 @@ def main() -> int:
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "library_device_ms": None, "shape": list(boxes.shape),
         "valid_pairs": pairs, "device_ms_by_kernel": by_kernel, "phase_device_ms": nms_phases,
-        "phase_sm_cycles": cycles, "geometry": ns.nms_geometry(*valid.shape)._asdict(),
+        "phase_sm_cycles": cycles,
+        "geometry": ns.nms_geometry(*valid.shape, ns.active_clusters())._asdict(),
     })
     log(f"[time] nms_suppress {tuple(boxes.shape)}: kernel {kernel_text}; plain {plain_ms:.4f} "
         f"ms; bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.5f}, ops {t_ops:.4f}; "
         f"{pairs:.0f} valid pairs); by SM clock: mask phase {nms_phases['mask']:.4f} ms, walk "
         f"after it {nms_phases['walk_tail']:.4f} ms (mean cycles: to the last row tile "
         f"{cycles[0]:.0f}, whole kernel {cycles[1]:.0f}, the walk waiting {cycles[2]:.0f})")
+
+    # the global-memory mapping at B=32, K=4096 (a dense scene of phase 4)
+    big_boxes, big_valid = large_k[NMS_LARGE_K[-1]]
+    big_ms, big_dev_ms, big_text, big_by_kernel = call_and_device_ms(
+        lambda: ns.nms_suppress(big_boxes, big_valid, 0.7), "nms_suppress large K")
+    big_plain_ms = cuda_time_ms(lambda: ns.nms_suppress_plain(big_boxes, big_valid, 0.7), 3)
+    nv = big_valid.sum(1).double()
+    big_pairs = float((nv * (nv - 1) / 2).sum())
+    t_bytes = (big_boxes.numel() * 4 + big_valid.numel() * 2) / HBM_BYTES_PER_S * 1e3
+    t_ops = big_pairs * IOU_OPS / F32_FLOPS * 1e3
+    kernels[-1]["large_k"] = {
+        "shape": list(big_boxes.shape), "iou": 0.7, "mapping": "global",
+        "geometry": ns.nms_geometry(*big_valid.shape, ns.active_clusters())._asdict(),
+        "ms": big_ms, "device_ms": big_dev_ms, "plain_ms": big_plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "valid_pairs": big_pairs, "device_ms_by_kernel": big_by_kernel, "mismatched_bits": 0}
+    log(f"[time] nms_suppress {tuple(big_boxes.shape)} (global-memory mapping): kernel "
+        f"{big_text}; plain {big_plain_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+        f"({big_pairs:.0f} valid pairs)")
 
     # the host letterbox alone, warm, median of 3 passes; each canvas is
     # dropped at once, as predict drops it after copying it into the batch
@@ -1079,84 +1186,94 @@ def main() -> int:
     # the same score order in both models, and with the same class wherever
     # the best two class scores lie further apart than twice the largest
     # score difference between the two models
-    torch.backends.cudnn.allow_tf32 = False
-    trainer.state.load_state(best)
-    yolo_best = YOLO(str(save_dir / "weights" / "best.pt"), dtype=torch.float32)
-    check(yolo_best.nc == 3 and yolo_best.names == SHAPES and yolo_best.imgsz == tcfg.imgsz,
-          "YOLO(best.pt) lost nc, names or imgsz")
-    best_sd = inference_state_dict(best)
-    check(all(torch.equal(v.cpu(), best_sd[k]) for k, v in yolo_best._model.state_dict().items()),
-          "YOLO(best.pt) does not hold best.pt's EMA weights")
-    val_iter = trainer.val_loader.epoch(0)
-    vbatch = next(val_iter)
-    val_iter.close()
-    vx = torch.from_numpy(vbatch.images).to(dev)
-    nb = len(vbatch.images)
-    st = trainer.state
+    def best_vs_validation(trainer, save_dir, tcfg, best, label, box_tol=PRED_TOL["boxes_px"]):
+        """The check above for a Trainer run: YOLO(best.pt) against its
+        validation's EMA model, boxes within ``box_tol`` px. Returns
+        YOLO(best.pt)."""
+        torch.backends.cudnn.allow_tf32 = False
+        trainer.state.load_state(best)
+        yolo_best = YOLO(str(save_dir / "weights" / "best.pt"), dtype=torch.float32)
+        check(yolo_best.nc == 3 and yolo_best.names == SHAPES and yolo_best.imgsz == tcfg.imgsz,
+              "YOLO(best.pt) lost nc, names or imgsz")
+        best_sd = inference_state_dict(best)
+        check(all(torch.equal(v.cpu(), best_sd[k])
+                  for k, v in yolo_best._model.state_dict().items()),
+              "YOLO(best.pt) does not hold best.pt's EMA weights")
+        val_iter = trainer.val_loader.epoch(0)
+        vbatch = next(val_iter)
+        val_iter.close()
+        vx = torch.from_numpy(vbatch.images).to(dev)
+        nb = len(vbatch.images)
+        st = trainer.state
 
-    def both_decoded():
-        """(validation's EMA model, YOLO(best.pt)) decoded outputs and their
-        largest box and score differences."""
-        with patched(st, "cfg", dataclasses.replace(st.cfg, amp=False)), \
-                patched(st, "dtype", torch.float32):
-            ev = decode_predictions(*st.eval_forward(vx), (640, 640))
-        yb = decode_predictions(*yolo_best._fused_model()(vx.permute(0, 3, 1, 2).float()),
-                                (640, 640))
-        torch.cuda.synchronize()
-        errs = ((yb[0] - ev[0]).abs().max().item(), (yb[1] - ev[1]).abs().max().item())
-        check(errs[0] <= PRED_TOL["boxes_px"] and errs[1] <= PRED_TOL["scores"],
-              f"YOLO(best.pt) decodes boxes {errs[0]} px, scores {errs[1]} off validation's")
-        return ev, yb, errs
+        def both_decoded():
+            """(validation's EMA model, YOLO(best.pt)) decoded outputs and their
+            largest box and score differences."""
+            with patched(st, "cfg", dataclasses.replace(st.cfg, amp=False)), \
+                    patched(st, "dtype", torch.float32):
+                ev = decode_predictions(*st.eval_forward(vx), (640, 640))
+            yb = decode_predictions(*yolo_best._fused_model()(vx.permute(0, 3, 1, 2).float()),
+                                    (640, 640))
+            torch.cuda.synchronize()
+            errs = ((yb[0] - ev[0]).abs().max().item(), (yb[1] - ev[1]).abs().max().item())
+            check(errs[0] <= box_tol and errs[1] <= PRED_TOL["scores"],
+                  f"YOLO(best.pt) decodes boxes {errs[0]} px, scores {errs[1]} off validation's")
+            return ev, yb, errs
 
-    _, _, (dec_box_err, dec_score_err) = both_decoded()
-    zero_class_bias(yolo_best)
-    yolo_best._fused_cache = None
-    with torch.no_grad():
-        ema = st.ema_state_dict()
-        for i in range(3):
-            ema[f"23.cv3.{i}.2.bias"].zero_()
-    (ev_boxes, ev_scores), (_, yb_scores), (box_err0, score_err0) = both_decoded()
-    conf, conf_gap, iou, iou_gap = nms_thresholds(ev_boxes, ev_scores, 10 * nb, 50 * nb)
-    want = nms_ops.batched_nms(ev_boxes, ev_scores, conf_thres=conf, iou_thres=iou,
-                               pre_topk=1000, max_det=tcfg.max_det, class_agnostic=True)
-    got = yolo_best.infer(vx, conf=conf, iou=iou, max_det=tcfg.max_det, agnostic=True)
-    top2 = ev_scores.topk(2, -1).values
-    margin = top2[..., 0] - top2[..., 1]             # (B, A) best class over the next
-    flips = nms_order_flips(ev_boxes, ev_scores, yb_scores, conf, iou)
-    same = [i for i, t in enumerate(flips) if not t]
-    check(len(same) >= nb // 2, f"{nb - len(same)} of {nb} val images have NMS order flips")
-    check(torch.equal(got[3][same], want[3][same]),
-          f"n_det differs: {got[3].tolist()} vs {want[3].tolist()} (order flips {flips})")
-    check(int(want[3].max()) < tcfg.max_det and int(want[3][same].sum()) > 0,
-          "the comparison threshold kept no detections or hit max_det")
-    box_errs, score_errs, tied, same_cls = [], [], 0, 0
-    for i in same:
-        n = int(want[3][i])
-        err = (got[0][i, :n, None] - want[0][i, None, :n]).abs().amax(-1)
-        serr = (got[1][i, :n, None] - want[1][i, None, :n]).abs()
-        pair = (err <= PRED_TOL["boxes_px"]) & (serr <= PRED_TOL["scores"])
-        check(bool(pair.any(1).all()) and bool(pair.any(0).all()),
-              f"image {i}: YOLO(best.pt) and validation's EMA model detect different boxes")
-        if not n:
-            continue
-        box_errs.append(float(torch.where(pair, err, float("inf")).amin(1).max()))
-        score_errs.append(float(torch.where(pair, serr, float("inf")).amin(1).max()))
-        # each reference detection's anchor (its box is that anchor's decoded box)
-        anchor = (ev_boxes[i][None] == want[0][i, :n, None]).all(-1).float().argmax(1)
-        clear = margin[i, anchor] > 2 * score_err0
-        match = got[2][i, pair.float().argmax(0)] == want[2][i, :n]
-        check(bool((match | ~clear).all()), f"image {i}: a class differs where no tie explains it")
-        tied += int((~clear).sum())
-        same_cls += int((match & clear).sum())
-    torch.backends.cudnn.allow_tf32 = True
-    log(f"[trainer] YOLO(best.pt) vs validation's EMA model, f32, one val batch: decoded "
-        f"boxes max_abs_err {dec_box_err:.3e} px, scores {dec_score_err:.3e}; with the class "
-        f"biases at 0 {box_err0:.3e} px and {score_err0:.3e}, and after class-agnostic NMS at "
-        f"conf {conf:.6g} and iou {iou:.6g} (gaps of {conf_gap:.3g} between scores and "
-        f"{iou_gap:.3g} between IoUs) on the {len(same)} of {nb} images without order flips: "
-        f"n_det {want[3][same].tolist()}, paired boxes max_abs_err {max(box_errs):.3e} px, "
-        f"scores {max(score_errs):.3e}; classes equal on {same_cls}, {tied} with the best two "
-        f"class scores within {2 * score_err0:.3g}")
+        _, _, (dec_box_err, dec_score_err) = both_decoded()
+        zero_class_bias(yolo_best)
+        yolo_best._fused_cache = None
+        with torch.no_grad():
+            ema = st.ema_state_dict()
+            for i in range(3):
+                ema[f"{st.model.DETECT}.cv3.{i}.2.bias"].zero_()
+        (ev_boxes, ev_scores), (_, yb_scores), (box_err0, score_err0) = both_decoded()
+        conf, conf_gap, iou, iou_gap = nms_thresholds(ev_boxes, ev_scores, 10 * nb, 50 * nb)
+        want = nms_ops.batched_nms(ev_boxes, ev_scores, conf_thres=conf, iou_thres=iou,
+                                   pre_topk=1000, max_det=tcfg.max_det, class_agnostic=True)
+        got = yolo_best.infer(vx, conf=conf, iou=iou, max_det=tcfg.max_det, agnostic=True)
+        top2 = ev_scores.topk(2, -1).values
+        margin = top2[..., 0] - top2[..., 1]             # (B, A) best class over the next
+        flips = nms_order_flips(ev_boxes, ev_scores, yb_scores, conf, iou)
+        same = [i for i, t in enumerate(flips) if not t]
+        check(len(same) >= nb // 2, f"{nb - len(same)} of {nb} val images have NMS order flips")
+        check(torch.equal(got[3][same], want[3][same]),
+              f"n_det differs: {got[3].tolist()} vs {want[3].tolist()} (order flips {flips})")
+        check(int(want[3].max()) < tcfg.max_det and int(want[3][same].sum()) > 0,
+              "the comparison threshold kept no detections or hit max_det")
+        box_errs, score_errs, tied, same_cls = [], [], 0, 0
+        for i in same:
+            n = int(want[3][i])
+            err = (got[0][i, :n, None] - want[0][i, None, :n]).abs().amax(-1)
+            serr = (got[1][i, :n, None] - want[1][i, None, :n]).abs()
+            pair = (err <= box_tol) & (serr <= PRED_TOL["scores"])
+            check(bool(pair.any(1).all()) and bool(pair.any(0).all()),
+                  f"image {i}: YOLO(best.pt) and validation's EMA model detect different boxes")
+            if not n:
+                continue
+            box_errs.append(float(torch.where(pair, err, float("inf")).amin(1).max()))
+            score_errs.append(float(torch.where(pair, serr, float("inf")).amin(1).max()))
+            # each reference detection's anchor (its box is that anchor's decoded box)
+            anchor = (ev_boxes[i][None] == want[0][i, :n, None]).all(-1).float().argmax(1)
+            clear = margin[i, anchor] > 2 * score_err0
+            match = got[2][i, pair.float().argmax(0)] == want[2][i, :n]
+            check(bool((match | ~clear).all()),
+                  f"image {i}: a class differs where no tie explains it")
+            tied += int((~clear).sum())
+            same_cls += int((match & clear).sum())
+        torch.backends.cudnn.allow_tf32 = True
+        log(f"[{label} trainer] YOLO(best.pt) vs validation's EMA model, f32, one val batch "
+            f"(tolerances {box_tol} px, {PRED_TOL['scores']}): decoded "
+            f"boxes max_abs_err {dec_box_err:.3e} px, scores {dec_score_err:.3e}; with the class "
+            f"biases at 0 {box_err0:.3e} px and {score_err0:.3e}, and after class-agnostic NMS at "
+            f"conf {conf:.6g} and iou {iou:.6g} (gaps of {conf_gap:.3g} between scores and "
+            f"{iou_gap:.3g} between IoUs) on the {len(same)} of {nb} images without order flips: "
+            f"n_det {want[3][same].tolist()}, paired boxes max_abs_err {max(box_errs):.3e} px, "
+            f"scores {max(score_errs):.3e}; classes equal on {same_cls}, {tied} with the best two "
+            f"class scores within {2 * score_err0:.3g}")
+        return yolo_best
+
+    best_vs_validation(trainer, save_dir, tcfg, best, "yolo11n")
 
     # per-epoch times
     augment_ms = [s.elapsed_time(e) for s, e in clocks["augment"]]
@@ -1201,7 +1318,6 @@ def main() -> int:
         "train_wall_s": train_wall, "launches": trainer_launches, "results": rows,
         "profiled_epoch_device_busy_ms": trainer_busy_ms,
         "profiled_epoch_wall_ms": trainer_prof_wall_ms, "card": card}
-    tmp.cleanup()
 
     # 13. score_reduce: the kernel on the class logits the predict and the
     # validation paths handed to decode, bf16 as recorded and an f32 copy,
@@ -1321,6 +1437,340 @@ def main() -> int:
         f"{plain_ms:.4f} ms; torch.max + sigmoid {library_text}; bound "
         f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} for {nbytes / 1e6:.2f} MB, ops "
         f"{t_ops:.5f}); f32 input: kernel {f32_text}")
+    # 14. yolo12n predict: the same 64 images at batch 32, imgsz 640, bf16,
+    # conf 0.001 with the class biases at 0; every attention call of the path
+    # is yolo12's AAttn at (key_dim, head_dim) = (32, 32): b6 (area 4) and b8
+    # (area 1), two ABlocks of each of two inner modules, 8 a forward
+    from deal_yolo_daya_tpu_torch.models.registry import make_detector
+    from deal_yolo_daya_tpu_torch.models.yolov12 import YOLOv12
+
+    yolo12 = YOLO("yolo12n", nc=80, imgsz=640, seed=args.seed)
+    check(yolo12.family == "yolo12" and yolo12.dtype == torch.bfloat16, "yolo12n handle")
+    zero_class_bias(yolo12)
+    rec12 = []
+
+    def rec12_attention(qkv, heads, hd, kd=None):
+        rec12.append((qkv.clone(), (heads, hd, hd if kd is None else kd)))
+        return orig12(qkv, heads, hd, kd)
+
+    n_batches = -(-len(images) // 32)
+    with patched(blocks, "area_attention", rec12_attention) as orig12:
+        aa.launches = ns.launches = 0
+        res12 = yolo12.predict(images, conf=0.001, batch_size=32)
+        torch.cuda.synchronize()
+        v12_launches = {"area_attention": aa.launches, "nms_suppress": ns.launches}
+    log(f"[yolo12n predict] {len(res12)} images, launches {v12_launches}, attention calls "
+        f"{sorted({(tuple(q.shape), a) for q, a in rec12})}")
+    check(v12_launches["area_attention"] == 8 * n_batches,
+          "yolo12n predict: not 8 attention launches a batch")
+    check(v12_launches["nms_suppress"] == n_batches, "yolo12n predict: not one NMS a batch")
+    check(all(a[1:] == (32, 32) for _, a in rec12), "a yolo12 attention call is not (32, 32)")
+    check({tuple(q.shape) for q, _ in rec12} == {(128, 400, 192), (32, 400, 384)},
+          "yolo12n's attention shapes at 640 px")
+    check(len(res12) == len(images), "yolo12n predict lost images")
+    for d in res12:
+        check(np.isfinite(d.boxes).all() and np.isfinite(d.scores).all()
+              and d.boxes.shape == (len(d), 4), "yolo12n: bad output")
+    check(min(len(d) for d in res12) > 0, "yolo12n: an image had no detections")
+    fwd32_err = max(attention_parity(f"yolo12n predict call {i}", q, a)
+                    for i, (q, a) in enumerate(rec12))
+    calls32 = {}  # the first call of each shape: b6 (128, 400, 192), b8 (32, 400, 384)
+    for q, a in rec12:
+        calls32.setdefault("b6" if q.shape[2] == 192 else "b8", (q, a))
+    for site, (q, a) in calls32.items():
+        bit_identical(f"attention (32, 32) yolo12n predict {site}", aa.area_attention_fwd, q, *a)
+    device12_ms = cuda_time_ms(lambda: yolo12.infer(batch, conf=0.001), 20)
+    t0 = time.perf_counter()
+    yolo12.predict(images, conf=0.001, batch_size=32)
+    wall12 = time.perf_counter() - t0
+    log(f"[time] yolo12n predict b32 imgsz 640 bf16: {len(images) / wall12:.1f} img/s end to "
+        f"end ({wall12 * 1e3:.1f} ms for {len(images)} images); device infer "
+        f"(forward+decode+NMS) {device12_ms:.3f} ms/batch = {32 / device12_ms * 1e3:.1f} img/s")
+    busy12_ms, prof12_wall_ms = profiled(
+        "yolo12n predict of 64 images", lambda: yolo12.predict(images, conf=0.001, batch_size=32),
+        ("attention_", "nms_"), 12)
+
+    # times of the (32, 32) forward at both call shapes: kernel, plain, SDPA, bound
+    fwd32 = {}
+    for site, (q, (heads, hd, kd)) in calls32.items():
+        ba, n, _ = q.shape
+        ms, dev_ms, text, by_kernel = call_and_device_ms(
+            lambda: aa.area_attention(q, heads, hd, kd), f"area_attention (32, 32) {site}")
+        plain_ms = cuda_time_ms(lambda: aa.area_attention_plain(q, heads, hd, kd), 20)
+        split = q.view(ba, n, heads, 2 * kd + hd)
+        qs, ks, vs = (t.transpose(1, 2) for t in (split[..., :kd], split[..., kd:2 * kd],
+                                                  split[..., 2 * kd:]))
+        lib_ms, lib_dev_ms, lib_text, _ = call_and_device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs), "sdpa")
+        nbytes = q.numel() * q.element_size() * (1 + 2 * heads * hd / q.shape[2])
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * ba * heads * n * n * (kd + hd) / BF16_FLOPS * 1e3
+        fwd32[site] = {"shape": list(q.shape), "heads": heads, "ms": ms, "device_ms": dev_ms,
+                       "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                       "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                       "device_ms_by_kernel": by_kernel}
+        log(f"[time] area_attention (32, 32) {site} {tuple(q.shape)} {q.dtype}: kernel {text}; "
+            f"plain {plain_ms:.4f} ms; sdpa {lib_text}; bound {max(t_bytes, t_ops):.4f} ms "
+            f"(bytes {t_bytes:.4f} for {nbytes / 1e6:.2f} MB, ops {t_ops:.4f})")
+
+    # 15. yolo12n train steps: b32 at 640, bf16 autocast, the phase 8 batch;
+    # each step launches the (32, 32) forward and backward 8 times each
+    cfg12 = TrainConfig(model="yolo12n", imgsz=640, amp=True, seed=args.seed)
+    state12 = TrainState(cfg12, nc=80, steps_per_epoch=100, device=dev)
+    check(isinstance(state12.model, YOLOv12), "TrainState did not build yolo12n")
+    train_x = torch.from_numpy(imgs_np).to(dev)
+    train_gt = [torch.from_numpy(a).to(dev)
+                for a in bucket_gt(boxes_np, cls_np, mask_np, cfg12.max_boxes)]
+    rec12_train = {"fwd": [], "bwd": []}
+
+    def rec12_fwd(qkv, *a):
+        if len(rec12_train["fwd"]) < 8:  # the first step's calls
+            rec12_train["fwd"].append((qkv.clone(), a))
+        return orig12_fwd(qkv, *a)
+
+    def rec12_bwd(qkv, d_out, d_v, *a):
+        if len(rec12_train["bwd"]) < 8:
+            rec12_train["bwd"].append((qkv.clone(), d_out.clone(), d_v.clone(), a))
+        return orig12_bwd(qkv, d_out, d_v, *a)
+
+    totals12, per_step12 = [], []
+    with patched(aa, "area_attention_fwd", rec12_fwd) as orig12_fwd, \
+            patched(aa, "area_attention_bwd", rec12_bwd) as orig12_bwd:
+        aa.launches = aa.bwd_launches = 0
+        for _ in range(TRAIN_STEPS):
+            before = (aa.launches, aa.bwd_launches)
+            totals12.append(state12.step(train_x, *train_gt))
+            per_step12.append((aa.launches - before[0], aa.bwd_launches - before[1]))
+        torch.cuda.synchronize()
+        train12_launches = {"area_attention": aa.launches, "area_attention_bwd": aa.bwd_launches}
+    losses12 = [t.item() for t in totals12]
+    parts12 = {k: v.item() for k, v in state12.loss_acc.items()}
+    log(f"[yolo12n train] losses {losses12}, launches a step (forward, backward) {per_step12}, "
+        f"loss parts {parts12}")
+    check(all(p == (8, 8) for p in per_step12), "a yolo12n step did not launch 8 + 8 kernels")
+    check(all(np.isfinite(losses12)) and parts12["num_fg"] > 0, "yolo12n: bad loss")
+    fwd32_err_train = max(attention_parity(f"yolo12n train-path call {i}", q, a)
+                          for i, (q, a) in enumerate(rec12_train["fwd"]))
+    bwd32_err_train = max(backward_parity(f"yolo12n train-path call {i}", q, do, dv, a)
+                          for i, (q, do, dv, a) in enumerate(rec12_train["bwd"]))
+    bwd_calls32 = {}
+    for q, do, dv, a in rec12_train["bwd"]:
+        bwd_calls32.setdefault("b6" if q.shape[2] == 192 else "b8", (q, do, dv, a))
+    for site, (q, do, dv, a) in bwd_calls32.items():
+        bit_identical(f"attention bwd (32, 32) yolo12n train {site}", aa.area_attention_bwd,
+                      q, do, dv, *a)
+
+    # f32 with TF32 off, batch 4: every gradient of a yolo12n step through the
+    # kernels against the same step through the plain attention, both with
+    # deterministic algorithms, so that no atomic sum's order differs between
+    # the two steps (the worst gradient, a BatchNorm bias after the first
+    # attention, sits at 0.5-0.9 of the tolerance from card to card)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg12_32 = TrainConfig(model="yolo12n", imgsz=640, amp=False, seed=args.seed)
+    weights12 = small_box_head(
+        init_weights(make_detector("yolo12", "n", 80), args.seed).state_dict(), YOLOv12.DETECT)
+
+    def f32_step12():
+        st = TrainState(cfg12_32, nc=80, steps_per_epoch=100, device=dev, state_dict=weights12)
+        before = (aa.launches, aa.bwd_launches)
+        st.step(x4, *gt4)
+        torch.cuda.synchronize()
+        return ({n: p.grad for n, p in st.model.named_parameters()},
+                {k: v.item() for k, v in st.loss_acc.items()},
+                (aa.launches - before[0], aa.bwd_launches - before[1]))
+
+    grads12_k, parts12_k, launched12_k = f32_step12()
+    with patched(blocks, "area_attention", aa.area_attention_plain):
+        grads12_p, parts12_p, launched12_p = f32_step12()
+    check(launched12_k == (8, 8) and launched12_p == (0, 0),
+          f"the yolo12n f32 steps took other paths: {launched12_k}, {launched12_p}")
+    rtol, atol = GRAD_TOL
+    grad12_worst = max(((g - grads12_p[n]).abs().max().item()
+                        / (rtol * grads12_p[n].abs().max().item() + atol), n)
+                       for n, g in grads12_k.items())
+    log(f"[yolo12n train f32] loss parts kernel {parts12_k} plain {parts12_p}; worst gradient "
+        f"{grad12_worst[1]} at {grad12_worst[0]:.3f} of the tolerance rtol {rtol} * max |grad| "
+        f"+ atol {atol}, over {len(grads12_k)} parameters")
+    check(parts12_k["num_fg"] == parts12_p["num_fg"] > 0, "the yolo12n f32 assignments differ")
+    check(grad12_worst[0] <= 1.0, f"yolo12n f32 gradient of {grad12_worst[1]} differs")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    del grads12_k, grads12_p
+
+    # times of the (32, 32) backward at both call shapes, and of the step
+    bwd32 = {}
+    for site, (q, do, dv, (heads, hd, kd)) in bwd_calls32.items():
+        ba, n, _ = q.shape
+        ms, dev_ms, text, by_kernel = call_and_device_ms(
+            lambda: aa.area_attention_bwd(q, do, dv, heads, hd, kd),
+            f"area_attention_bwd (32, 32) {site}")
+        plain_ms = cuda_time_ms(lambda: aa.area_attention_bwd_plain(q, do, dv, heads, hd, kd), 10)
+        split = q.view(ba, n, heads, 2 * kd + hd)
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (split[..., :kd], split[..., kd:2 * kd], split[..., 2 * kd:]))
+        out_s = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+        grad_s = do.view(ba, n, heads, hd).transpose(1, 2).contiguous()
+        lib_ms, lib_dev_ms, lib_text, _ = call_and_device_ms(
+            lambda: torch.autograd.grad(out_s, (qs, ks, vs), grad_s, retain_graph=True),
+            "sdpa backward")
+        lib_fb_ms, lib_fb_dev_ms, lib_fb_text, _ = call_and_device_ms(
+            lambda: torch.autograd.grad(torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs), (qs, ks, vs), grad_s), "sdpa forward + backward")
+        nbytes = (2 * q.numel() + do.numel() + dv.numel()) * q.element_size()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * ba * heads * n * n * (3 * kd + 2 * hd) / BF16_FLOPS * 1e3
+        bwd32[site] = {"shape": list(q.shape), "heads": heads, "ms": ms, "device_ms": dev_ms,
+                       "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                       "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                       "library_fwd_bwd_device_ms": lib_fb_dev_ms,
+                       "device_ms_by_kernel": by_kernel}
+        log(f"[time] area_attention_bwd (32, 32) {site} {tuple(q.shape)} {q.dtype}: kernels "
+            f"{text}; plain {plain_ms:.4f} ms; sdpa backward {lib_text}; sdpa forward + backward "
+            f"{lib_fb_text}; bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} for "
+            f"{nbytes / 1e6:.2f} MB, ops {t_ops:.4f})")
+    for _ in range(2):
+        state12.step(train_x, *train_gt)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(TIMED_STEPS):
+        state12.step(train_x, *train_gt)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    wall12_step_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    step12_ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))[TIMED_STEPS // 2]
+    log(f"[time] yolo12n train step b32 imgsz 640 bf16: {step12_ms:.2f} ms (median of "
+        f"{TIMED_STEPS}, CUDA events) = {32 / step12_ms * 1e3:.1f} img/s; host wall "
+        f"{wall12_step_ms:.2f} ms/step")
+    busy12_step_ms, prof12_step_wall_ms = profiled(
+        "one yolo12n train step", lambda: state12.step(train_x, *train_gt),
+        ("attention_", "bwd_"), 15)
+    del state12, train_x, train_gt
+    torch.cuda.empty_cache()
+
+    # 16. a yolo12n Trainer run on the shapes dataset of phase 12 (3 epochs
+    # at b8, 640, bf16, on-card augmentation, validation after each), its
+    # launches, and YOLO(best.pt) coming back as yolo12 and predicting what
+    # validation saw
+    tcfg12 = FullConfig(model="yolo12n", data=str(data_yaml), imgsz=640, batch=TRAINER12_BATCH,
+                        epochs=TRAINER_EPOCHS, close_mosaic=1, cache="device",
+                        device_augment=True, amp=True, seed=args.seed, device="0",
+                        project=str(root / "runs"), name="smoke12")
+    trainer12 = Trainer(tcfg12)
+    check(trainer12.family == "yolo12" and isinstance(trainer12.state.model, YOLOv12),
+          "the Trainer did not build yolo12n")
+    validations12 = []
+    validate12 = trainer12.validate
+
+    def counted_validate(*a, **k):
+        validations12.append(1)
+        return validate12(*a, **k)
+
+    trainer12.validate = counted_validate
+    aa.launches = aa.bwd_launches = ns.launches = 0
+    t0 = time.perf_counter()
+    result12 = trainer12.train()
+    torch.cuda.synchronize()
+    trainer12_wall = time.perf_counter() - t0
+    trainer12_launches = {"area_attention": aa.launches, "area_attention_bwd": aa.bwd_launches,
+                          "nms_suppress": ns.launches}
+    steps12 = trainer12.state.updates
+    val12_batches = len(validations12) * len(trainer12.val_loader)
+    log(f"[yolo12n trainer] {TRAINER_EPOCHS} epochs in {trainer12_wall:.1f} s: {steps12} steps, "
+        f"{len(validations12)} validations of {len(trainer12.val_loader)} batches; launches "
+        f"{trainer12_launches}")
+    check(steps12 == TRAINER_EPOCHS * (TRAINER_IMAGES[0] // TRAINER12_BATCH),
+          f"the yolo12n Trainer took {steps12} steps")
+    check(trainer12_launches == {"area_attention": 8 * (steps12 + val12_batches),
+                                 "area_attention_bwd": 8 * steps12,
+                                 "nms_suppress": val12_batches},
+          "yolo12n Trainer launches != 8 a forward, 8 a backward, one NMS a val batch")
+    save12 = Path(result12["save_dir"])
+    best12 = load_checkpoint(save12 / "weights" / "best.pt")
+    check(best12["family"] == "yolo12" and "family: yolo12" in (save12 / "args.yaml").read_text(),
+          "the yolo12n checkpoint or args.yaml does not record the family")
+    with open(save12 / "results.csv", newline="") as f:
+        rows12 = list(csv.DictReader(f))
+    log(f"[yolo12n trainer] results.csv rows: {rows12}")
+    check(len(rows12) == TRAINER_EPOCHS
+          and all(np.isfinite(float(r[c])) for r in rows12 for c in loss_cols),
+          "yolo12n results.csv: not one row of finite losses an epoch")
+    yolo_best12 = best_vs_validation(trainer12, save12, tcfg12, best12, "yolo12n",
+                                     PRED_TOL_YOLO12_BOXES_PX)
+    check(yolo_best12.family == "yolo12" and isinstance(yolo_best12._model, YOLOv12),
+          "YOLO(best.pt) did not come back as yolo12")
+    log("[yolo12n trainer] YOLO(best.pt) is yolo12")
+    del trainer12
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+
+    # 17. yolov8n predict: the same images; no attention, NMS once a batch
+    yolo8 = YOLO("yolov8n", nc=80, imgsz=640, seed=args.seed)
+    zero_class_bias(yolo8)
+    aa.launches = ns.launches = 0
+    res8 = yolo8.predict(images, conf=0.001, batch_size=32)
+    torch.cuda.synchronize()
+    v8_launches = {"area_attention": aa.launches, "nms_suppress": ns.launches}
+    with torch.no_grad():
+        box8, cls8 = yolo8._fused_model()(batch.permute(0, 3, 1, 2).to(yolo8.dtype))
+    shapes8 = [tuple(t.shape) for t in box8 + cls8]
+    nb8, side = batch.shape[0], batch.shape[1]
+    check(shapes8 == [(nb8, c, side // s, side // s) for c in (64, 80) for s in (8, 16, 32)],
+          f"yolov8n head shapes {shapes8}")
+    check(all(torch.isfinite(t).all().item() for t in box8 + cls8), "yolov8n: non-finite head")
+    check(v8_launches == {"area_attention": 0, "nms_suppress": n_batches},
+          f"yolov8n predict launches {v8_launches}")
+    check(len(res8) == len(images) and all(np.isfinite(d.boxes).all() for d in res8)
+          and min(len(d) for d in res8) > 0, "yolov8n predict outputs")
+    t0 = time.perf_counter()
+    yolo8.predict(images, conf=0.001, batch_size=32)
+    wall8 = time.perf_counter() - t0
+    log(f"[yolov8n predict] head shapes {shapes8}; launches {v8_launches}; n_det mean "
+        f"{np.mean([len(d) for d in res8]):.1f}; {len(images) / wall8:.1f} img/s end to end")
+
+    # the (32, 32) builds' rows of the kernels line: the b6 call shape as the
+    # row's, both shapes under "calls"
+    for name, src, line, recs, err, launches_predict, launches_train in (
+            ("area_attention (32, 32)", "area_attention.cu", 46, fwd32,
+             max(fwd32_err, fwd32_err_train), v12_launches["area_attention"],
+             train12_launches["area_attention"]),
+            ("area_attention_bwd (32, 32)", "area_attention_bwd.cu", 69, bwd32, bwd32_err_train,
+             0, train12_launches["area_attention_bwd"])):
+        b6 = recs["b6"]
+        bwd_row = "bwd" in name
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"deal_yolo_daya_tpu_torch/csrc/{src}",
+            "replaces": f"deal_yolo_daya_tpu/ops/pallas/area_attention.py:{line}",
+            "launches": launches_train if bwd_row else launches_predict,
+            "launches_by_path": {"yolo12n predict": launches_predict,
+                                 "yolo12n train steps": launches_train,
+                                 "yolo12n Trainer": trainer12_launches[
+                                     "area_attention_bwd" if bwd_row else "area_attention"]},
+            "max_abs_err": err, "tol": BWD_TOL["bfloat16"] if bwd_row else ATTN_TOL["bfloat16"],
+            "ms": b6["ms"], "device_ms": b6["device_ms"], "plain_ms": b6["plain_ms"],
+            "bound_ms": b6["bound_ms"], "bound_by": b6["bound_by"],
+            "library_ms": b6["library_ms"], "library_device_ms": b6["library_device_ms"],
+            "shape": b6["shape"], "dtype": "torch.bfloat16", "calls": recs})
+    family_record = {
+        "yolo12n_predict": {"imgs_per_s_e2e": len(images) / wall12,
+                            "device_ms_per_b32": device12_ms, "profiled_device_busy_ms": busy12_ms,
+                            "profiled_wall_ms": prof12_wall_ms, "launches": v12_launches},
+        "yolo12n_train": {"ms_per_step": step12_ms, "imgs_per_s": 32 / step12_ms * 1e3,
+                          "host_wall_ms_per_step": wall12_step_ms, "losses": losses12,
+                          "launches_per_step": per_step12,
+                          "f32_grad_worst_of_tol": grad12_worst[0],
+                          "profiled_device_busy_ms": busy12_step_ms,
+                          "profiled_wall_ms": prof12_step_wall_ms},
+        "yolo12n_trainer": {"wall_s": trainer12_wall, "launches": trainer12_launches,
+                            "results": rows12},
+        "yolov8n_predict": {"imgs_per_s_e2e": len(images) / wall8, "launches": v8_launches},
+        "card": card}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)
@@ -1328,7 +1778,7 @@ def main() -> int:
         "imgs_per_s_e2e": len(images) / wall, "host_letterbox_ms_per_img": host_ms,
         "device_ms_per_b32": device_ms, "profiled_device_busy_ms": busy_ms,
         "profiled_wall_ms": prof_wall_ms, "card": card}, "train": train_record,
-        "trainer": trainer_record}), flush=True)
+        "trainer": trainer_record, "families": family_record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

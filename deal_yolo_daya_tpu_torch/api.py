@@ -1,12 +1,14 @@
 """High-level model API: ``YOLO("yolo11n").predict(...)`` and ``.train(...)``.
 
 Counterpart of the predict and train paths of ``deal_yolo_daya_tpu/api.py``:
-the model handle, the BN-folded inference model with the 1/255 folded into
-the stem, host letterbox, batched device forward, decode, NMS, and
+the model handle for every family and scale of the registry (yolo11,
+yolov8, yolo12; n to x), the BN-folded inference model with the 1/255 folded
+into the stem, host letterbox, batched device forward, decode, NMS, and
 ``Detections`` in original-image pixels; ``train`` runs the port's Trainer
 and adopts its EMA weights; ``YOLO("<run>/weights/best.pt")`` loads a
-checkpoint that Trainer wrote. The model runs on the card unless the caller
-passes ``device="cpu"``.
+checkpoint that Trainer wrote, of the family it records (yolo11 when it
+records none, as checkpoints written before the registry). The model runs on
+the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.yolo11 import build_yolo11, fuse_conv_bn
+from .models.registry import build_detector, make_detector, parse_model_spec
+from .models.yolo11 import fuse_conv_bn
 from .ops.decode import decode_predictions
 from .ops.letterbox import letterbox_numpy, load_image
 from .ops.nms import batched_nms
@@ -83,20 +86,11 @@ class Detections:
         return path
 
 
-def parse_model_spec(model: str) -> str:
-    """'yolo11n' | 'yolo11s.yaml' | 'n' -> the yolo11 scale letter."""
-    stem = Path(str(model)).stem.lower()
-    if stem in ("n", "s"):
-        return stem
-    if stem.startswith(("yolo11", "yolov11")) and stem[-1] in "ns":
-        return stem[-1]
-    raise ValueError(f"unsupported model spec {model!r}: yolo11n or yolo11s")
-
-
 class YOLO:
-    """YOLO11 model handle.
+    """Detector handle for any family and scale of the registry.
 
     >>> model = YOLO("yolo11n")                       # on the card, bf16
+    >>> model = YOLO("yolo12n")                       # or "yolov8s", "yolo11x.yaml", ...
     >>> results = model.predict(["img.jpg"])
     >>> model.train(data="data.yaml", epochs=10)      # then predicts with the EMA weights
     >>> model = YOLO("runs/train/train/weights/best.pt")
@@ -119,20 +113,20 @@ class YOLO:
         if self.model_spec.endswith(".pt"):
             self._load_checkpoint(self.model_spec)
         else:
-            self.scale = parse_model_spec(self.model_spec)
+            self.family, self.scale = parse_model_spec(self.model_spec)
 
     def _load_checkpoint(self, path) -> None:
         """Adopt a checkpoint of the port's Trainer: its architecture, nc,
         names, imgsz, and the EMA weights with the live BN statistics."""
-        from .models.yolo11 import YOLO11
-        from .train.trainer import inference_state_dict, load_checkpoint
+        from .train.trainer import checkpoint_family, inference_state_dict, load_checkpoint
 
         if not Path(path).exists():
             raise FileNotFoundError(f"model weights not found: {path}")
         ckpt = load_checkpoint(path)
-        self.scale, self.nc, self.imgsz = ckpt["scale"], int(ckpt["nc"]), int(ckpt["imgsz"])
+        self.family, self.scale = checkpoint_family(ckpt), ckpt["scale"]
+        self.nc, self.imgsz = int(ckpt["nc"]), int(ckpt["imgsz"])
         self.names = list(ckpt["names"])
-        model = YOLO11(nc=self.nc, scale=self.scale)
+        model = make_detector(self.family, self.scale, self.nc)
         model.load_state_dict(inference_state_dict(ckpt), strict=True)
         self._model = model.to(self.device).eval()
         self._fused_cache = None
@@ -141,8 +135,8 @@ class YOLO:
     def _ensure_built(self):
         """The f32 model with random weights from ``seed``, built once."""
         if self._model is None:
-            self._model = build_yolo11(self.scale, nc=self.nc, seed=self.seed,
-                                       device=self.device)
+            self._model = build_detector(f"{self.family}{self.scale}", nc=self.nc,
+                                         seed=self.seed, device=self.device)
         return self._model
 
     def _fused_model(self):
@@ -164,7 +158,6 @@ class YOLO:
         from the loaded weights when there are any (a checkpoint or an
         earlier train()), else from the seed's random init. Afterwards the
         handle predicts with the trained EMA weights, nc, names and imgsz."""
-        from .models.yolo11 import YOLO11
         from .train.trainer import Trainer, inference_state_dict, make_config
 
         kwargs.setdefault("device", "cpu" if self.device.type == "cpu" else "")
@@ -173,7 +166,8 @@ class YOLO:
         self.trainer = Trainer(cfg, init_state_dict=init)
         result = self.trainer.train()
         self.nc, self.names, self.imgsz = self.trainer.nc, list(self.trainer.names), cfg.imgsz
-        model = YOLO11(nc=self.nc, scale=self.scale)
+        self.family, self.scale = self.trainer.family, self.trainer.scale
+        model = make_detector(self.family, self.scale, self.nc)
         model.load_state_dict(inference_state_dict(self.trainer.state.state()), strict=True)
         self._model = model.to(self.device).eval()
         self._fused_cache = None

@@ -47,6 +47,14 @@
 //   neighbouring lanes that split the columns and combine q.k partial sums
 //   with two warp shuffles.
 //
+// - (key_dim, head_dim) = (32, 32), yolo12's AAttn: the same kernels built
+//   for HD = 32. V's tile rows are 64 bytes, so its TMA map takes the 64-byte
+//   swizzle and P.V reads it as an MN-major Tile<64> operand (the layout the
+//   backward's dQ += dS K already reads K with); P.V is five wgmma
+//   m64n32k16, O is 16 registers a thread, and the epilogue and the v
+//   passthrough move 64-byte rows. A head's q|k|v columns are 96 apart, so
+//   every operand still starts 16-byte aligned. Shared memory: 36 KB a block.
+//
 // Measured (profiler device time at the main shape, tools/time_attention_kernels.py
 // and chip_smoke.py, NVIDIA H100 80GB HBM3 at a 700 W power limit):
 // 0.0106-0.0108 ms, 2.7x the 0.0039 ms bound, against 0.0941 ms for the
@@ -319,13 +327,17 @@ int launch(int is_bf16, const void* qkv, void* out, void* v, int ba, int n, int 
 
 }  // namespace
 
-// Returns 0 on a good launch, else the CUDA error code. key_dim 32 and
-// head_dim 64 are yolo11's PSAAttention at every scale (C2PSA heads are 64
-// channels wide, attn_ratio 0.5).
+// Returns 0 on a good launch, else the CUDA error code (cudaErrorInvalidValue
+// for a pair not built here). (key_dim, head_dim) = (32, 64) is yolo11's
+// PSAAttention at every scale (C2PSA heads are 64 channels wide, attn_ratio
+// 0.5); (32, 32) is yolo12's AAttn at every scale (heads of 32 channels).
 extern "C" int area_attention_fwd(const void* qkv, void* out, void* v, int ba, int n, int heads,
                                   int key_dim, int head_dim, float scale, int is_bf16,
                                   void* stream) {
-  if (key_dim != 32 || head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<32, 64>(is_bf16, qkv, out, v, ba, n, heads, scale,
-                        static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (key_dim == 32 && head_dim == 64)
+    return launch<32, 64>(is_bf16, qkv, out, v, ba, n, heads, scale, s);
+  if (key_dim == 32 && head_dim == 32)
+    return launch<32, 32>(is_bf16, qkv, out, v, ba, n, heads, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

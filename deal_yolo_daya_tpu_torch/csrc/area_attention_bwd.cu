@@ -57,6 +57,13 @@
 //   cores; each row is owned by TPR neighbouring lanes that split its
 //   columns and combine partial sums with two warp shuffles.
 //
+// - (key_dim, head_dim) = (32, 32), yolo12's AAttn: the same two passes built
+//   for HD = 32. The wide tiles (V, dO) shrink to 64-byte rows, as wide as
+//   the narrow ones (WIDE = NARROW = 5120 bytes), so both take the 64-byte
+//   swizzle; dP = dO V^T reduces over 32 columns, dV is an m64n32k16
+//   accumulator of 16 registers, and the epilogue writes 64-byte dq|dk|dv
+//   rows. The stats layout is unchanged.
+//
 // Measured (profiler device time at the main shape, tools/time_attention_kernels.py
 // and chip_smoke.py, NVIDIA H100 80GB HBM3 at a 700 W power limit):
 // 0.0359-0.0365 ms (pass a 0.0171-0.0175, pass b 0.0188-0.0190), ~6x the
@@ -191,7 +198,7 @@ template <int KD, int HD>
 __global__ void __launch_bounds__(W_THREADS, 4)
 bwd_query_rows_bf16(const __grid_constant__ BwdMaps maps, bf16* __restrict__ dqkv,
                     float* __restrict__ stats, int ba, int n, int heads, float scale) {
-  static_assert(KD == 32 && HD == 64, "wgmma shapes instantiated here");
+  static_assert(KD == 32 && (HD == 64 || HD == 32), "wgmma shapes instantiated here");
   using L = BwdSmem<KD, HD>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -376,7 +383,8 @@ __global__ void __launch_bounds__(W_THREADS, 4)
 bwd_key_rows_bf16(const __grid_constant__ BwdMaps maps, const bf16* __restrict__ dvo,
                   bf16* __restrict__ dqkv, const float* __restrict__ stats, int ba, int n,
                   int heads, float scale) {
-  static_assert(KD == 32 && HD == 64 && KT == 48 + 32, "wgmma shapes instantiated here");
+  static_assert(KD == 32 && (HD == 64 || HD == 32) && KT == 48 + 32,
+                "wgmma shapes instantiated here");
   using L = BwdSmem<KD, HD>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -632,13 +640,18 @@ int launch(int is_bf16, const void* qkv, const void* dout, const void* dvo, void
 
 }  // namespace
 
-// Returns 0 on good launches, else the CUDA error code. key_dim 32 and
-// head_dim 64 are yolo11's PSAAttention at every scale.
+// Returns 0 on good launches, else the CUDA error code (cudaErrorInvalidValue
+// for a pair not built here). (key_dim, head_dim) = (32, 64) is yolo11's
+// PSAAttention at every scale, (32, 32) yolo12's AAttn.
 extern "C" int area_attention_bwd(const void* qkv, const void* d_out, const void* d_v,
                                   void* d_qkv, void* stats, int ba, int n, int heads,
                                   int key_dim, int head_dim, float scale, int is_bf16,
                                   void* stream) {
-  if (key_dim != 32 || head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<32, 64>(is_bf16, qkv, d_out, d_v, d_qkv, static_cast<float*>(stats), ba, n,
-                        heads, scale, static_cast<cudaStream_t>(stream));
+  float* st = static_cast<float*>(stats);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (key_dim == 32 && head_dim == 64)
+    return launch<32, 64>(is_bf16, qkv, d_out, d_v, d_qkv, st, ba, n, heads, scale, s);
+  if (key_dim == 32 && head_dim == 32)
+    return launch<32, 32>(is_bf16, qkv, d_out, d_v, d_qkv, st, ba, n, heads, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

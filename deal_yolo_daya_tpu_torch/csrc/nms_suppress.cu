@@ -58,7 +58,18 @@
 // wrapper's geometry function (ops/kernels/nms_suppress.py::nms_geometry)
 // picks C, first and the bytes.
 //
-// The launch allocates nothing. The C entries return cudaGetLastError()
+// Beyond K = 1344 rank 0's shared memory cannot hold the bitmask, and the
+// wrapper picks the global-memory mapping (nms_suppress_global): two
+// launches, simple and not tuned. nms_mask_global deals the same units to
+// the warps of `blocks` CTAs an image, each warp staging its 32 column boxes
+// in shared memory and computing the same candidates and exact IoUs, and
+// writes each row's word into the image's K x ceil(K/32) bitmask in device
+// memory (column-major as above; 2 MB an image at K = 4096), which the
+// wrapper allocates. nms_walk_global, one warp an image, then walks it from
+// device memory (L2) word by word as above, its kept words in shared memory.
+// The mask is the same, bit for bit.
+//
+// The launches allocate nothing. The C entries return cudaGetLastError()
 // (or the refusal's code) so the Python wrapper can raise.
 
 #include <cooperative_groups.h>
@@ -324,6 +335,124 @@ nms_kernel(const float4* __restrict__ boxes, const unsigned char* __restrict__ v
   }
 }
 
+// ------------------------------------------- K > 1344: bitmask in device memory
+
+constexpr int G_THREADS = 256;
+constexpr int G_WARPS = G_THREADS / 32;
+
+// The bitmask of image blockIdx.y: the upper triangle's units dealt round
+// robin to the warps of the image's gridDim.x CTAs, as in nms_kernel's
+// phase 1; row i's word w at bits[img][w * k + i].
+__global__ void __launch_bounds__(G_THREADS)
+nms_mask_global(const float4* __restrict__ boxes, const unsigned char* __restrict__ valid,
+                unsigned* __restrict__ bits, int k, float thr) {
+  __shared__ float4 cols_s[G_WARPS][32];
+  __shared__ unsigned hits_s[G_WARPS][32];
+  const size_t img = blockIdx.y;
+  const int words = (k + 31) / 32;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const float4* img_boxes = boxes + img * k;
+  const unsigned char* ok = valid + img * k;
+  unsigned* out = bits + img * words * static_cast<size_t>(k);
+  float4* cols = cols_s[warp];
+  unsigned* hits = hits_s[warp];
+  const float scale = fmaxf(1.f - thr, 0.f) + 1e-5f;
+  hits[lane] = 0u;
+  const long long units = static_cast<long long>(words) * (words + 1) / 2;
+  const int stride = gridDim.x * G_WARPS;
+  int rt = 0;
+  long long rest = static_cast<long long>(blockIdx.x) * G_WARPS + warp;  // u = offset(rt) + rest
+  for (long long u = rest; u < units; u += stride, rest += stride) {
+    while (rest >= words - rt) {  // row tile rt holds words - rt units
+      rest -= words - rt;
+      ++rt;
+    }
+    const int w = rt + static_cast<int>(rest);
+    const int r0 = 32 * rt;
+    const int i = r0 + lane;  // this lane's row
+    const int c = 32 * w + lane;  // this lane's column box
+    // (a) candidates by the necessary test against the warp's 32 column boxes
+    unsigned cand = FULL;
+    if (thr >= 0.f) {
+      const float4 a = i < k ? reach_box(img_boxes[i], scale) : make_float4(0.f, 0.f, 0.f, 0.f);
+      __syncwarp();  // the previous unit is done with cols
+      cols[lane] = c < k ? reach_box(img_boxes[c], scale) : make_float4(0.f, 0.f, 0.f, 0.f);
+      __syncwarp();
+      cand = 0u;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float4 o = cols[j];
+        if (fabsf(a.x - o.x) < a.z + o.z && fabsf(a.y - o.y) < a.w + o.w) cand |= 1u << j;
+      }
+    }
+    const unsigned col_ok = __ballot_sync(FULL, c < k && ok[c]);
+    cand &= (i < k && ok[i]) ? col_ok : 0u;
+    if (w == rt) cand &= ~((2u << lane) - 1u);
+    // (b) the exact test for the candidates, 32 at a time, as in nms_kernel
+    const unsigned count = __popc(cand);
+    unsigned upto = count;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned v = __shfl_up_sync(FULL, upto, d);
+      if (lane >= d) upto += v;
+    }
+    const unsigned total = __shfl_sync(FULL, upto, 31);
+    for (unsigned base = 0; base < total; base += 32) {
+      const unsigned n = base + lane;
+      int r = 0;
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1)
+        if (__shfl_sync(FULL, upto, r + s - 1) <= n) r += s;
+      const unsigned row_word = __shfl_sync(FULL, cand, r);
+      const unsigned before = __shfl_sync(FULL, upto - count, r);
+      if (n < total) {
+        const int col = nth_bit(row_word, n - before);
+        if (over(__ldg(img_boxes + r0 + r), __ldg(img_boxes + 32 * w + col), thr))
+          atomicOr(&hits[r], 1u << col);
+      }
+    }
+    __syncwarp();
+    if (i < k) out[static_cast<size_t>(w) * k + i] = hits[lane];
+    __syncwarp();
+    hits[lane] = 0u;
+    __syncwarp();
+  }
+}
+
+// The walk of nms_kernel's phase 2 over image blockIdx.x's bitmask in
+// device memory, by one warp; kept[v] (shared) holds which rows of word v
+// were kept.
+__global__ void __launch_bounds__(32)
+nms_walk_global(const unsigned* __restrict__ bits, const unsigned char* __restrict__ valid,
+                unsigned char* __restrict__ keep, int k) {
+  extern __shared__ unsigned kept_words[];
+  const size_t img = blockIdx.x;
+  const int words = (k + 31) / 32;
+  const int lane = threadIdx.x;
+  const unsigned* mask = bits + img * words * static_cast<size_t>(k);
+  for (int w = 0; w < words; ++w) {
+    const unsigned* col = mask + static_cast<size_t>(w) * k + lane;  // word w of rows lane + 32v
+    unsigned acc = 0u;
+#pragma unroll 8
+    for (int v = 0; v < w; ++v)
+      if ((kept_words[v] >> lane) & 1u) acc |= col[32 * v];
+    const int row = 32 * w + lane;
+    const unsigned own = row < k ? col[32 * w] : 0u;
+    const unsigned avail =
+        __ballot_sync(FULL, row < k && valid[img * k + row]) & ~__reduce_or_sync(FULL, acc);
+    unsigned kept = avail;
+    for (int step = 0; step < 32; ++step) {
+      const unsigned next = avail & ~__reduce_or_sync(FULL, ((kept >> lane) & 1u) ? own : 0u);
+      if (next == kept) break;
+      kept = next;
+    }
+    if (row < k) keep[img * k + row] = (kept >> lane) & 1u;
+    if (lane == 0) kept_words[w] = kept;
+    __syncwarp();
+  }
+}
+
 // Once a process: allow the kernel the card's opt-in shared memory a block.
 cudaError_t set_smem_attribute() {
   static const cudaError_t err = [] {
@@ -375,6 +504,32 @@ extern "C" int nms_suppress(const void* boxes, const void* valid, void* keep, in
                            static_cast<unsigned char*>(keep), k, thr, first,
                            static_cast<long long*>(stamps));
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The global-memory mapping for any K: boxes (B, K, 4) f32, valid and keep
+// (B, K) bool, bits (B, ceil(K/32) * K) u32 scratch from the wrapper, `blocks`
+// mask CTAs an image, `smem` the walk's 4 * ceil(K/32) bytes. Returns 0 on
+// good launches, else the CUDA error code.
+extern "C" int nms_suppress_global(const void* boxes, const void* valid, void* keep, void* bits,
+                                   int b, int k, float thr, int blocks, int smem,
+                                   void* stream) {
+  if (b < 1 || b > 65535 || k < 1 || blocks < 1 || smem < 4 * ((k + 31) / 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (smem > 48 * 1024) {
+    // once a process would pin the first K's size: set it for each larger walk
+    const cudaError_t e = cudaFuncSetAttribute(
+        nms_walk_global, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  nms_mask_global<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(b)), G_THREADS, 0,
+                    s>>>(static_cast<const float4*>(boxes),
+                         static_cast<const unsigned char*>(valid), static_cast<unsigned*>(bits), k,
+                         thr);
+  nms_walk_global<<<b, 32, smem, s>>>(static_cast<const unsigned*>(bits),
+                                      static_cast<const unsigned char*>(valid),
+                                      static_cast<unsigned char*>(keep), k);
   return static_cast<int>(cudaGetLastError());
 }
 

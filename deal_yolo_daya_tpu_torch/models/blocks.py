@@ -1,15 +1,15 @@
-"""YOLO11 building blocks as PyTorch modules, NCHW.
+"""YOLO11, YOLOv8 and YOLOv12 building blocks as PyTorch modules, NCHW.
 
-Counterpart of ``deal_yolo_daya_tpu/models/blocks.py`` for the blocks yolo11
-uses. Submodules carry the ultralytics ``DetectionModel`` names (``conv``,
+Counterpart of ``deal_yolo_daya_tpu/models/blocks.py`` for the blocks the
+three families use. Submodules carry the ultralytics ``DetectionModel`` names (``conv``,
 ``bn``, ``cv1``, ``m.0``, ``attn.qkv``, ``ffn.0`` ...), so a state dict in
 ultralytics layout loads with ``load_state_dict(strict=True)``.
 
 Convolutions pad symmetrically by k//2 and BatchNorm uses eps 1e-3 and flax's
 momentum, as in the JAX package; ``model.train()`` and ``model.eval()`` switch
-BatchNorm between batch and running statistics. ``PSAAttention`` runs the
-area-attention kernels (``ops/kernels/area_attention.py``), forward and
-backward.
+BatchNorm between batch and running statistics. ``PSAAttention`` (yolo11's
+C2PSA) and ``AAttn`` (yolo12's A2C2f) run the area-attention kernels
+(``ops/kernels/area_attention.py``), forward and backward.
 """
 
 from __future__ import annotations
@@ -116,17 +116,18 @@ class C3k(nn.Module):
 
 class C3k2(nn.Module):
     """Fast CSP block: split, run n inner modules on the running tail, concat
-    every chunk (C3k inners when c3k, else Bottlenecks of expansion 0.5)."""
+    every chunk (C3k inners when c3k, else Bottlenecks of expansion
+    ``inner_e``: 0.5 in yolo11's C3k2, 1.0 in yolov8's C2f, the same CSP)."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False,
-                 e: float = 0.5, shortcut: bool = True):
+                 e: float = 0.5, shortcut: bool = True, inner_e: float = 0.5):
         super().__init__()
         self.hidden = int(c2 * e)
         self.cv1 = ConvBN(c1, 2 * self.hidden)
         self.cv2 = ConvBN((2 + n) * self.hidden, c2)
         self.m = nn.ModuleList(
             C3k(self.hidden, self.hidden, 2, shortcut) if c3k
-            else Bottleneck(self.hidden, self.hidden, shortcut, (3, 3), 0.5)
+            else Bottleneck(self.hidden, self.hidden, shortcut, (3, 3), inner_e)
             for _ in range(n)
         )
 
@@ -209,6 +210,85 @@ class C2PSA(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a, b = self.cv1(x).split(self.hidden, 1)
         return self.cv2(torch.cat([a, self.m(b)], 1))
+
+
+class AAttn(nn.Module):
+    """Area attention (yolo12): 1x1 qkv conv, softmax attention within each
+    of ``area`` row-major stripes of the H x W tokens, a depthwise 7x7
+    positional encoding on V, and a 1x1 projection. Heads are ``dim //
+    num_heads`` wide with key_dim = head_dim, so the scale is
+    ``head_dim ** -0.5``. Raises ValueError when H*W is not a multiple of
+    ``area``."""
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.area = area
+        self.qkv = ConvBN(dim, 3 * dim, 1, act=False)
+        self.proj = ConvBN(dim, dim, 1, act=False)
+        self.pe = ConvBN(dim, dim, 7, g=dim, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        n = h * w
+        if n % self.area:
+            raise ValueError(f"AAttn: {h}x{w}={n} tokens not divisible by area={self.area}")
+        qkv = self.qkv(x)
+        # (B, C, H, W) -> (B*area, n/area, C): the stripes are contiguous rows
+        tokens = qkv.permute(0, 2, 3, 1).reshape(b * self.area, n // self.area, -1).contiguous()
+        out, v = area_attention(tokens, self.num_heads, self.head_dim)
+        out = out.view(b, h, w, -1).permute(0, 3, 1, 2)
+        v = v.view(b, h, w, -1).permute(0, 3, 1, 2)
+        return self.proj(out + self.pe(v))
+
+
+class ABlock(nn.Module):
+    """Area-attention block: AAttn + 1x1-conv MLP, both residual."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2, area: int = 1):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.attn = AAttn(dim, num_heads, area)
+        self.mlp = nn.Sequential(ConvBN(dim, hidden), ConvBN(hidden, dim, act=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """R-ELAN stage (yolo12): cv1, then n inner modules on the running tail
+    (two ABlocks of hidden // 32 heads each when ``a2``, else one C3k), every
+    chunk concatenated into cv2; with ``a2`` and ``residual`` (scales l and
+    x) the output is ``x + gamma * out``, gamma a learned per-channel scale
+    initialised to 0.01. Raises ValueError when ``a2`` and the hidden width is
+    not a multiple of 32."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True, area: int = 1,
+                 residual: bool = False, mlp_ratio: float = 2.0, e: float = 0.5,
+                 shortcut: bool = True):
+        super().__init__()
+        hidden = int(c2 * e)
+        if a2 and hidden % 32:
+            raise ValueError(f"A2C2f: hidden dim {hidden} not a multiple of 32")
+        self.cv1 = ConvBN(c1, hidden)
+        self.cv2 = ConvBN((1 + n) * hidden, c2)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(hidden, hidden // 32, mlp_ratio, area) for _ in range(2)))
+            if a2 else C3k(hidden, hidden, 2, shortcut)
+            for _ in range(n)
+        )
+        self.gamma = nn.Parameter(torch.full((c2,), 0.01)) if a2 and residual else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        chunks = [self.cv1(x)]
+        for m in self.m:
+            chunks.append(m(chunks[-1]))
+        out = self.cv2(torch.cat(chunks, 1))
+        if self.gamma is None:
+            return out
+        return x + self.gamma.to(out.dtype).view(-1, 1, 1) * out
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

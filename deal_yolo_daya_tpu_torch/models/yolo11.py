@@ -1,4 +1,5 @@
-"""YOLO11 detection network (scales n and s) as a PyTorch module, NCHW.
+"""YOLO11 detection network (scales n to x) as a PyTorch module, NCHW, and
+what the three families share: the detect head, init, BN fold.
 
 Counterpart of ``deal_yolo_daya_tpu/models/yolo11.py``. The top-level
 submodules are named by their ultralytics ``DetectionModel.model[i]`` index
@@ -8,7 +9,7 @@ forward returns the raw per-level head outputs: box distributions
 [(B, 64, H, W)] and class logits [(B, nc, H, W)] for strides 8/16/32.
 ``model.train()`` makes every BatchNorm normalise with batch statistics and
 update its running ones (the JAX ``train=True``); ``model.eval()`` uses the
-running ones.
+running ones. m, l and x use C3k inners in every C3k2.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ from .blocks import BN_EPS, C2PSA, C3k2, ConvBN, DWConv, SPPF, upsample2x
 YOLO11_SCALES: Dict[str, Tuple[float, float, int]] = {
     "n": (0.50, 0.25, 1024),
     "s": (0.50, 0.50, 1024),
+    "m": (0.50, 1.00, 512),
+    "l": (1.00, 1.00, 512),
+    "x": (1.00, 1.50, 512),
 }
 
 REG_MAX = 16
@@ -47,9 +51,10 @@ def _depth(n: int, depth: float) -> int:
 class DetectHead(nn.Module):
     """Decoupled anchor-free head: per level a box branch (2x ConvBN 3x3, 1x1
     conv to 4*REG_MAX bins) and a class branch (2x [DWConv 3x3 + ConvBN 1x1],
-    1x1 conv to nc logits). ultralytics names: cv2[i] box, cv3[i] class."""
+    1x1 conv to nc logits; with ``legacy``, yolov8's 2x ConvBN 3x3 instead).
+    ultralytics names: cv2[i] box, cv3[i] class."""
 
-    def __init__(self, nc: int, ch: Sequence[int]):
+    def __init__(self, nc: int, ch: Sequence[int], legacy: bool = False):
         super().__init__()
         c2 = max(16, ch[0] // 4, 4 * REG_MAX)
         c3 = max(ch[0], min(nc, 100))
@@ -59,7 +64,8 @@ class DetectHead(nn.Module):
             for c in ch
         )
         self.cv3 = nn.ModuleList(
-            nn.Sequential(
+            nn.Sequential(ConvBN(c, c3, 3), ConvBN(c3, c3, 3), nn.Conv2d(c3, nc, 1)) if legacy
+            else nn.Sequential(
                 nn.Sequential(DWConv(c, c, 3), ConvBN(c, c3, 1)),
                 nn.Sequential(DWConv(c3, c3, 3), ConvBN(c3, c3, 1)),
                 nn.Conv2d(c3, nc, 1),
@@ -73,24 +79,54 @@ class DetectHead(nn.Module):
                 [cls(x) for cls, x in zip(self.cv3, feats)])
 
 
-class YOLO11(nn.Module):
+class Detector(nn.Module):
+    """What the three families share: top-level modules named by their
+    ultralytics index, ``layer(i)``, and the detect head's index ``DETECT``."""
+
+    FAMILY = ""
+    SCALES: Dict[str, Tuple[float, float, int]] = {}
+    DETECT = 0
+
+    def __init__(self, nc: int, scale: str):
+        super().__init__()
+        if scale not in self.SCALES:
+            raise ValueError(f"{self.FAMILY} scale '{scale}' not in {sorted(self.SCALES)}")
+        self.nc, self.scale = nc, scale
+
+    def widths(self):
+        """(w, d): the scale's channel width and block depth functions."""
+        depth, width, max_ch = self.SCALES[self.scale]
+        return (lambda c: _width(c, width, max_ch)), (lambda n: _depth(n, depth))
+
+    def add_layers(self, layers: Dict[int, nn.Module]) -> None:
+        for i, mod in layers.items():
+            self.add_module(str(i), mod)
+
+    def layer(self, i: int) -> nn.Module:
+        return self._modules[str(i)]
+
+    def head(self) -> "DetectHead":
+        return self.layer(self.DETECT)
+
+
+class YOLO11(Detector):
     """Full YOLO11 detector; forward returns per-level (box_dist, cls_logits)."""
 
+    FAMILY = "yolo11"
+    SCALES = YOLO11_SCALES
+    DETECT = 23
+
     def __init__(self, nc: int = 80, scale: str = "n"):
-        super().__init__()
-        if scale not in YOLO11_SCALES:
-            raise ValueError(f"yolo11 scale '{scale}' not in {sorted(YOLO11_SCALES)}")
-        depth, width, max_ch = YOLO11_SCALES[scale]
-        w = lambda c: _width(c, width, max_ch)  # noqa: E731
-        d = lambda n: _depth(n, depth)  # noqa: E731
-        self.nc, self.scale = nc, scale
-        layers = {
+        super().__init__(nc, scale)
+        w, d = self.widths()
+        c3k_all = scale in ("m", "l", "x")
+        self.add_layers({
             # backbone
             0: ConvBN(3, w(64), 3, 2),                                # P1/2
             1: ConvBN(w(64), w(128), 3, 2),                           # P2/4
-            2: C3k2(w(128), w(256), d(2), False, 0.25),
+            2: C3k2(w(128), w(256), d(2), c3k_all, 0.25),
             3: ConvBN(w(256), w(256), 3, 2),                          # P3/8
-            4: C3k2(w(256), w(512), d(2), False, 0.25),
+            4: C3k2(w(256), w(512), d(2), c3k_all, 0.25),
             5: ConvBN(w(512), w(512), 3, 2),                          # P4/16
             6: C3k2(w(512), w(512), d(2), True, 0.5),
             7: ConvBN(w(512), w(1024), 3, 2),                         # P5/32
@@ -98,19 +134,14 @@ class YOLO11(nn.Module):
             9: SPPF(w(1024), w(1024), 5),
             10: C2PSA(w(1024), w(1024), d(2)),
             # head (PAN); 11/12, 14/15, 18, 21 are upsamples and concats
-            13: C3k2(w(1024) + w(512), w(512), d(2), False, 0.5),
-            16: C3k2(w(512) + w(512), w(256), d(2), False, 0.5),
+            13: C3k2(w(1024) + w(512), w(512), d(2), c3k_all, 0.5),
+            16: C3k2(w(512) + w(512), w(256), d(2), c3k_all, 0.5),
             17: ConvBN(w(256), w(256), 3, 2),
-            19: C3k2(w(256) + w(512), w(512), d(2), False, 0.5),
+            19: C3k2(w(256) + w(512), w(512), d(2), c3k_all, 0.5),
             20: ConvBN(w(512), w(512), 3, 2),
             22: C3k2(w(512) + w(1024), w(1024), d(2), True, 0.5),
             23: DetectHead(nc, (w(256), w(512), w(1024))),
-        }
-        for i, mod in layers.items():
-            self.add_module(str(i), mod)
-
-    def layer(self, i: int) -> nn.Module:
-        return self._modules[str(i)]
+        })
 
     def forward(self, x: torch.Tensor):
         m = self.layer
@@ -134,15 +165,15 @@ def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
 
 
 @torch.no_grad()
-def init_weights(model: YOLO11, seed: int = 0) -> YOLO11:
+def init_weights(model: Detector, seed: int = 0) -> Detector:
     """Random init that mirrors the JAX one in distribution: lecun-normal
     conv kernels, identity BN, box bias 1.0 and the class prior
-    log(5 / nc / (640 / stride)^2)."""
+    log(5 / nc / (640 / stride)^2) (yolo12's gamma keeps its 0.01)."""
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if isinstance(mod, nn.Conv2d):
             _lecun_normal_(mod.weight, gen)
-    head = model.layer(23)
+    head = model.head()
     for i, stride in enumerate(STRIDES):
         head.cv2[i][2].bias.fill_(1.0)
         head.cv3[i][2].bias.fill_(math.log(5 / head.nc / (640 / stride) ** 2))

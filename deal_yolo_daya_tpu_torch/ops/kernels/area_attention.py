@@ -15,7 +15,9 @@ saved for it.
 
 What bounds them on an H100: the bytes. At yolo11n's C2PSA shape (32 chunks
 of 400 tokens, 2 heads, key_dim 32, head_dim 64, bf16) the forward moves
-13 MB for ~2 GFLOP and the backward 19.7 MB for ~4.6 GFLOP. The TPU kernels
+13 MB for ~2 GFLOP and the backward 19.7 MB for ~4.6 GFLOP; yolo12n's AAttn
+calls (key_dim = head_dim = 32) at 640 px are (128, 400, 192) with 2 heads
+and (32, 400, 384) with 4, 32.8 and 16.4 MB a forward. The TPU kernels
 held a chunk's whole (n, n) f32 score tile in VMEM; on Hopper that tile
 (640 KB) does not fit in a block's 227 KB of shared memory, so both CUDA
 kernels stream key (or query) tiles into shared memory by TMA and recompute
@@ -43,7 +45,9 @@ from . import _build
 launches = 0
 bwd_launches = 0
 
-SUPPORTED = {(32, 64)}  # (key_dim, head_dim) pairs the kernels are built for
+# (key_dim, head_dim) pairs the kernels are built for: yolo11's C2PSA heads
+# (32, 64) and yolo12's AAttn heads (32, 32)
+SUPPORTED = {(32, 64), (32, 32)}
 
 # the C entry points' arguments: pointers, ints (dims), scale, is_bf16, stream
 _FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,

@@ -20,9 +20,14 @@ CTA's shared memory (``st.async`` onto a row tile's mbarrier), and that CTA
 walks them a 32-bit word at a time as the row tiles arrive, overlapped with
 the rest of the mask. ``nms_geometry`` picks the cluster size (the largest
 of which the card runs all B at once), whether the walking CTA computes too,
-and the shared memory bytes. The keep mask is bit-identical to the plain
-version's: every IoU that decides a bit is correctly rounded and never
-contracted, in the plain version's order.
+and the shared memory bytes, from the counts of clusters the card holds at
+once (``active_clusters``, read from the card once). Beyond ``MAX_K`` = 1344
+candidates the walking CTA cannot hold the bitmask, and the geometry picks
+the global-memory mapping: the same unit deal writes the bitmask into device
+memory (allocated here), and one warp an image walks it there. The keep
+mask is bit-identical to the plain version's in either mapping: every IoU
+that decides a bit is correctly rounded and never contracted, in the plain
+version's order.
 
 ``nms_suppress`` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors; ``launches`` counts the kernel launches.
@@ -31,7 +36,7 @@ kernel for CUDA tensors; ``launches`` counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,22 +51,36 @@ MAX_CLUSTER = 8      # the portable cluster size
 HEAD_BYTES = 512     # the walking CTA's row-tile mbarriers (csrc/nms_suppress.cu)
 SCRATCH_BYTES = 4096  # a computing CTA's candidate and hit words, 32 a warp
 PAD = 32             # boxes staged past K (csrc/nms_suppress.cu)
-# clusters of each size (index) that an H100 holds at once at one CTA an SM
-# (cudaOccupancyMaxActiveClusters; chip_smoke.py prints it): its GPCs do not
-# split into equal clusters, so 132 // C overstates it from C = 3
+# clusters of each size (index) that one H100 SXM held at once at one CTA an
+# SM (cudaOccupancyMaxActiveClusters, measured): its GPCs do not split into
+# equal clusters, so 132 // C overstates it from C = 3. The tests pass it to
+# nms_geometry; a launch passes the card's own counts (active_clusters)
 ACTIVE_CLUSTERS = (0, 132, 66, 39, 30, 22, 17, 15, 15)
+G_THREADS = 256      # threads of a global-mapping mask CTA (csrc/nms_suppress.cu)
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] + \
     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+_GLOBAL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] + \
+    [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_ACTIVE: Dict[int, Tuple[int, ...]] = {}  # the card's counts, by device index
 
 
 class NmsGeometry(NamedTuple):
-    """One launch's shape: ``cluster`` CTAs an image; ``first`` is the first
-    rank that computes mask units (0: the walking CTA too; 1: only its
-    peers); ``smem`` the dynamic shared memory bytes of every CTA."""
+    """One launch's shape. The cluster mapping (``blocks`` 0): ``cluster``
+    CTAs an image; ``first`` is the first rank that computes mask units (0:
+    the walking CTA too; 1: only its peers); ``smem`` the dynamic shared
+    memory bytes of every CTA. The global-memory mapping (K > MAX_K):
+    ``blocks`` mask CTAs an image, ``smem`` the walking warp's bytes,
+    ``cluster`` 1 and ``first`` 0."""
     cluster: int
     first: int
     smem: int
+    blocks: int = 0
+
+    @property
+    def in_global(self) -> bool:
+        """Whether the bitmask lives in device memory (K > MAX_K)."""
+        return self.blocks > 0
 
 
 def walker_bytes(k: int) -> int:
@@ -73,11 +92,27 @@ def walker_bytes(k: int) -> int:
 MAX_K = max(k for k in range(1, 2049) if walker_bytes(k) <= SMEM_LIMIT)  # 1344
 
 
-def nms_geometry(b: int, k: int) -> NmsGeometry:
-    """The launch geometry for B images of K candidates; raises ValueError
-    when K is beyond what a CTA's shared memory holds (K > MAX_K)."""
-    if k < 1 or k > MAX_K:
-        raise ValueError(f"nms_suppress: K={k} candidates exceed a block's shared memory")
+def bitmask_words(b: int, k: int) -> int:
+    """u32 words of the global mapping's bitmask: K x ceil(K/32) an image."""
+    return b * k * ((k + 31) // 32)
+
+
+def nms_geometry(b: int, k: int, active: Sequence[int]) -> NmsGeometry:
+    """The launch geometry for B images of K candidates on a card that holds
+    ``active[c]`` clusters of c CTAs at once (``active_clusters()``, or
+    ``ACTIVE_CLUSTERS``). K <= MAX_K takes the cluster mapping, a larger K the
+    global-memory one; raises ValueError for K < 1."""
+    if k < 1:
+        raise ValueError(f"nms_suppress: K={k} candidates (at least 1)")
+    if k > MAX_K:  # enough mask CTAs for ~4 an SM over the batch, no more than units
+        words = (k + 31) // 32
+        warps = G_THREADS // 32
+        units = words * (words + 1) // 2
+        blocks = max(1, min(-(-units // warps), -(-4 * SMS // b)))
+        walk = 4 * words
+        if walk > SMEM_LIMIT:
+            raise ValueError(f"nms_suppress: K={k} candidates exceed the walk's shared memory")
+        return NmsGeometry(1, 0, walk, blocks)
     boxes_at = (walker_bytes(k) + 15) // 16 * 16
     held = 16 * (k + PAD) + SCRATCH_BYTES  # the staged boxes and the warps' words
     if boxes_at + held <= SMEM_LIMIT:    # the walking CTA holds the boxes too
@@ -85,7 +120,7 @@ def nms_geometry(b: int, k: int) -> NmsGeometry:
     else:                                # peers hold them and the validity
         first, smem = 1, max(walker_bytes(k), held + k)
     # the largest cluster whose B copies all run at once, else the smallest
-    fits = [c for c in range(first + 1, MAX_CLUSTER + 1) if b <= ACTIVE_CLUSTERS[c]]
+    fits = [c for c in range(first + 1, MAX_CLUSTER + 1) if b <= active[c]]
     return NmsGeometry(max(fits) if fits else first + 1, first, smem)
 
 
@@ -97,6 +132,21 @@ def max_active_clusters(geometry: NmsGeometry) -> int:
     _build.check(fn(geometry.cluster, geometry.smem, ctypes.addressof(out)),
                  "nms_suppress occupancy")
     return out.value
+
+
+def active_clusters(device: Optional[torch.device] = None) -> Tuple[int, ...]:
+    """The current card's ``active[c]``: how many clusters of c CTAs of the
+    kernel (one CTA an SM, the largest shared memory) it holds at once, for
+    c = 1..MAX_CLUSTER; read once a device and cached."""
+    index = torch.cuda.current_device() if device is None or device.index is None \
+        else device.index
+    counts = _ACTIVE.get(index)
+    if counts is None:
+        with torch.cuda.device(index):
+            counts = (0,) + tuple(max_active_clusters(NmsGeometry(c, 0, SMEM_LIMIT))
+                                  for c in range(1, MAX_CLUSTER + 1))
+        _ACTIVE[index] = counts
+    return counts
 
 
 def nms_suppress_plain(boxes: torch.Tensor, valid: torch.Tensor,
@@ -151,15 +201,23 @@ def launch(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
         return keep
-    geometry = nms_geometry(b, k)
-    if stamps is not None and (stamps.shape != (b, 3) or stamps.dtype != torch.int64
-                               or stamps.device != boxes.device):
-        raise ValueError("nms_suppress: stamps must be (B, 3) int64 on the boxes' device")
-    fn = _build.function("nms_suppress", "nms_suppress", _ARGS)
+    geometry = nms_geometry(b, k, active_clusters(boxes.device))
+    if stamps is not None and (geometry.in_global or stamps.shape != (b, 3)
+                               or stamps.dtype != torch.int64 or stamps.device != boxes.device):
+        raise ValueError("nms_suppress: stamps must be (B, 3) int64 on the boxes' device, "
+                         f"and K <= {MAX_K}")
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k, float(iou_thres),
-                 *geometry, None if stamps is None else stamps.data_ptr(), stream)
+        if geometry.in_global:
+            bits = torch.empty(bitmask_words(b, k), dtype=torch.int32, device=boxes.device)
+            fn = _build.function("nms_suppress", "nms_suppress_global", _GLOBAL_ARGS)
+            err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), bits.data_ptr(), b, k,
+                     float(iou_thres), geometry.blocks, geometry.smem, stream)
+        else:
+            fn = _build.function("nms_suppress", "nms_suppress", _ARGS)
+            err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+                     float(iou_thres), geometry.cluster, geometry.first, geometry.smem,
+                     None if stamps is None else stamps.data_ptr(), stream)
     _build.check(err, "nms_suppress launch")
     global launches
     launches += 1

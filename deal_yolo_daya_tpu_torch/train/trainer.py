@@ -1,4 +1,5 @@
-"""The yolo11 training step, the state it carries, and the Trainer around it.
+"""The training step, the state it carries, and the Trainer around it, for
+every family and scale of the registry (yolo11, yolov8, yolo12; n to x).
 
 Counterpart of ``deal_yolo_daya_tpu/train/trainer.py``.
 
@@ -40,9 +41,9 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..api import parse_model_spec
 from ..device import resolve_device
-from ..models.yolo11 import YOLO11, init_weights
+from ..models.registry import FAMILIES, make_detector, parse_model_spec
+from ..models.yolo11 import init_weights
 from ..ops.decode import decode_predictions
 from ..ops.nms import batched_nms
 from .artifacts import RunDir
@@ -54,7 +55,6 @@ from .optimizer import Optimizer, OptimizerConfig, accumulate_gradients, ema_upd
 
 STEM_KERNEL = "0.conv.weight"
 LOSS_PARTS = ("box_loss", "cls_loss", "dfl_loss", "num_fg")
-DETECT = "23"  # the head's module: never frozen
 CHECKPOINT_FORMAT = "deal_yolo_daya_tpu_torch/trainer-checkpoint-1"
 
 
@@ -153,10 +153,11 @@ def bucket_gt(gt_boxes, gt_classes, gt_mask, max_boxes: int, min_bucket: int = 4
     return gt_boxes[:, :bucket], gt_classes[:, :bucket], gt_mask[:, :bucket]
 
 
-def frozen_modules(freeze: int) -> tuple:
-    """The names of the yolo11 modules ``freeze=N`` freezes: the indices
-    below N but the head's."""
-    return tuple(str(i) for i in range(int(freeze)) if str(i) != DETECT)
+def frozen_modules(freeze: int, family: str = "yolo11") -> tuple:
+    """The names of the family's modules ``freeze=N`` freezes: the indices
+    below N but the detect head's, which is never frozen."""
+    detect = str(FAMILIES[family].DETECT)
+    return tuple(str(i) for i in range(int(freeze)) if str(i) != detect)
 
 
 class TrainState:
@@ -165,7 +166,8 @@ class TrainState:
 
     ``accumulate`` sums that many micro-batch gradients an update (the EMA
     then moves once an update); ``frozen`` names top-level modules that get
-    no gradients and no updates.
+    no gradients and no updates; ``family`` and ``scale`` name the detector
+    (by default those of ``cfg.model``).
 
     >>> state = TrainState(TrainConfig(), nc=80, steps_per_epoch=100)  # on the card
     >>> total = state.step(images_u8, gt_boxes, gt_classes, gt_mask)
@@ -174,11 +176,14 @@ class TrainState:
     def __init__(self, cfg: TrainConfig, nc: int, steps_per_epoch: int, device=None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  opt_cfg: Optional[OptimizerConfig] = None, accumulate: int = 1,
-                 frozen: Sequence[str] = ()):
+                 frozen: Sequence[str] = (), family: Optional[str] = None,
+                 scale: Optional[str] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if cfg.amp else torch.float32
-        model = init_weights(YOLO11(nc=nc, scale=parse_model_spec(cfg.model)), cfg.seed)
+        self.family, self.scale = parse_model_spec(cfg.model) if family is None \
+            else (family, scale)
+        model = init_weights(make_detector(self.family, self.scale, nc), cfg.seed)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         for name, mod in model.named_children():
@@ -288,6 +293,12 @@ def load_checkpoint(path) -> Dict[str, Any]:
     return ckpt
 
 
+def checkpoint_family(ckpt: Dict[str, Any]) -> str:
+    """The family a checkpoint records; yolo11 for checkpoints written
+    before the registry, which record none."""
+    return ckpt.get("family", "yolo11")
+
+
 def inference_state_dict(ckpt: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The weights validation and predict use: the EMA parameters with the
     live BN statistics."""
@@ -305,7 +316,7 @@ def _device_of(spec) -> torch.device:
 
 
 class Trainer:
-    """Train yolo11 on a YOLO-layout dataset.
+    """Train a detector of any family on a YOLO-layout dataset.
 
     >>> Trainer(TrainConfig(model="yolo11n", data="data.yaml", epochs=10)).train()
 
@@ -324,11 +335,11 @@ class Trainer:
         self._val_staged = None
         if str(cfg.model).endswith(".pt"):
             ckpt = load_checkpoint(cfg.model)
-            self.scale = ckpt["scale"]
+            self.family, self.scale = checkpoint_family(ckpt), ckpt["scale"]
             if init_state_dict is None:  # explicit weights win over the spec's
                 init_state_dict = inference_state_dict(ckpt)
         else:
-            self.scale = parse_model_spec(cfg.model)
+            self.family, self.scale = parse_model_spec(cfg.model)
 
         self.train_ds = YoloDataset.from_yaml(cfg.data, "train")
         self.val_ds = YoloDataset.from_yaml(cfg.data, "val")
@@ -388,13 +399,14 @@ class Trainer:
         self.lr_fn_bias = lr_schedule(self.opt_cfg, warmup_start=self.opt_cfg.warmup_bias_lr)
 
         self.run = RunDir(cfg.project, cfg.name, cfg.exist_ok)
-        self.run.write_args(dataclasses.asdict(cfg))
+        self.run.write_args({**dataclasses.asdict(cfg), "family": self.family})
 
-        self.frozen = frozen_modules(cfg.freeze)
+        self.frozen = frozen_modules(cfg.freeze, self.family)
         self.state = TrainState(
             cfg, self.nc, steps_per_epoch, device=self.device,
             state_dict=self._overlay(init_state_dict), opt_cfg=self.opt_cfg,
-            accumulate=self.accumulate, frozen=self.frozen)
+            accumulate=self.accumulate, frozen=self.frozen, family=self.family,
+            scale=self.scale)
         self.start_epoch = 0
         if cfg.resume:
             self._try_resume()
@@ -413,7 +425,8 @@ class Trainer:
         """``init`` laid over a fresh init where the shapes fit."""
         if init is None:
             return None
-        fresh = init_weights(YOLO11(nc=self.nc, scale=self.scale), self.cfg.seed).state_dict()
+        fresh = init_weights(make_detector(self.family, self.scale, self.nc),
+                             self.cfg.seed).state_dict()
         moved = [k for k, v in init.items() if k in fresh and fresh[k].shape == v.shape]
         skipped = len(init) - len(moved)
         for k in moved:
@@ -470,7 +483,7 @@ class Trainer:
     def checkpoint(self, epoch: int, fit: float) -> Dict[str, Any]:
         return {**self.state.state(), "format": CHECKPOINT_FORMAT, "epoch": epoch,
                 "fitness": fit, "nc": self.nc, "names": list(self.names),
-                "scale": self.scale, "imgsz": self.cfg.imgsz,
+                "family": self.family, "scale": self.scale, "imgsz": self.cfg.imgsz,
                 "train_args": json.loads(json.dumps(dataclasses.asdict(self.cfg), default=str))}
 
     def save_checkpoint(self, tag: str, epoch: int, fit: float):
@@ -532,7 +545,7 @@ class Trainer:
         cfg = self.cfg
         best_fit, best_epoch = -1.0, -1
         t0 = time.time()
-        print(f"training yolo11{self.scale} nc={self.nc} imgsz={cfg.imgsz} batch={cfg.batch} "
+        print(f"training {self.family}{self.scale} nc={self.nc} imgsz={cfg.imgsz} batch={cfg.batch} "
               f"device={self.device} epochs={cfg.epochs}")
         for epoch in range(self.start_epoch, cfg.epochs):
             if cfg.close_mosaic and cfg.epochs - epoch <= cfg.close_mosaic:

@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from deal_yolo_daya_tpu_torch.api import YOLO, parse_model_spec
+from deal_yolo_daya_tpu_torch.api import YOLO
 from deal_yolo_daya_tpu_torch.device import resolve_device
+from deal_yolo_daya_tpu_torch.models.registry import parse_model_spec
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -48,9 +49,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 def test_defaults_follow_the_device():
     yolo = YOLO("yolo11n", device="cpu")
     assert yolo.dtype == torch.float32 and yolo.device == torch.device("cpu")
-    assert parse_model_spec("yolo11s.yaml") == "s"
-    with pytest.raises(ValueError, match="unsupported"):
-        parse_model_spec("yolov8n")
+    assert parse_model_spec("yolo11s.yaml") == ("yolo11", "s")
+    assert parse_model_spec("yolov8n") == ("yolov8", "n")  # every family of the registry
+    assert (yolo.family, yolo.scale) == ("yolo11", "n")
 
 
 def test_predict_file_directory_and_records(tmp_path):

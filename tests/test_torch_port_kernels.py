@@ -23,9 +23,11 @@ from deal_yolo_daya_tpu_torch.ops.kernels.score_reduce import score_reduce
 
 
 # yolo11n's C2PSA widths at n = 35, one 80-row key tile of the CUDA kernels,
-# one past it and the main shape's 400; and a narrow head
+# one past it and the main shape's 400; yolo12's AAttn heads (key_dim =
+# head_dim = 32) at n = 100 (a full key tile and a ragged one of 20, its
+# 320 px shape) and n = 81 with 4 heads; and a narrow head
 ATTN_SHAPES = [(2, 35, 2, 32, 64), (2, 80, 2, 32, 64), (2, 81, 2, 32, 64), (2, 400, 2, 32, 64),
-               (3, 20, 1, 8, 16)]
+               (8, 100, 2, 32, 32), (2, 81, 4, 32, 32), (3, 20, 1, 8, 16)]
 
 
 @pytest.mark.parametrize("ba,n,heads,kd,hd", ATTN_SHAPES)
@@ -396,12 +398,16 @@ def test_nms_reach_test_keeps_every_suppressing_pair(thr):
 
 @pytest.mark.parametrize("b", [1, 2, 3, 16, 32, 33, 66, 132])
 def test_nms_geometry_accepts_every_k_to_the_limit(b):
-    """Every K <= 1344 fits a CTA's shared memory, and B clusters fill at
-    most the card's 132 SMs and all run at once where the card holds them;
-    K = 1345 raises as the wrapper does."""
+    """Every K <= 1344 takes the cluster mapping and fits a CTA's shared
+    memory, and B clusters fill at most the card's 132 SMs and all run at
+    once where the card holds them (the H100 SXM's measured counts, passed
+    explicitly); K = 1345 and 4096 take the global-memory mapping; K < 1
+    raises as the wrapper does."""
+    active = nms_mod.ACTIVE_CLUSTERS
     assert nms_mod.MAX_K == 1344
     for k in range(1, nms_mod.MAX_K + 1):
-        g = nms_mod.nms_geometry(b, k)
+        g = nms_mod.nms_geometry(b, k, active)
+        assert not g.in_global and g.blocks == 0
         assert g.first in (0, 1) and g.first < g.cluster <= nms_mod.MAX_CLUSTER
         assert g.smem <= nms_mod.SMEM_LIMIT and g.smem >= nms_mod.walker_bytes(k)
         held = 16 * (k + nms_mod.PAD) + nms_mod.SCRATCH_BYTES  # staged boxes, warps' words
@@ -411,11 +417,53 @@ def test_nms_geometry_accepts_every_k_to_the_limit(b):
             assert g.smem >= held + k
         assert b * g.cluster <= nms_mod.SMS or b > nms_mod.SMS // (g.first + 1)
         # every cluster runs at once wherever the card holds B of the smallest
-        if b <= nms_mod.ACTIVE_CLUSTERS[g.first + 1]:
-            assert b <= nms_mod.ACTIVE_CLUSTERS[g.cluster]
-    with pytest.raises(ValueError, match="exceed a block's shared memory"):
-        nms_mod.nms_geometry(b, nms_mod.MAX_K + 1)
-    assert nms_mod.nms_geometry(32, 1000) == (3, 0, 150128)  # predict's batch: 96 CTAs
+        if b <= active[g.first + 1]:
+            assert b <= active[g.cluster]
+    for k in (nms_mod.MAX_K + 1, 4096):
+        g = nms_mod.nms_geometry(b, k, active)
+        words = (k + 31) // 32
+        assert g.in_global and g.smem == 4 * words  # the walking warp's kept words
+        # mask CTAs: at least one an image, no more than the units fill
+        assert 1 <= g.blocks <= -(-words * (words + 1) // 2 // (nms_mod.G_THREADS // 32))
+        assert nms_mod.bitmask_words(b, k) == b * k * words
+    with pytest.raises(ValueError, match="at least 1"):
+        nms_mod.nms_geometry(b, 0, active)
+    assert nms_mod.nms_geometry(32, 1000, active) == (3, 0, 150128, 0)  # predict's: 96 CTAs
+    # a card that holds fewer clusters gets smaller ones
+    assert nms_mod.nms_geometry(32, 1000, (0, 132, 66, 31, 20, 0, 0, 0, 0)).cluster == 2
+
+
+def test_nms_global_walk_model_matches_plain_beyond_the_limit():
+    """The global mapping deals the same units over its CTAs' warps (every
+    unit of K = 1400 once) and walks the same column-major words, so the
+    walk model gives the plain version's keep mask there too."""
+    from deal_yolo_daya_tpu_torch.ops.boxes import bbox_iou
+
+    k = nms_mod.MAX_K + 56
+    g = nms_mod.nms_geometry(2, k, nms_mod.ACTIVE_CLUSTERS)
+    words, warps = (k + 31) // 32, nms_mod.G_THREADS // 32
+    units = words * (words + 1) // 2
+    seen = []
+    for slot in range(g.blocks * warps):  # the kernel's decode of its units
+        rt, rest, u = 0, slot, slot
+        while u < units:
+            while rest >= words - rt:
+                rest -= words - rt
+                rt += 1
+            seen.append((rt, rt + rest))
+            u += g.blocks * warps
+            rest += g.blocks * warps
+    assert sorted(seen) == [(rt, w) for rt in range(words) for w in range(rt, words)]
+    rng = np.random.default_rng(9)
+    xy = rng.uniform(0, 900, (k, 2))
+    boxes = torch.tensor(np.concatenate([xy, xy + rng.uniform(10, 120, (k, 2))], -1),
+                         dtype=torch.float32)
+    valid = rng.random(k) > 0.1
+    sup = ((bbox_iou(boxes[:, None, :], boxes[None, :, :]) > torch.tensor(0.5)).numpy()
+           & valid[:, None] & valid[None, :])
+    want = nms_mod.nms_suppress_plain(boxes[None], torch.from_numpy(valid)[None], 0.5)[0]
+    np.testing.assert_array_equal(_walk_model(sup, valid), want.numpy())
+    assert 0 < want.sum() < valid.sum()
 
 
 # ---------------------------------------------------------------- score_reduce

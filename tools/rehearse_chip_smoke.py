@@ -51,10 +51,25 @@ REPLACEMENTS = [
     ("TRAINER_IMAGES = (256, 64)", "TRAINER_IMAGES = (8, 4)"),
     ("TRAINER_SIDES = (480, 801)", "TRAINER_SIDES = (96, 161)"),
     ("TRAINER_BATCH = 32", "TRAINER_BATCH = 4"),
+    ("TRAINER12_BATCH = 8", "TRAINER12_BATCH = 4"),
     ('device="0"', 'device="cpu"'),
     ('"best.pt"), dtype=torch.float32)', '"best.pt"), dtype=torch.float32, device="cpu")'),
-    # the CPU profiler records no device time
+    # the CPU profiler records no device time: one window, and no check
     ("check(dev_ms > 0,", "check(True,"),
+    ("windows: int = 3", "windows: int = 1"),
+    # NMS beyond 1344 candidates and batched_nms at pre_topk 4096
+    ("NMS_LARGE_K = (1345, 2048, 4096)", "NMS_LARGE_K = (1345,)"),
+    ("(32, k_, 2)", "(2, k_, 2)"), ("(32, k_, 1)", "(2, k_, 1)"), ("(32, k_)", "(2, k_)"),
+    ("nms_geometry(32, k_, active)", "nms_geometry(2, k_, active)"),
+    ("(4, 8400, 2)", "(2, 2100, 2)"), ("(4, 8400, 80)", "(2, 2100, 80)"),
+    # the yolo12n and yolov8n phases
+    ('YOLO("yolo12n", nc=80, imgsz=128, seed=args.seed)',
+     'YOLO("yolo12n", nc=80, imgsz=128, seed=args.seed, device="cpu")'),
+    ('YOLO("yolov8n", nc=80, imgsz=128, seed=args.seed)',
+     'YOLO("yolov8n", nc=80, imgsz=128, seed=args.seed, device="cpu")'),
+    ("yolo12.dtype == torch.bfloat16", "True"),
+    ("n_batches = -(-len(images) // 32)", "n_batches = -(-len(images) // 4)"),
+    ("{(128, 400, 192), (32, 400, 384)}", "{(16, 16, 192), (4, 16, 384)}"),
 ]
 
 
@@ -108,7 +123,7 @@ def _route_kernels_to_plain(torch):
         return aa.area_attention_bwd_plain(qkv, d_out, d_v, *a)
 
     def suppress(boxes, valid, thr):
-        ns.nms_geometry(*valid.shape)  # raises beyond the kernel's K, as the launch does
+        ns.nms_geometry(*valid.shape, ns.active_clusters())  # raises where the launch does
         ns.launches += 1
         return ns.nms_suppress_plain(boxes, valid, thr)
 
@@ -140,6 +155,7 @@ def _route_kernels_to_plain(torch):
     ns.nms_suppress = nms_ops.nms_suppress = suppress
     ns.launch = launch
     ns.max_active_clusters = lambda geometry: 0
+    ns.active_clusters = lambda device=None: ns.ACTIVE_CLUSTERS
     sr.score_reduce = reduce
 
 

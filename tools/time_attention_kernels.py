@@ -149,8 +149,11 @@ def nms_record(seed: int) -> dict:
         ns.launch(boxes, valid, thr, stamps)
         torch.cuda.synchronize()
         mean = stamps.double().mean(0).tolist()
-        rec["geometry"] = ns.nms_geometry(32, 1000)._asdict()
-        rec["max_active_clusters"] = ns.max_active_clusters(ns.nms_geometry(32, 1000))
+        # newer roots take the card's cluster counts as an argument, older ones none
+        geometry = (ns.nms_geometry(32, 1000, ns.active_clusters())
+                    if hasattr(ns, "active_clusters") else ns.nms_geometry(32, 1000))
+        rec["geometry"] = geometry._asdict()
+        rec["max_active_clusters"] = ns.max_active_clusters(geometry)
         rec["stamps_mean_cycles"] = mean
         rec["phase_device_ms"] = nms_phases(rec["nms"]["device_ms"], mean)
     return rec
