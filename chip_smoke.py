@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's yolo11n and yolo12n predict, train step and
-Trainer, and yolov8n predict, on one NVIDIA card and hold its CUDA kernels
-against their plain PyTorch versions.
+Trainer, yolov8n predict, and the serving Engine of all three, on one NVIDIA
+card and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -100,20 +100,46 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    is held against validation's EMA model in f32 as in phase 12;
 17. yolov8n predict: the same images; no attention launch, one NMS a batch,
    finite outputs and the head shapes (64 box bins and 80 classes at
-   strides 8, 16, 32).
+   strides 8, 16, 32);
+18. yolo11n serving: ``Engine(yolo, max_batch=32, conf=0.001, iou=0.7)`` on
+   phase 5's handle. ``warmup()`` captures one CUDA graph a bucket (1-32),
+   each capture and pool printed; the launch counts move by the eager
+   warm-up runs and the capture and never on a replay. Each bucket's replay
+   on phase 5's canvases equals the eager ``YOLO.infer`` bit for bit, and
+   the attention and NMS kernels are held against their plain versions on
+   the inputs that eager run gave them at that bucket (attention also on
+   random qkv of those shapes); one profiled replay of bucket 32 shows the attention and NMS kernels once
+   each, with their device times inside the graph. The futures equal
+   ``predict`` bit for bit (32 in one burst at b32, 16 one at a time at
+   ``max_batch=1``). Load windows on the 64 images letterboxed on 16 client
+   threads, the counts at 0 before and after: closed loop at b32, open loop
+   at half its rate, closed loop at ``max_batch=1``; img/s, p50/p95,
+   avg_batch, pad_fraction, 0 errors. The host wall and device time of a
+   replay against an eager ``infer`` at buckets 1, 8, 32;
+19. HTTP: ``serve_http`` on a free port: /healthz, /stats, a PNG POST whose
+   JSON equals the Engine's answer, a JPEG (200 with a decoder installed,
+   else 415), an undecodable body (415), shutdown;
+20. yolo12n and yolov8n serving at ``max_batch=8``: every bucket's replay
+   bit-identical to eager, each bucket's kernels against their plain
+   versions as in phase 18, a profiled replay with 8 + 1 and 0 + 1 launches;
+21. ``export``/``from_export`` of phase 12's ``best.pt`` predicting bit for
+   bit as its source, and ``YOLO(best.pt).val(data)`` against
+   ``Trainer.validate`` on the same weights and config within 1e-6.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
 kernel name, NMS's split into its mask phase and walk by SM clock stamps and
 its global-memory mapping's time at K = 4096, the (32, 32) attention builds
-as rows of their own, and the yolo12n and yolov8n records under
-``families``) and the last line the device record.
+as rows of their own, each kernel's launches inside the serving graphs, and
+the yolo12n and yolov8n records under ``families``) and the last line the
+device record; the ``serving`` record and the card's name come before them.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -169,6 +195,10 @@ TRAINER_EPOCHS = 3           # close_mosaic 1: mosaic in epochs 1-2, off in 3
 # epoch at b32 (8 steps) validation's outputs grow ~3x a stage, to NaN in
 # bf16, in the JAX Trainer as in the port
 TRAINER12_BATCH = 8
+# the serving phase's load windows: closed loop (at max_batch 32 and 1), and
+# open loop at half the closed loop's rate
+SERVE_SECONDS = 8.0
+OPEN_SECONDS = 5.0
 SHAPES = ["circle", "square", "triangle"]
 
 
@@ -206,7 +236,7 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, calls: int = 50, windows: int = 3):
+def device_time_ms(fn, calls: int = 50, windows: int = 6):
     """Mean device time a call of ``fn`` under torch.profiler, from a window
     of ``calls`` warm calls: for every device activity, its mean self device
     time a launch times its launches a call (its count over ``calls``,
@@ -214,8 +244,9 @@ def device_time_ms(fn, calls: int = 50, windows: int = 3):
     was whole. A window is whole when the profiler recorded device time and
     every activity at most a tenth short of a whole number of launches a
     call (on the card it misses a few short launches at a window's edge,
-    and it has dropped a window's events, whole or in part); up to
-    ``windows`` windows are taken."""
+    and it has dropped a window's events, whole or in part, and three
+    windows in a row once); up to ``windows`` windows are taken, a second
+    apart."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -235,6 +266,7 @@ def device_time_ms(fn, calls: int = 50, windows: int = 3):
             return sum(per_call.values()), per_call
         log(f"[profile] a window of {calls} calls came back with device activities counted "
             f"{[n for _, _, n in rows]} times; taking another")
+        time.sleep(1.0)
     return 0.0, {}
 
 
@@ -1708,7 +1740,6 @@ def main() -> int:
     log("[yolo12n trainer] YOLO(best.pt) is yolo12")
     del trainer12
     torch.cuda.empty_cache()
-    tmp.cleanup()
 
     # 17. yolov8n predict: the same images; no attention, NMS once a batch
     yolo8 = YOLO("yolov8n", nc=80, imgsz=640, seed=args.seed)
@@ -1771,8 +1802,332 @@ def main() -> int:
                             "results": rows12},
         "yolov8n_predict": {"imgs_per_s_e2e": len(images) / wall8, "launches": v8_launches},
         "card": card}
+    # 18. yolo11n serving: an Engine over phase 5's handle (class biases at
+    # 0, conf 0.001), one CUDA graph a bucket. The launch counts move while
+    # warmup() runs each bucket's eager warm-up runs and its capture, and
+    # never while a graph replays: inside the graphs the kernels are seen by
+    # the profiler, and every served batch leaves the counts where they were
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from deal_yolo_daya_tpu_torch import serve
+    from deal_yolo_daya_tpu_torch.ops.png import write_png
+    from deal_yolo_daya_tpu_torch.serve import Engine, serve_http
+
+    # the load generator of tools/bench_serve_torch.py
+    spec = importlib.util.spec_from_file_location(
+        "bench_serve_torch", Path(__file__).resolve().parent / "tools" / "bench_serve_torch.py")
+    bench_serve_torch = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_serve_torch)
+    drive_load = bench_serve_torch.drive_load
+    from deal_yolo_daya_tpu_torch.train.trainer import make_config
+
+    serve_x = torch.from_numpy(np.stack([letterbox_numpy(im, 640)[0] for im in images[:32]])
+                               ).to(dev)
+
+    def counts():
+        return aa.launches, ns.launches
+
+    def capture_all(engine, label, per_forward):
+        """warmup() bucket by bucket: each moves the counts by its eager
+        warm-up runs and its capture; a second warmup() moves nothing."""
+        rec = {}
+        for b in engine.buckets():
+            before = counts()
+            engine.warmup([b])
+            moved = tuple(a - z for a, z in zip(counts(), before))
+            prog = engine.program(b)
+            runs = serve.WARMUP_RUNS + 1
+            check(moved == tuple(runs * n for n in per_forward),
+                  f"{label} bucket {b}: warm-up and capture moved the counts by {moved}")
+            rec[b] = {"capture_s": prog.capture_s, "pool_mb": prog.pool_bytes / 1e6}
+            log(f"[serve {label}] bucket {b}: captured in {prog.capture_s * 1e3:.1f} ms "
+                f"({serve.WARMUP_RUNS} eager warm-up runs included), graph pool "
+                f"{prog.pool_bytes / 1e6:.1f} MB, counts moved {moved} (attention, NMS)")
+        before = counts()
+        engine.warmup()
+        check(counts() == before, f"{label}: a second warmup() captured again")
+        return rec
+
+    def replays_equal_eager(engine, handle, label, per_forward):
+        """Each bucket's replay on a batch of phase 5's canvases against the
+        eager ``YOLO.infer`` on the same batch: every output bit for bit. The
+        eager run's attention and NMS inputs, which the graph's kernels get
+        too, are recorded, and each kernel is held against its plain version
+        on them (attention at ATTN_TOL, and on random qkv of the same
+        shapes; NMS bit for bit)."""
+        rec = {}
+        for b in engine.buckets():
+            prog = engine.program(b)
+            prog.images.copy_(serve_x[:b])
+            before = counts()
+            prog.replay()
+            got = [t.clone() for t in prog.outputs]
+            replay_moved = tuple(a - z for a, z in zip(counts(), before))
+            calls = {"attn": [], "nms": []}
+
+            def rec_attention(qkv, *a):
+                calls["attn"].append((qkv.clone(), a))
+                return orig_attention(qkv, *a)
+
+            def rec_suppress(boxes, valid, thr):
+                calls["nms"].append((boxes.clone(), valid.clone(), thr))
+                return orig_suppress(boxes, valid, thr)
+
+            with patched(blocks, "area_attention", rec_attention) as orig_attention, \
+                    patched(nms_ops, "nms_suppress", rec_suppress) as orig_suppress:
+                want = handle.infer(serve_x[:b], conf=engine.conf, iou=engine.iou,
+                                    max_det=engine.max_det)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            log(f"[serve {label}] bucket {b}: replay vs eager infer bit-identical {same}, n_det "
+                f"{got[3].tolist()}, counts moved by the replay {replay_moved}")
+            check(replay_moved == (0, 0), f"{label} bucket {b}: the replay ran eagerly")
+            check(same, f"{label} bucket {b}: the replay differs from the eager infer")
+            check((len(calls["attn"]), len(calls["nms"])) == tuple(per_forward),
+                  f"{label} bucket {b}: the eager infer called (attention, NMS) "
+                  f"{(len(calls['attn']), len(calls['nms']))} times, not {tuple(per_forward)}")
+            attn_err = max((attention_parity(f"{label} bucket {b} call {i}", q, a)
+                            for i, (q, a) in enumerate(calls["attn"])), default=None)
+            # the path's attention outputs are small: random qkv of each of
+            # the bucket's call shapes too, so a wrong kernel cannot hide
+            # under the absolute tolerance
+            shapes = sorted({(tuple(q.shape), q.dtype, a) for q, a in calls["attn"]}, key=str)
+            random_err = max((attention_parity(
+                f"{label} bucket {b} random", torch.randn(sh, generator=gen, device=dev).to(dt), a)
+                for sh, dt, a in shapes), default=None)
+            nms_bad = sum(nms_parity(f"{label} bucket {b}", bx, v, t)
+                          for bx, v, t in calls["nms"])
+            rec[b] = {"attention_shapes": sorted({tuple(q.shape) for q, _ in calls["attn"]}),
+                      "attention_max_abs_err": attn_err,
+                      "attention_random_max_abs_err": random_err,
+                      "nms_shape": tuple(calls["nms"][0][0].shape),
+                      "nms_mismatched_bits": nms_bad}
+        return rec
+
+    def profiled_replay(engine, b, label, per_forward):
+        """One replay of bucket b under torch.profiler: the attention-forward
+        and NMS kernels, found by name, once a launch site."""
+        prog = engine.program(b)
+        prog.replay()
+        torch.cuda.synchronize()
+        for attempt in range(3):  # the card's profiler has dropped whole windows
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prog.replay()
+                torch.cuda.synchronize()
+            rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+            found = {site: [r for r in rows if word in r[0]]
+                     for site, word in (("attention", "attention_"), ("nms", "nms_"))}
+            seen = tuple(sum(r[1] for r in found[site]) for site in ("attention", "nms"))
+            if seen == tuple(per_forward):
+                break
+            log(f"[serve {label}] profiled replay {attempt}: {len(rows)} device activities, "
+                f"(attention, NMS) {seen}; taking another")
+            time.sleep(1.0)
+        ms = {site: sum(r[2] for r in found[site]) / max(n, 1)
+              for site, n in zip(("attention", "nms"), seen)}
+        log(f"[serve {label}] one replay of bucket {b} under the profiler: {len(rows)} device "
+            f"activities, {sum(r[2] for r in rows):.3f} ms busy; attention kernels "
+            f"{[(k[:60], n) for k, n, _ in found['attention']]}, NMS "
+            f"{[(k[:60], n) for k, n, _ in found['nms']]}; inside the graph attention "
+            f"{ms['attention']:.4f} ms a launch, NMS {ms['nms']:.4f} ms")
+        check(seen == tuple(per_forward), f"{label}: the graph launched (attention, NMS) {seen}, "
+              f"not {tuple(per_forward)}")
+        return {"launches": dict(zip(("attention", "nms"), seen)), "device_ms_a_launch": ms,
+                "busy_ms": sum(r[2] for r in rows)}
+
+    def host_and_device_ms(fn, n=20):
+        """Median host wall of a call (enqueue) and its device time (CUDA
+        events around it), warm."""
+        fn()
+        host, device = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            fn()
+            e1.record()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            device.append(e0.elapsed_time(e1))
+        return float(np.median(host)), float(np.median(device))
+
+    def same_detections(got, want, what):
+        check(len(got) == len(want) and all(
+            len(g) == len(w) and np.array_equal(g.boxes, w.boxes)
+            and np.array_equal(g.scores, w.scores) and np.array_equal(g.classes, w.classes)
+            for g, w in zip(got, want)), f"{what}: the detections differ")
+
+    t_serve = time.perf_counter()
+    engine = Engine(yolo, max_batch=32, conf=0.001, iou=0.7)
+    captures11 = capture_all(engine, "yolo11n", (1, 1))
+    parity11 = replays_equal_eager(engine, yolo, "yolo11n", (1, 1))
+    graph11 = profiled_replay(engine, 32, "yolo11n", (1, 1))
+    log(f"[serve yolo11n] standalone (phase 6): attention {kernels[0]['device_ms']:.4f} ms, NMS "
+        f"{kernels[1]['device_ms']:.4f} ms")
+    # the futures against predict on batches of the same composition: 32 in
+    # one burst under a 2 s deadline form one bucket-32 batch
+    engine.max_wait_s = 2.0
+    before = counts()
+    with engine:
+        futs = [engine.submit(im) for im in images[:32]]
+        served = [f.result(timeout=300) for f in futs]
+    burst = engine.stats()
+    check(counts() == before, "a served batch ran eagerly")
+    check(burst["batches"] == 1 and burst["errors"] == 0, f"the burst of 32: {burst}")
+    same_detections(served, yolo.predict(images[:32], conf=0.001, iou=0.7, batch_size=32),
+                    "Engine burst of 32 vs predict(batch_size=32)")
+    engine1 = Engine(yolo, max_batch=1, conf=0.001, iou=0.7)
+    capture_all(engine1, "yolo11n max_batch 1", (1, 1))
+    before = counts()
+    with engine1:
+        served1 = [engine1.submit(im).result(timeout=300) for im in images[:16]]
+    check(counts() == before, "a served batch ran eagerly")
+    same_detections(served1, yolo.predict(images[:16], conf=0.001, iou=0.7, batch_size=1),
+                    "Engine max_batch 1 vs predict(batch_size=1)")
+    log(f"[serve yolo11n] futures equal predict bit for bit: a burst of 32 (one batch) and 16 "
+        "one at a time at max_batch 1")
+
+    # load windows on phase 5's 64 mixed-size images, letterboxed on the
+    # clients' threads; the counts set to 0 just before and read just after
+    engine.max_wait_s = 0.005
+    aa.launches = ns.launches = 0
+    with engine:
+        closed = drive_load(engine, images, clients=16, seconds=SERVE_SECONDS)
+        opened = drive_load(engine, images, clients=16, seconds=OPEN_SECONDS,
+                            rate=closed["imgs_per_s"] / 2)
+    with engine1:
+        floor = drive_load(engine1, images, clients=16, seconds=SERVE_SECONDS)
+    serve_launches = {"area_attention": aa.launches, "nms_suppress": ns.launches}
+    for label, rec in (("closed loop, max_batch 32", closed), ("open loop at half rate", opened),
+                       ("closed loop, max_batch 1", floor)):
+        log(f"[serve yolo11n] {label}, 16 clients, {rec['seconds']:.1f} s: "
+            f"{rec['imgs_per_s']:.1f} img/s; request p50 {rec.get('client_p50_ms', 0):.2f} ms, "
+            f"p95 {rec.get('client_p95_ms', 0):.2f} ms (letterbox included; engine-side "
+            f"{rec.get('p50_ms', 0):.2f} / {rec.get('p95_ms', 0):.2f} ms); avg_batch "
+            f"{rec['avg_batch']:.2f}, pad_fraction {rec['pad_fraction']:.4f}, errors "
+            f"{rec['errors']} + {rec['client_errors']}")
+        check(rec["errors"] == 0 and rec["client_errors"] == 0 and rec["completed"] > 0,
+              f"serving {label}: {rec}")
+    check(serve_launches == {"area_attention": 0, "nms_suppress": 0},
+          f"the serving windows launched kernels eagerly: {serve_launches}")
+    # what the graphs buy: one replay against one eager infer on the same batch
+    replay_vs_eager = {}
+    for b in (1, 8, 32):
+        prog = engine.program(b)
+        prog.images.copy_(serve_x[:b])
+        r_host, r_dev = host_and_device_ms(prog.replay)
+        e_host, e_dev = host_and_device_ms(lambda: yolo.infer(serve_x[:b], conf=0.001))
+        replay_vs_eager[b] = {"replay_host_ms": r_host, "replay_device_ms": r_dev,
+                              "eager_host_ms": e_host, "eager_device_ms": e_dev}
+        log(f"[serve yolo11n] bucket {b}: replay host {r_host:.3f} ms, device {r_dev:.3f} ms; "
+            f"eager infer host {e_host:.3f} ms, device {e_dev:.3f} ms (median of 20)")
+
+    # 19. the HTTP frontend over the Engine on a free port
+    server = serve_http(engine, host="127.0.0.1", port=0, block=False)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    http_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    http_thread.start()
+
+    def post(body):
+        req = urllib.request.Request(f"{url}/predict", data=body, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+        check(json.loads(r.read()) == {"ok": True}, "GET /healthz")
+    write_png(root / "http.png", images[0])
+    code, answer = post((root / "http.png").read_bytes())
+    det = engine.submit(images[0]).result(timeout=120)
+    expect = {"boxes": np.asarray(det.boxes, np.float64).round(2).tolist(),
+              "scores": np.asarray(det.scores, np.float64).round(4).tolist(),
+              "classes": np.asarray(det.classes, np.int64).tolist(),
+              "names": [yolo.names[int(c)] for c in det.classes], "num": len(det)}
+    check(code == 200 and answer == expect and answer["num"] > 0,
+          f"POST /predict of a PNG: {code}, {answer['num'] if code == 200 else answer}")
+    with urllib.request.urlopen(f"{url}/stats", timeout=30) as r:
+        http_stats = json.loads(r.read())
+    try:
+        import cv2
+
+        jpeg, jpeg_code = cv2.imencode(".jpg", images[0][..., ::-1])[1].tobytes(), 200
+    except ImportError:
+        jpeg, jpeg_code = b"\xff\xd8\xff\xe0" + bytes(64), 415  # no decoder
+    code_jpeg, _ = post(jpeg)
+    code_bad, bad = post(b"not an image")
+    server.shutdown()
+    server.server_close()
+    http_thread.join(timeout=30)
+    engine.shutdown()
+    log(f"[http] /healthz ok; POST /predict of a PNG: {answer['num']} detections, equal to the "
+        f"Engine's; a JPEG body answers {code_jpeg}; a body no decoder reads answers {code_bad} "
+        f"({bad['error'][:80]}); /stats completed {http_stats['completed']}")
+    check(code_jpeg == jpeg_code and code_bad == 415 and not http_thread.is_alive(),
+          "the HTTP frontend's answers or its shutdown")
+    del engine, engine1
+    torch.cuda.empty_cache()
+
+    # 20. yolo12n and yolov8n serving, max_batch 8: yolo12n's graphs hold 8
+    # (32, 32) attention launches and one NMS, yolov8n's one NMS
+    serving_families = {}
+    for label, handle, per_forward in (("yolo12n", yolo12, (8, 1)), ("yolov8n", yolo8, (0, 1))):
+        eng = Engine(handle, max_batch=8, conf=0.001, iou=0.7)
+        caps = capture_all(eng, label, per_forward)
+        parity = replays_equal_eager(eng, handle, label, per_forward)
+        serving_families[label] = {"captures": caps, "kernels_vs_plain": parity,
+                                   "graph": profiled_replay(eng, 8, label, per_forward)}
+        del eng
+        torch.cuda.empty_cache()
+
+    # 21. export/from_export and val, from phase 12's best.pt: the bundle
+    # predicts bit for bit as its source, and val() returns what the
+    # Trainer's validate() gives on the same weights and config
+    best_handle = YOLO(str(save_dir / "weights" / "best.pt"), device=dev)
+    bundle = best_handle.export(root / "bundle")
+    exported = YOLO.from_export(bundle, device=dev)
+    check((exported.family, exported.nc, exported.names, exported.imgsz)
+          == (best_handle.family, best_handle.nc, best_handle.names, best_handle.imgsz),
+          "from_export lost the family, nc, names or imgsz")
+    same_detections(exported.predict(images[:32], conf=0.001, batch_size=32),
+                    best_handle.predict(images[:32], conf=0.001, batch_size=32),
+                    "from_export vs its source")
+    val_kw = dict(device="0", imgsz=640, project=str(root / "runs"))
+    got_val = best_handle.val(str(data_yaml), name="val", **val_kw)
+    want_val, _ = Trainer(make_config("yolo11n", str(data_yaml), name="val_direct", **val_kw),
+                          init_state_dict=inference_state_dict(best)).validate()
+    val_err = max(float(np.abs(np.asarray(got_val[k]) - np.asarray(want_val[k])).max())
+                  for k in ("precision", "recall", "map50", "map"))
+    log(f"[export] {sorted(p.name for p in bundle.iterdir())}: from_export predicts bit for bit "
+        f"as best.pt on 32 images; val() {({k: got_val[k] for k in ('map50', 'map')})}, "
+        f"Trainer.validate() {({k: want_val[k] for k in ('map50', 'map')})}, largest "
+        f"difference {val_err:.3e}")
+    check(val_err <= 1e-6, f"val() differs from Trainer.validate() by {val_err}")
+    tmp.cleanup()
+    serve_s = time.perf_counter() - t_serve
+    log(f"[serve] phases 18-21 in {serve_s:.1f} s")
+
+    kernels[0]["serving_graph_launches"] = {"yolo11n": graph11["launches"]["attention"]}
+    kernels[1]["serving_graph_launches"] = {
+        "yolo11n": graph11["launches"]["nms"],
+        **{f: rec["graph"]["launches"]["nms"] for f, rec in serving_families.items()}}
+    kernels[4]["serving_graph_launches"] = {
+        "yolo12n": serving_families["yolo12n"]["graph"]["launches"]["attention"]}
+    serve_record = {
+        "yolo11n": {"captures": captures11, "kernels_vs_plain": parity11, "graph": graph11,
+                    "closed_loop": closed,
+                    "open_loop": opened, "max_batch_1": floor, "replay_vs_eager": replay_vs_eager,
+                    "launches_in_windows": serve_launches},
+        "families": serving_families, "val_max_diff": val_err, "wall_s": serve_s, "card": card}
+
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
+    print(json.dumps({"serving": serve_record}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "predict": {
         "imgs_per_s_e2e": len(images) / wall, "host_letterbox_ms_per_img": host_ms,

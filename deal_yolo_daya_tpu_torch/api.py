@@ -5,10 +5,12 @@ the model handle for every family and scale of the registry (yolo11,
 yolov8, yolo12; n to x), the BN-folded inference model with the 1/255 folded
 into the stem, host letterbox, batched device forward, decode, NMS, and
 ``Detections`` in original-image pixels; ``train`` runs the port's Trainer
-and adopts its EMA weights; ``YOLO("<run>/weights/best.pt")`` loads a
-checkpoint that Trainer wrote, of the family it records (yolo11 when it
-records none, as checkpoints written before the registry). The model runs on
-the card unless the caller passes ``device="cpu"``.
+and adopts its EMA weights; ``val`` validates the handle's weights with it;
+``YOLO("<run>/weights/best.pt")`` loads a checkpoint that Trainer wrote, of
+the family it records (yolo11 when it records none, as checkpoints written
+before the registry); ``export``/``from_export`` write and load a serving
+bundle (``serve.Engine`` serves a handle). The model runs on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -22,12 +24,27 @@ import torch
 
 from .device import resolve_device
 from .models.registry import build_detector, make_detector, parse_model_spec
-from .models.yolo11 import fuse_conv_bn
+from .models.yolo11 import folded_state_dict, fuse_conv_bn
 from .ops.decode import decode_predictions
 from .ops.letterbox import letterbox_numpy, load_image
 from .ops.nms import batched_nms
 
 IMAGE_SUFFIXES = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
+INT8_NOT_PORTED = ("int8 serving (quantize_int8) is not ported yet: it needs an int8 "
+                   "convolution (ROADMAP.md section 1, 'The rest of api.py')")
+
+
+@torch.no_grad()
+def infer_fused(net, batch: torch.Tensor, dtype: torch.dtype, conf: float, iou: float,
+                max_det: int, agnostic: bool = False):
+    """``YOLO.infer`` through a given BN-folded model (``YOLO._fused_model``):
+    (B, S, S, 3) uint8 letterboxed batch -> (boxes, scores, classes, n_det)
+    padded to max_det, on the batch's device."""
+    x = batch.permute(0, 3, 1, 2).to(dtype)  # NCHW view, channels_last strides
+    box, cls = net(x)
+    boxes, scores = decode_predictions(box, cls, tuple(batch.shape[1:3]))
+    return batched_nms(boxes, scores, conf_thres=conf, iou_thres=iou,
+                       pre_topk=1000, max_det=max_det, class_agnostic=agnostic)
 
 
 class Detections:
@@ -175,16 +192,73 @@ class YOLO:
         self._weights_loaded = True  # a further train() continues from these
         return result
 
-    @torch.no_grad()
+    def export(self, out_dir) -> Path:
+        """Write a serving bundle: ``variables.pt``, the BN-folded weights
+        under the detector's state-dict keys as the JAX ``fuse_conv_bn``
+        stores a fold (``models.yolo11.folded_state_dict``; no 1/255 input
+        fold), written by ``torch.save``, and ``meta.json`` with the JAX
+        bundle's keys (family, scale, nc, names, imgsz, fused, int8). Load
+        it with ``YOLO.from_export``."""
+        model = self._ensure_built()
+        out_dir = Path(out_dir).resolve()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in folded_state_dict(model).items()},
+                   out_dir / "variables.pt")
+        (out_dir / "meta.json").write_text(json.dumps({
+            "family": self.family, "scale": self.scale, "nc": self.nc,
+            "names": list(self.names), "imgsz": self.imgsz, "fused": True, "int8": False,
+        }, ensure_ascii=False))
+        return out_dir
+
+    @classmethod
+    def from_export(cls, bundle_dir, device=None) -> "YOLO":
+        """Load a serving bundle written by ``export()``: the plain detector
+        of its family, scale and nc, loaded strictly with the folded weights
+        (``_fused_model()`` folds them again to the same bits), on the card
+        unless ``device="cpu"``. The JAX package's bundles hold orbax
+        checkpoints, which need jax to read: this package reads only its
+        own. An int8 bundle raises NotImplementedError."""
+        bundle_dir = Path(bundle_dir).resolve()
+        meta = json.loads((bundle_dir / "meta.json").read_text())
+        if meta.get("int8"):
+            raise NotImplementedError(f"{bundle_dir}: {INT8_NOT_PORTED}")
+        family = meta.get("family", "yolo11")  # pre-registry bundles: yolo11
+        handle = cls(f"{family}{meta['scale']}", nc=meta["nc"], imgsz=meta["imgsz"],
+                     device=device)
+        if not (bundle_dir / "variables.pt").exists():
+            raise NotImplementedError(
+                f"{bundle_dir}: no variables.pt; a bundle of the JAX package (an orbax "
+                "checkpoint) needs jax to read, which this package does not import")
+        handle.names = list(meta["names"])
+        model = make_detector(family, meta["scale"], handle.nc)
+        model.load_state_dict(torch.load(bundle_dir / "variables.pt", map_location="cpu",
+                                         weights_only=True), strict=True)
+        handle._model = model.to(handle.device).eval()
+        handle._fused_cache = None
+        handle._weights_loaded = True
+        return handle
+
+    def val(self, data: str, int8: bool = False, **kwargs) -> Dict[str, float]:
+        """Validate the handle's weights on a YOLO-layout ``data.yaml`` with
+        the port's Trainer (``TrainConfig`` fields by name): its live model
+        and EMA both take the weights, and ``Trainer.validate``'s metrics
+        come back; nothing is trained and no plot is written."""
+        from .train.trainer import Trainer, make_config
+
+        if int8:
+            raise NotImplementedError(INT8_NOT_PORTED)
+        kwargs.setdefault("device", "cpu" if self.device.type == "cpu" else "")
+        cfg = make_config(f"{self.family}{self.scale}", data, **kwargs)
+        cfg.val = True
+        trainer = Trainer(cfg, init_state_dict=self._ensure_built().state_dict())
+        metrics, _ = trainer.validate()
+        return metrics
+
     def infer(self, batch: torch.Tensor, conf: float = 0.25, iou: float = 0.7,
               max_det: int = 300, agnostic: bool = False):
         """(B, S, S, 3) uint8 letterboxed batch on the model's device ->
         (boxes, scores, classes, n_det) padded to max_det, on the device."""
-        x = batch.permute(0, 3, 1, 2).to(self.dtype)  # NCHW view, channels_last strides
-        box, cls = self._fused_model()(x)
-        boxes, scores = decode_predictions(box, cls, (self.imgsz, self.imgsz))
-        return batched_nms(boxes, scores, conf_thres=conf, iou_thres=iou,
-                           pre_topk=1000, max_det=max_det, class_agnostic=agnostic)
+        return infer_fused(self._fused_model(), batch, self.dtype, conf, iou, max_det, agnostic)
 
     def predict(
         self,

@@ -187,6 +187,13 @@ def build_yolo11(scale: str = "n", nc: int = 80, seed: int = 0, device=None) -> 
     return init_weights(YOLO11(nc=nc, scale=scale), seed).to(dev).eval()
 
 
+def bn_fold(mod: ConvBN) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(conv weight, bias) of a ConvBN with its BatchNorm folded in."""
+    bn = mod.bn
+    scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
+    return mod.conv.weight * scale.view(-1, 1, 1, 1), bn.bias - bn.running_mean * scale
+
+
 @torch.no_grad()
 def fuse_conv_bn(model: nn.Module, input_scale: Optional[float] = None) -> nn.Module:
     """A copy of ``model`` with every BatchNorm folded into its conv (weight
@@ -196,15 +203,31 @@ def fuse_conv_bn(model: nn.Module, input_scale: Optional[float] = None) -> nn.Mo
     fused = copy.deepcopy(model)
     for mod in fused.modules():
         if isinstance(mod, ConvBN) and not isinstance(mod.bn, nn.Identity):
-            conv, bn = mod.conv, mod.bn
-            scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
-            bias = bn.bias - bn.running_mean * scale
-            conv.weight.mul_(scale.view(-1, 1, 1, 1))
-            conv.bias = nn.Parameter(bias)
+            weight, bias = bn_fold(mod)
+            mod.conv.weight.copy_(weight)
+            mod.conv.bias = nn.Parameter(bias)
             mod.bn = nn.Identity()
     if input_scale is not None:
         fused.layer(0).conv.weight.mul_(input_scale)
     return fused
+
+
+@torch.no_grad()
+def folded_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s state dict with every BatchNorm folded into its conv but
+    kept under its keys, as the JAX ``fuse_conv_bn`` stores a fold: the conv
+    weight scaled, ``bn.weight`` 1, ``bn.bias`` the folded bias,
+    ``running_mean`` 0 and ``running_var`` 1 - eps. It loads into the plain
+    detector, and folding it again changes no bit (1 / sqrt(1 - eps + eps)
+    is 1 in f32)."""
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for name, mod in model.named_modules():
+        if isinstance(mod, ConvBN) and not isinstance(mod.bn, nn.Identity):
+            weight, bias = bn_fold(mod)
+            sd.update({f"{name}.conv.weight": weight, f"{name}.bn.weight": torch.ones_like(bias),
+                       f"{name}.bn.bias": bias, f"{name}.bn.running_mean": torch.zeros_like(bias),
+                       f"{name}.bn.running_var": torch.ones_like(bias) - BN_EPS})
+    return sd
 
 
 def param_count(model: nn.Module) -> int:

@@ -1,11 +1,13 @@
 """Letterbox resize: aspect-preserving scale, then pad to a square canvas.
 
-Counterpart of ``letterbox_params`` and ``letterbox_numpy`` in
-``deal_yolo_daya_tpu/ops/letterbox.py``. The JAX package resizes with cv2
-(``INTER_LINEAR``) or PIL; here the resize is PyTorch's uint8 bilinear
-interpolation (half-pixel centres, no antialias, the mapping cv2 uses), so no
-image library is needed. Both round in fixed point, each its own way, so the
-two canvases differ by a level of 255 at some pixels.
+Counterpart of ``letterbox_params``, ``letterbox_batch`` and
+``letterbox_numpy`` in ``deal_yolo_daya_tpu/ops/letterbox.py``. The JAX
+package resizes one image with cv2 (``INTER_LINEAR``) or PIL; here the
+resize is PyTorch's uint8 bilinear interpolation (half-pixel centres, no
+antialias, the mapping cv2 uses), so no image library is needed. Both round
+in fixed point, each its own way, so the two canvases differ by a level of
+255 at some pixels. ``letterbox_batch`` is the JAX package's batched f32
+resample by inverse-mapping gathers, in plain PyTorch on the input's device.
 """
 
 from __future__ import annotations
@@ -25,6 +27,51 @@ def letterbox_params(h: int, w: int, new_size: int) -> Tuple[float, int, int]:
     dw = (new_size - new_unpad[0]) / 2
     dh = (new_size - new_unpad[1]) / 2
     return r, int(round(dw - 0.1)), int(round(dh - 0.1))
+
+
+def letterbox_batch(images: torch.Tensor, scales, pads, out_size: int, fill: float = 114.0,
+                    bilinear: bool = True) -> torch.Tensor:
+    """Batch letterbox by inverse-mapping gathers.
+
+    images: (B, H, W, C) source batch of one shape, float32 or uint8.
+    scales: (B,) per-image scale factors r.
+    pads:   (B, 2) per-image (pad_x, pad_y) offsets in output pixels.
+    Returns (B, out_size, out_size, C) float32: an output pixel maps to the
+    source point ((x - pad_x + 0.5) / r - 0.5, likewise y), sampled
+    bilinearly (each neighbour clipped from the unclipped floor, so points
+    past the border replicate it) or at the nearest pixel (ties to even);
+    pixels whose point lies outside the image's half-pixel border get
+    ``fill``."""
+    b, h, w, c = images.shape
+    x = images.float().reshape(b, h * w, c)
+    dev = x.device
+    scales = torch.as_tensor(scales, dtype=torch.float32, device=dev)
+    pads = torch.as_tensor(pads, dtype=torch.float32, device=dev)
+    grid = torch.arange(out_size, dtype=torch.float32, device=dev)
+    r = scales[:, None, None]
+    src_x = (grid[None, None, :] - pads[:, 0, None, None] + 0.5) / r - 0.5  # (B, 1, S)
+    src_y = (grid[None, :, None] - pads[:, 1, None, None] + 0.5) / r - 0.5  # (B, S, 1)
+
+    def gather(yi, xi):
+        idx = (yi * w + xi).reshape(b, -1, 1).expand(-1, -1, c)
+        return x.gather(1, idx).reshape(b, out_size, out_size, c)
+
+    if bilinear:
+        x0, y0 = torch.floor(src_x), torch.floor(src_y)
+        fx, fy = (src_x - x0)[..., None], (src_y - y0)[..., None]
+        x0i, y0i = x0.long(), y0.long()
+        x0c, x1c = x0i.clamp(0, w - 1), (x0i + 1).clamp(0, w - 1)
+        y0c, y1c = y0i.clamp(0, h - 1), (y0i + 1).clamp(0, h - 1)
+        out = (gather(y0c, x0c) * (1 - fx) * (1 - fy)
+               + gather(y0c, x1c) * fx * (1 - fy)
+               + gather(y1c, x0c) * (1 - fx) * fy
+               + gather(y1c, x1c) * fx * fy)
+    else:
+        xi = torch.round(src_x).long().clamp(0, w - 1)
+        yi = torch.round(src_y).long().clamp(0, h - 1)
+        out = gather(yi, xi)
+    valid = (src_x >= -0.5) & (src_x <= w - 0.5) & (src_y >= -0.5) & (src_y <= h - 0.5)
+    return torch.where(valid[..., None], out, float(fill))
 
 
 def letterbox_numpy(image: np.ndarray, new_size: int, fill: int = 114

@@ -1,10 +1,10 @@
 """A PNG reader and writer in numpy and ``zlib``, for machines without cv2 or PIL.
 
-``read_png`` decodes 8-bit, non-interlaced gray, gray+alpha, RGB and RGBA
-PNGs (all five row filters) to RGB uint8, dropping alpha as cv2's
-``IMREAD_COLOR`` and PIL's ``convert("RGB")`` do; it raises for any other
-format. ``write_png`` writes RGB uint8 with the filter-free rows it reads
-fastest.
+``read_png`` (a file) and ``decode_png`` (bytes) decode 8-bit,
+non-interlaced gray, gray+alpha, RGB and RGBA PNGs (all five row filters) to
+RGB uint8, dropping alpha as cv2's ``IMREAD_COLOR`` and PIL's
+``convert("RGB")`` do; they raise ValueError for any other format.
+``write_png`` writes RGB uint8 with the filter-free rows it reads fastest.
 """
 
 from __future__ import annotations
@@ -60,7 +60,11 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
 
 def read_png(path) -> np.ndarray:
     """Decode a PNG file to (H, W, 3) RGB uint8."""
-    data = Path(path).read_bytes()
+    return decode_png(Path(path).read_bytes(), str(path))
+
+
+def decode_png(data: bytes, path: str = "PNG bytes") -> np.ndarray:
+    """Decode PNG bytes to (H, W, 3) RGB uint8; ``path`` names them in errors."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file; decoding other formats needs cv2 or PIL")
     pos, header, idat = 8, None, []

@@ -39,7 +39,8 @@ from ..ops.letterbox import letterbox_numpy, load_image, resize_bilinear
 MAX_BOXES = 128
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff"}
 HOST_AUGMENT = ("host augmentation (train/augment.py) is not ported yet (ROADMAP.md "
-                "section 1 item 6); the trainer augments on the card (device_augment=True)")
+                "section 1, 'The rest of the Trainer'); the trainer augments on the card "
+                "(device_augment=True)")
 
 
 @dataclass

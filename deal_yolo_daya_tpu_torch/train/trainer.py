@@ -289,7 +289,7 @@ def load_checkpoint(path) -> Dict[str, Any]:
     if not isinstance(ckpt, dict) or ckpt.get("format") != CHECKPOINT_FORMAT:
         raise NotImplementedError(
             f"{path}: not a checkpoint of this package's Trainer; reading ultralytics "
-            ".pt files is not ported yet (ROADMAP.md section 1 item 1)")
+            ".pt files is not ported yet (ROADMAP.md section 1, 'A jax-free .pt reader')")
     return ckpt
 
 
@@ -312,7 +312,7 @@ def _device_of(spec) -> torch.device:
     if spec == "cpu":
         return resolve_device("cpu")
     raise NotImplementedError(f"device={spec!r}: several devices are not ported yet "
-                              "(ROADMAP.md section 1 item 10); use '', '0' or 'cpu'")
+                              "(ROADMAP.md section 1, 'Multi-GPU'); use '', '0' or 'cpu'")
 
 
 class Trainer:
@@ -418,8 +418,7 @@ class Trainer:
                    "steps_per_dispatch > 1 (chunked dispatch)": (cfg.steps_per_dispatch or 1) > 1}
         for what, asked in missing.items():
             if asked:
-                raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md section 1 "
-                                          "item 6)")
+                raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md section 1)")
 
     def _overlay(self, init: Optional[Dict[str, torch.Tensor]]):
         """``init`` laid over a fresh init where the shapes fit."""

@@ -33,14 +33,17 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
     for name in ("api", "models.blocks", "models.yolo11", "models.weights", "ops.nms",
-                 "ops.kernels.area_attention", "ops.kernels.nms_suppress"):
+                 "ops.kernels.area_attention", "ops.kernels.nms_suppress", "serve"):
         assert f"deal_yolo_daya_tpu_torch.{name}" in result["modules"]
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    bundle = YOLO("yolo11n", nc=3, imgsz=64, device="cpu").export(tmp_path / "bundle")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         YOLO("yolo11n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        YOLO.from_export(bundle)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -56,7 +56,8 @@ REPLACEMENTS = [
     ('"best.pt"), dtype=torch.float32)', '"best.pt"), dtype=torch.float32, device="cpu")'),
     # the CPU profiler records no device time: one window, and no check
     ("check(dev_ms > 0,", "check(True,"),
-    ("windows: int = 3", "windows: int = 1"),
+    ("windows: int = 6", "windows: int = 1"),
+    ("        time.sleep(1.0)\n    return 0.0, {}", "    return 0.0, {}"),
     # NMS beyond 1344 candidates and batched_nms at pre_topk 4096
     ("NMS_LARGE_K = (1345, 2048, 4096)", "NMS_LARGE_K = (1345,)"),
     ("(32, k_, 2)", "(2, k_, 2)"), ("(32, k_, 1)", "(2, k_, 1)"), ("(32, k_)", "(2, k_)"),
@@ -70,6 +71,23 @@ REPLACEMENTS = [
     ("yolo12.dtype == torch.bfloat16", "True"),
     ("n_batches = -(-len(images) // 32)", "n_batches = -(-len(images) // 4)"),
     ("{(128, 400, 192), (32, 400, 384)}", "{(16, 16, 192), (4, 16, 384)}"),
+    # the serving phases on a CPU handle: buckets to 4 (the rehearsal's
+    # images), each bucket's program the eager infer, run once at warmup and
+    # on every replay, so the counts move there; the profiler sees no card
+    ("SERVE_SECONDS = 8.0", "SERVE_SECONDS = 1.0"),
+    ("OPEN_SECONDS = 5.0", "OPEN_SECONDS = 1.0"),
+    ("max_batch=32, conf=0.001", "max_batch=4, conf=0.001"),
+    ("max_batch=8, conf=0.001", "max_batch=4, conf=0.001"),
+    ("profiled_replay(engine, 32,", "profiled_replay(engine, 4,"),
+    ("profiled_replay(eng, 8,", "profiled_replay(eng, 4,"),
+    ("for b in (1, 8, 32):", "for b in (1, 2, 4):"),
+    ("runs = serve.WARMUP_RUNS + 1", "runs = 1"),
+    ("check(replay_moved == (0, 0),", "check(True,"),
+    ("check(counts() == before, \"a served batch ran eagerly\")",
+     "check(True, \"a served batch ran eagerly\")"),
+    ("check(serve_launches == {", "check(True or {"),
+    ("check(seen == tuple(per_forward),", "check(True,"),
+    ("if seen == tuple(per_forward):", "if True:"),
 ]
 
 
