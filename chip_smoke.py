@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's yolo11n and yolo12n predict, train step and
-Trainer, yolov8n predict, and the serving Engine of all three, on one NVIDIA
-card and hold its CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's yolo11n and yolo12n predict, train step (eager
+and as a CUDA graph) and Trainer, yolov8n predict, and the serving Engine of
+all three, on one NVIDIA card and hold its CUDA kernels against their plain
+PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -124,23 +125,53 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    versions as in phase 18, a profiled replay with 8 + 1 and 0 + 1 launches;
 21. ``export``/``from_export`` of phase 12's ``best.pt`` predicting bit for
    bit as its source, and ``YOLO(best.pt).val(data)`` against
-   ``Trainer.validate`` on the same weights and config within 1e-6.
+   ``Trainer.validate`` on the same weights and config within 1e-6;
+22. the train step as a CUDA graph (``train/step_graph.py``): yolo11n at b32
+   and yolo12n at b8, 640, bf16, with a device cache of numpy-made images
+   and the on-card augmentation: 8 steps from one state eagerly (twice,
+   the noise floor) and through the step program (its eager warm-up
+   steps, the capture, replays); parameters, EMA and BN statistics within
+   GRAPH_TOL of the eager run's; the counters move at the warm-up and the
+   capture and never on a replay; one replay under the profiler launches
+   the attention forward and backward (1, 1) and (8, 8) times; the step's
+   wall, host and device ms both ways, peak memory both ways;
+23. the slice's main path: ``Trainer.train()`` for yolo11n on phase 12's
+   dataset with the defaults (steps_per_dispatch auto: K = 8, the device
+   cache, checkpoints in the background, validation each epoch), the counts
+   at 0 before and read after (the warm-up steps and captures of the two
+   programs, close_mosaic's the second, and the validation forwards), then
+   the same with K = 1: per epoch train img/s, losses and mAP, the time a
+   checkpoint holds the main thread, peak memory;
+24. an epoch with ``device_augment=False``: the host augmentation's ms/img
+   and the card's idle share under the profiler;
+25. ``remat``: f32 b4 gradients against the plain step's (GRAD_TOL), 2 + 1
+   attention launches a step, the peak memory of a b32 step with and
+   without, and a graphed remat step with (2, 1) launches in a replay;
+26. ``batch=-1``: the batch it picks and one step at it;
+27. ``profile_steps=2``: the Chrome trace holds the attention kernels;
+28. the synth yardstick (``tools/train_synth_torch.py``): yolo11n, 30 epochs
+   at 320 on 600 + 100 shapes images, the graphed step; mAP50 must reach
+   YARDSTICK_MAP50.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
 kernel name, NMS's split into its mask phase and walk by SM clock stamps and
 its global-memory mapping's time at K = 4096, the (32, 32) attention builds
 as rows of their own, each kernel's launches inside the serving graphs, and
-the yolo12n and yolov8n records under ``families``) and the last line the
-device record; the ``serving`` record and the card's name come before them.
+the yolo12n and yolov8n records under ``families``, and each attention
+kernel's ``train_graph_launches``, its launches inside one replay of the
+graphed step) and the last line the device record; the ``serving`` and
+``train_graph`` records and the card's name come before them.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -200,6 +231,20 @@ TRAINER12_BATCH = 8
 SERVE_SECONDS = 8.0
 OPEN_SECONDS = 5.0
 SHAPES = ["circle", "square", "triangle"]
+# the graphed train step (phase 22): steps from one state both ways; GT
+# padded to 32 boxes after the augmentation
+GRAPH_STEPS = 8
+GRAPH_MAX_BOXES = 32
+# graphed vs eager after GRAPH_STEPS steps: |diff| <= GRAPH_TOL x the largest
+# move of its kind (parameters, EMA, BN statistics) from the start. The
+# replay runs the eager step's kernels in its order, and came out bit for
+# bit equal on an H100; the tolerance leaves room for a cuDNN algorithm
+# that accumulates in another order
+GRAPH_TOL = 1e-4
+AUTOBATCH_REPEATS = 8        # phase 26: 8 x 256 train images, two batches at the cap of 1024
+# the synth yardstick (phase 28): a floor that catches a broken step; the
+# JAX package reached 0.988 on its own data
+YARDSTICK_MAP50 = 0.90
 
 
 def check(cond: bool, msg: str) -> None:
@@ -483,6 +528,475 @@ def nms_order_flips(boxes, scores, other_scores, conf: float, iou: float):
         flip = torch.sign(sk[:, None] - sk[None, :]) != torch.sign(ok[:, None] - ok[None, :])
         flags.append(bool((flip & (box_iou_matrix(b[keep], b[keep]) > iou)).triu(1).any()))
     return flags
+
+
+# ---------------------------------------------------------------- phases 22-28
+
+
+def profile_rows(run):
+    """Run ``run`` once under torch.profiler -> ([(kernel name, launches,
+    device ms)], wall ms); the card's profiler has dropped whole windows, so
+    an empty one is taken again (up to three times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+        if rows:
+            return rows, wall
+        log("[profile] the profiler recorded no device time; taking another window")
+        time.sleep(1.0)
+    raise RuntimeError("three profiler windows in a row recorded no device time")
+
+
+def attention_launches(rows):
+    """(forward, backward) attention launches among profiler rows: the
+    backward wrapper launches its query-row and key-row passes once each."""
+    fwd = sum(n for k, n, _ in rows if "attention_bf16_kernel" in k or "attention_f32_kernel" in k)
+    bwd = sum(n for k, n, _ in rows if "bwd_query_rows" in k)
+    return fwd, bwd
+
+
+def state_diffs(a, b, start):
+    """The largest |a - b| over the parameters, the EMA and the BN running
+    statistics of two TrainStates, each beside the largest move of its kind
+    from ``start`` (a ``state()`` of the shared start)."""
+    va, vb = a.state_views(), b.state_views()
+    names = [n for n, _ in a.model.named_parameters()]
+    stats = [k for k in va["model"] if "running_" in k]
+    out = {}
+    for kind, part, keys in (("params", "model", names), ("ema", "ema", names),
+                             ("bn_stats", "model", stats)):
+        diff = max((va[part][k] - vb[part][k]).abs().max().item() for k in keys)
+        move = max((vb[part][k].cpu() - start[part][k]).abs().max().item() for k in keys)
+        out[kind] = {"max_abs_diff": diff, "max_move": move}
+    return out
+
+
+def graph_vs_eager(seed: int, model: str, batch: int, per_step: tuple, card: str):
+    """Phase 22: GRAPH_STEPS train steps of ``model`` at ``batch``, 640,
+    bf16, from one state, eagerly (twice: the noise floor) and through the
+    step program (WARMUP_RUNS eager steps, the capture, replays), on a
+    device cache of numpy-made images with the on-card augmentation; their
+    parameters, EMA and BN statistics against each other; the kernels'
+    launches inside one replay by the profiler; the step's wall, host and
+    device ms both ways; peak memory both ways."""
+    import numpy as np
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.train import TrainConfig, TrainState
+    from deal_yolo_daya_tpu_torch.train.device_augment import (DeviceAugConfig, augment_batch,
+                                                                step_seed)
+    from deal_yolo_daya_tpu_torch.train.step_graph import StepProgram
+
+    dev = torch.device("cuda")
+    imgsz, n_cache, k = 640, 2 * batch, GRAPH_STEPS
+    images, boxes, classes, mask = make_train_batch(seed + 7, n_cache, imgsz)
+    cache = tuple(torch.from_numpy(a).to(dev) for a in (
+        images, np.full((n_cache, 2), imgsz, np.float32), boxes, classes.astype(np.int32), mask))
+    rng = np.random.default_rng(seed + 9)
+    idx = np.stack([rng.permutation(n_cache)[:batch] for _ in range(k)])
+    seeds = [step_seed(seed, 0, j) for j in range(k)]
+    aug = DeviceAugConfig()
+    cfg = TrainConfig(model=model, imgsz=imgsz, amp=True, seed=seed, max_boxes=GRAPH_MAX_BOXES)
+    fresh = lambda: TrainState(cfg, nc=80, steps_per_epoch=100, device=dev)  # noqa: E731
+    start = fresh().state()
+
+    def eager(st):
+        for j in range(k):
+            t = torch.from_numpy(idx[j]).to(dev)
+            st.step(*augment_batch(*(c[t] for c in cache), seeds[j], imgsz, aug, GRAPH_MAX_BOXES))
+
+    def timed(fn):
+        """-> (wall, host, events) ms a step: the host clock to the end of
+        a synchronise, the host clock to the return (the enqueue), CUDA
+        events around the call."""
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        fn()
+        host = time.perf_counter() - t0
+        e1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return wall * 1e3 / k, host * 1e3 / k, e0.elapsed_time(e1) / k
+
+    # peak memory above what was allocated before (the state included)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    e1 = fresh()
+    eager(e1)
+    torch.cuda.synchronize()
+    peak_eager = (torch.cuda.max_memory_allocated() - base) / 1e9
+    e2 = fresh()
+    eager(e2)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g = fresh()
+    prog = StepProgram(g, cache, aug, imgsz, GRAPH_MAX_BOXES, batch)
+    aa.launches = aa.bwd_launches = 0
+    prog.run(idx, seeds)
+    torch.cuda.synchronize()
+    first_counts = (aa.launches, aa.bwd_launches)
+    peak_graph = (torch.cuda.max_memory_allocated() - base) / 1e9
+    noise = state_diffs(e1, e2, start)
+    diffs = state_diffs(g, e1, start)
+    for kind in diffs:
+        log(f"[graph {model}] after {k} steps, {kind}: graphed vs eager max |diff| "
+            f"{diffs[kind]['max_abs_diff']:.3e}, eager vs eager {noise[kind]['max_abs_diff']:.3e}, "
+            f"largest move from the start {diffs[kind]['max_move']:.3e}")
+    worst = max(d["max_abs_diff"] / (GRAPH_TOL * d["max_move"]) for d in diffs.values())
+    log(f"[graph {model}] worst difference {worst:.3f} of the tolerance ({GRAPH_TOL} of the "
+        f"largest move of its kind); loss sums graphed "
+        f"{ {n: round(v.item(), 6) for n, v in g.loss_acc.items()} } eager "
+        f"{ {n: round(v.item(), 6) for n, v in e1.loss_acc.items()} }")
+    check(worst <= 1.0, f"{model}: the graphed steps left the eager steps' state")
+    # WARMUP_RUNS eager steps, the capture (which launches nothing) and
+    # k - WARMUP_RUNS replays: each step's launches counted once
+    want = tuple(k * n for n in per_step)
+    check(first_counts == want, f"{model}: the counters moved by {first_counts} over the "
+          f"warm-up, the capture and the replays, not {want}")
+
+    # the steps' times, then one replay and one eager step under the profiler
+    aa.launches = aa.bwd_launches = 0
+    g_wall, g_host, g_events = timed(lambda: prog.run(idx, seeds))
+    check((aa.launches, aa.bwd_launches) == want,
+          f"{model}: {k} replays counted {(aa.launches, aa.bwd_launches)}, not {want}")
+    e_wall, e_host, e_events = timed(lambda: eager(e2))
+    rows, replay_wall = profile_rows(lambda: prog.graphs[True].replay())
+    launched = attention_launches(rows)
+    check(launched == tuple(per_step), f"{model}: one replay launched (forward, backward) "
+          f"attention {launched}, not {per_step}")
+    replay_busy = sum(r[2] for r in rows)
+    t = torch.from_numpy(idx[0]).to(dev)
+    eager_rows, eager_wall = profile_rows(lambda: e2.step(*augment_batch(
+        *(c[t] for c in cache), seeds[0], imgsz, aug, GRAPH_MAX_BOXES)))
+    eager_busy = sum(r[2] for r in eager_rows)
+    kernel_ms = {k_[:60]: round(ms / n, 4) for k_, n, ms in rows
+                 if "attention_" in k_ or "bwd_" in k_}
+    log(f"[graph {model}] b{batch}: graphed step wall {g_wall:.2f} ms, host {g_host:.2f} ms, "
+        f"CUDA events {g_events:.2f} ms; one replay busy {replay_busy:.2f} ms of "
+        f"{replay_wall:.2f} ms under the profiler; eager step wall {e_wall:.2f} ms, host "
+        f"{e_host:.2f} ms, CUDA events {e_events:.2f} ms, busy {eager_busy:.2f} ms of "
+        f"{eager_wall:.2f} ms; kernels in the replay (forward, backward) {launched}, device ms "
+        f"a launch {kernel_ms}; capture {prog.capture_s:.2f} s; peak memory (state, steps "
+        f"and graph pool) graphed {peak_graph:.2f} GB, eager {peak_eager:.2f} GB ({card})")
+    return {"batch": batch, "steps": k, "diffs": diffs, "eager_noise": noise,
+            "worst_of_tol": worst, "replay_launches": dict(zip(("forward", "backward"), launched)),
+            "replay_kernel_ms": kernel_ms, "counts_over_first_dispatch": first_counts,
+            "graphed": {"wall_ms": g_wall, "host_ms": g_host, "events_ms": g_events,
+                        "busy_ms": replay_busy, "peak_gb": peak_graph, "capture_s": prog.capture_s},
+            "eager": {"wall_ms": e_wall, "host_ms": e_host, "events_ms": e_events,
+                      "busy_ms": eager_busy, "peak_gb": peak_eager}}
+
+
+def trainer_launches(trainer, epochs: int, n_val: int):
+    """The launches a yolo11n Trainer run makes: one attention forward and
+    one backward a train step, one forward and one NMS a val batch."""
+    steps = epochs * len(trainer.train_loader)
+    return {"area_attention": steps + n_val, "area_attention_bwd": steps, "nms_suppress": n_val}
+
+
+def trainer_run(cfg, label: str):
+    """Phase 23: ``Trainer(cfg).train()`` with the counts at 0 just before
+    and read just after, held to the run's steps and val batches; per epoch
+    the train wall (steps to the loss read) and img/s, the validation wall,
+    the losses and mAP; the time each checkpoint held the main thread; peak
+    memory."""
+    import csv
+
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
+    from deal_yolo_daya_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg)
+    clocks = {"train": [], "val": [], "ckpt": []}
+
+    def timed(fn, sink, sync=False):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            clocks[sink].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    trainer._train_epoch = timed(trainer._train_epoch, "train", sync=True)
+    trainer.validate = timed(trainer.validate, "val")
+    trainer.save_checkpoint = timed(trainer.save_checkpoint, "ckpt")
+    torch.cuda.reset_peak_memory_stats()
+    aa.launches = aa.bwd_launches = ns.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"area_attention": aa.launches, "area_attention_bwd": aa.bwd_launches,
+                "nms_suppress": ns.launches}
+    with open(Path(result["save_dir"]) / "results.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    per_epoch = len(trainer.train_loader)
+    epochs = [{"epoch": int(r["epoch"]), "train_s": ts,
+               "train_imgs_per_s": per_epoch * cfg.batch / ts,
+               "box": float(r["train/box_loss"]), "cls": float(r["train/cls_loss"]),
+               "dfl": float(r["train/dfl_loss"]), "map50": float(r["metrics/mAP50(B)"]),
+               "map": float(r["metrics/mAP50-95(B)"])}
+              for r, ts in zip(rows, clocks["train"])]
+    for e in epochs:
+        log(f"[trainer {label}] epoch {e['epoch']}: train {e['train_s']:.2f} s = "
+            f"{e['train_imgs_per_s']:.1f} img/s; losses box {e['box']:.4f} cls {e['cls']:.4f} "
+            f"dfl {e['dfl']:.4f}; mAP50 {e['map50']:.4f} mAP50-95 {e['map']:.4f}")
+    ckpt_ms = [s * 1e3 for s in clocks["ckpt"]]
+    log(f"[trainer {label}] {len(rows)} epochs in {wall:.1f} s; validations "
+        f"{[round(s, 2) for s in clocks['val']]} s; a checkpoint held the main thread "
+        f"{[round(v, 1) for v in ckpt_ms]} ms; launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(all(math.isfinite(e[k]) for e in epochs for k in ("box", "cls", "dfl")),
+          f"{label}: a non-finite loss")
+    want = trainer_launches(trainer, len(rows), len(clocks["val"]) * len(trainer.val_loader))
+    check(launches == want, f"{label}: launches {launches}, not {want}")
+    return trainer, result, {
+        "wall_s": wall, "epochs": epochs, "val_s": clocks["val"], "checkpoint_ms": ckpt_ms,
+        "launches": launches, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def profiled_trainer_launches(cfg):
+    """Phase 23's graphed Trainer once more, under torch.profiler: each
+    kernel's launches on the card, found by name in the trace, against its
+    counter over the same run (the card's profiler has dropped whole
+    windows: an empty one is taken again, up to three times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
+    from deal_yolo_daya_tpu_torch.train.trainer import Trainer
+
+    names = {"area_attention": ("attention_bf16_kernel", "attention_f32_kernel"),
+             "area_attention_bwd": ("bwd_query_rows",),
+             "nms_suppress": ("nms_kernel", "nms_walk_global")}
+    for attempt in range(3):
+        trainer = Trainer(dataclasses.replace(cfg, name=f"{cfg.name}_profiled{attempt}"))
+        aa.launches = aa.bwd_launches = ns.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train()
+            torch.cuda.synchronize()
+        counted = {"area_attention": aa.launches, "area_attention_bwd": aa.bwd_launches,
+                   "nms_suppress": ns.launches}
+        rows = [(e.key, e.count) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+        if rows:
+            break
+        log("[trainer profiled] the profiler recorded no device time; another run")
+    on_card = {k: sum(n for key, n in rows if any(w in key for w in words))
+               for k, words in names.items()}
+    log(f"[trainer profiled] the graphed Trainer under the profiler: kernel launches on the "
+        f"card {on_card}, counters {counted}")
+    check(on_card == counted, f"the profiler saw {on_card} launches, the counters {counted}")
+    return {"on_card": on_card, "counted": counted}
+
+
+def host_augment_epoch(cfg, label: str):
+    """Phase 24: ``device_augment=False``: the host augmentation alone over
+    one epoch (ms/img, the loader's 8 threads), then one Trainer epoch under
+    the profiler (the card's idle share)."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg)
+    check(not trainer._uses_device_cache(), "device_augment=False did not stream")
+    t0 = time.perf_counter()
+    n = sum(len(b.images) for b in trainer.train_loader.epoch(0))
+    aug_ms = (time.perf_counter() - t0) * 1e3 / n
+    trainer.state.zero_loss_acc()
+    rows, wall = profile_rows(lambda: trainer._train_epoch(0))
+    busy = sum(r[2] for r in rows)
+    losses = {k: v.item() / len(trainer.train_loader) for k, v in trainer.state.loss_acc.items()}
+    log(f"[host augment] {n} images augmented on the host in {aug_ms:.2f} ms/img (8 threads); "
+        f"one Trainer epoch under the profiler: wall {wall:.0f} ms, device busy {busy:.0f} ms, "
+        f"idle {100 - 100 * busy / wall:.1f}%; mean losses {losses}")
+    check(all(math.isfinite(v) for v in losses.values()), f"{label}: a non-finite loss")
+    return {"host_augment_ms_per_img": aug_ms, "epoch_wall_ms": wall, "busy_ms": busy,
+            "idle_share": 1 - busy / wall, "losses": losses}
+
+
+def remat_checks(seed: int, card: str):
+    """Phase 25: ``remat`` gradients in f32 at b4 (TF32 off) against the same
+    step without it, and the forward kernel launched twice a step; the peak
+    memory of one b32 bf16 step with and without."""
+    import numpy as np
+    import torch
+
+    from deal_yolo_daya_tpu_torch.models.yolo11 import YOLO11, init_weights
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.train import TrainConfig, TrainState
+    from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig, step_seed
+    from deal_yolo_daya_tpu_torch.train.step_graph import WARMUP_RUNS, StepProgram
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    weights = small_box_head(init_weights(YOLO11(nc=80, scale="n"), seed).state_dict())
+    imgs, *gt = small_gt_batch(make_train_batch(seed, 4, 640)[0], seed)
+    x4, gt4 = torch.from_numpy(imgs).to(dev), [torch.from_numpy(a).to(dev) for a in gt]
+
+    def step(remat):
+        st = TrainState(TrainConfig(model="yolo11n", imgsz=640, amp=False, seed=seed, remat=remat),
+                        nc=80, steps_per_epoch=100, device=dev, state_dict=weights)
+        before = (aa.launches, aa.bwd_launches)
+        st.step(x4, *gt4)
+        torch.cuda.synchronize()
+        return ({n: p.grad.clone() for n, p in st.model.named_parameters()},
+                (aa.launches - before[0], aa.bwd_launches - before[1]))
+
+    grads_r, launched_r = step(True)
+    grads_p, launched_p = step(False)
+    torch.backends.cudnn.allow_tf32 = True
+    rtol, atol = GRAD_TOL
+    worst = max((g - grads_p[n]).abs().max().item()
+                / (rtol * grads_p[n].abs().max().item() + atol) for n, g in grads_r.items())
+    check(launched_r == (2, 1) and launched_p == (1, 1),
+          f"remat launched (forward, backward) {launched_r}, without {launched_p}")
+    check(worst <= 1.0, f"remat gradients off by {worst:.3f} of the tolerance")
+    x32, *gt32 = (torch.from_numpy(a).to(dev) for a in make_train_batch(seed, 32, 640))
+    peaks = {}
+    for remat in (False, True):  # a step's peak above the state and batch
+        st = TrainState(TrainConfig(model="yolo11n", imgsz=640, amp=True, seed=seed,
+                                    remat=remat), nc=80, steps_per_epoch=100, device=dev)
+        st.step(x32, *gt32)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st.step(x32, *gt32)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del st
+        torch.cuda.empty_cache()
+    # remat under the graph: a b32 bf16 program's warm-up, capture and one
+    # replay, then a profiled replay
+    st = TrainState(TrainConfig(model="yolo11n", imgsz=640, amp=True, seed=seed, remat=True),
+                    nc=80, steps_per_epoch=100, device=dev)
+    cache = (x32, torch.full((32, 2), 640.0, device=dev), gt32[0], gt32[1].int(), gt32[2])
+    k = WARMUP_RUNS + 1
+    prog = StepProgram(st, cache, DeviceAugConfig(), 640, GRAPH_MAX_BOXES, 32)
+    prog.run(np.stack([np.random.default_rng(seed + j).permutation(32) for j in range(k)]),
+             [step_seed(seed, 0, j) for j in range(k)])
+    rows, _ = profile_rows(lambda: prog.graphs[True].replay())
+    replay = attention_launches(rows)
+    total = st.loss_acc["box_loss"].item() + st.loss_acc["cls_loss"].item()
+    check(replay == (2, 1) and math.isfinite(total),
+          f"a remat replay launched (forward, backward) {replay}, loss {total}")
+    del prog, st
+    torch.cuda.empty_cache()
+    log(f"[remat] f32 b4 gradients with remat vs without: worst {worst:.3f} of the tolerance "
+        f"{GRAD_TOL}; attention launches a step (forward, backward) {launched_r} with, "
+        f"{launched_p} without, {replay} in a replay of the graphed remat step; a b32 bf16 "
+        f"step's peak memory above the state {peaks[True]:.2f} GB with, {peaks[False]:.2f} GB without ({card})")
+    return {"grad_worst_of_tol": worst, "launches_per_step": launched_r,
+            "replay_launches": replay, "peak_gb_remat": peaks[True], "peak_gb": peaks[False]}
+
+
+def repeated_dataset(data_yaml: Path, root: Path, repeats: int) -> Path:
+    """A dataset whose train split lists ``data_yaml``'s train images
+    ``repeats`` times (symbolic links) and whose val split is its own."""
+    import yaml
+
+    src = Path(data_yaml).parent
+    for kind in ("images", "labels"):
+        (root / kind / "train").mkdir(parents=True)
+        (root / kind / "val").symlink_to(src / kind / "val")
+        for f in sorted((src / kind / "train").iterdir()):
+            for r in range(repeats):
+                (root / kind / "train" / f"r{r}_{f.name}").symlink_to(f)
+    out = root / "data.yaml"
+    out.write_text(yaml.safe_dump({**yaml.safe_load(Path(data_yaml).read_text()),
+                                   "path": str(root)}, sort_keys=False))
+    return out
+
+
+def autobatch_run(cfg, card: str):
+    """Phase 26: ``batch=-1`` -> the batch it picks; then the default
+    Trainer's path at that batch: the train set on the card, two epochs of
+    graphed steps (K = 2: the warm-up steps, the capture, replays) with
+    validation after each while the graph's pool is held. Its need, as the
+    probe counts it: the peak allocated over each epoch's steps, and at
+    each validation the memory reserved with the cache emptied (the state,
+    the train set, the graph's pool) plus validation's peak above what was
+    allocated; against the limit the pick was made for."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.empty_cache()
+    limit = torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
+    trainer = Trainer(cfg)
+    picked = trainer.cfg.batch
+    programs, steps_peaks, val_needs = [], [], []
+    make_program, validate = trainer.step_program, trainer.validate
+
+    def step_program():
+        programs.append(make_program())
+        return programs[-1]
+
+    def measured_validate(*a, **kw):
+        torch.cuda.synchronize()
+        steps_peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.empty_cache()
+        held, base = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = validate(*a, **kw)
+        torch.cuda.synchronize()
+        val_needs.append(held + torch.cuda.max_memory_allocated() - base)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    trainer.step_program, trainer.validate = step_program, measured_validate
+    torch.cuda.reset_peak_memory_stats()
+    result = trainer.train()
+    need = max(steps_peaks + val_needs)
+    n_batches = len(trainer.train_loader)
+    log(f"[autobatch] batch=-1 picked {picked}; {len(trainer.train_ds)} train images = "
+        f"{n_batches} batches an epoch; the Trainer at it ({trainer.cfg.epochs} epochs, K = 2, "
+        f"validation each epoch): mAP50 {result['metrics'].get('map50', 0.0):.4f}; steps' peak "
+        f"allocated {[round(v / 1e9, 2) for v in steps_peaks]} GB, validation's need "
+        f"{[round(v / 1e9, 2) for v in val_needs]} GB: {need / 1e9:.2f} GB, "
+        f"{100 * need / max(limit, 1):.1f}% of the {limit / 1e9:.1f} GB free or held before "
+        f"({card})")
+    check(n_batches >= 2 and any(p.graphs for p in programs),
+          f"autobatch: {n_batches} batches an epoch, no graph captured at batch {picked}")
+    check(need <= limit, f"autobatch: the path at batch {picked} needs {need / 1e9:.2f} GB, "
+          f"over the {limit / 1e9:.2f} GB limit")
+    return {"batch": picked, "train_images": len(trainer.train_ds), "batches": n_batches,
+            "steps_peak_gb": [v / 1e9 for v in steps_peaks],
+            "val_need_gb": [v / 1e9 for v in val_needs], "need_gb": need / 1e9,
+            "limit_gb": limit / 1e9}
+
+
+def profile_steps_run(cfg):
+    """Phase 27: ``profile_steps=2`` writes a Chrome trace of steps 1-2 that
+    holds the attention kernels."""
+    from deal_yolo_daya_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg)
+    result = trainer.train()
+    trace = Path(result["save_dir"]) / "profile" / "trace.json"
+    check(trace.exists(), "profile_steps wrote no trace")
+    text = trace.read_text()
+    found = {w: text.count(w) for w in ("attention_bf16_kernel", "bwd_query_rows")}
+    log(f"[profile_steps] {trace.name}: {trace.stat().st_size / 1e6:.1f} MB, kernel events "
+        f"{found}")
+    check(all(found.values()), "the trace holds no attention kernel")
+    return {"trace_mb": trace.stat().st_size / 1e6, "kernel_events": found}
 
 
 def main() -> int:
@@ -1058,7 +1572,6 @@ def main() -> int:
     # dataset of mixed-size PNG sources written here, 3 epochs at imgsz 640,
     # batch 32, bf16, the dataset on the card and augmented there, validation
     # after each epoch, results.csv and checkpoints
-    import dataclasses
     import tempfile
 
     from deal_yolo_daya_tpu_torch.train import metrics as metrics_mod
@@ -1079,7 +1592,7 @@ def main() -> int:
     tcfg = FullConfig(model="yolo11n", data=str(data_yaml), imgsz=640, batch=TRAINER_BATCH,
                       epochs=TRAINER_EPOCHS, close_mosaic=1, cache="device",
                       device_augment=True, amp=True, seed=args.seed, device="0",
-                      project=str(root / "runs"), name="smoke")
+                      project=str(root / "runs"), name="smoke", steps_per_dispatch=1)
     trainer = Trainer(tcfg)
     check(trainer.device == dev and trainer.nc == 3, "the Trainer is not on the card")
 
@@ -1124,13 +1637,13 @@ def main() -> int:
     trainer.validate = host_timed(trainer.validate, "val_s")
     trainer.save_checkpoint = host_timed(trainer.save_checkpoint, "ckpt_s", add=True)
     trainer.run.append_results_row = row_mark(trainer.run.append_results_row)
-    epoch_batches = trainer._epoch_batches
+    train_epoch = trainer._train_epoch
 
     def epoch_start(epoch):
         clocks["starts"].append(time.perf_counter())
-        return epoch_batches(epoch)
+        return train_epoch(epoch)
 
-    trainer._epoch_batches = epoch_start
+    trainer._train_epoch = epoch_start
     recorded["val_nms"] = []
 
     def rec_val_suppress(boxes, valid, thr):
@@ -1693,7 +2206,7 @@ def main() -> int:
     tcfg12 = FullConfig(model="yolo12n", data=str(data_yaml), imgsz=640, batch=TRAINER12_BATCH,
                         epochs=TRAINER_EPOCHS, close_mosaic=1, cache="device",
                         device_augment=True, amp=True, seed=args.seed, device="0",
-                        project=str(root / "runs"), name="smoke12")
+                        project=str(root / "runs"), name="smoke12", steps_per_dispatch=1)
     trainer12 = Trainer(tcfg12)
     check(trainer12.family == "yolo12" and isinstance(trainer12.state.model, YOLOv12),
           "the Trainer did not build yolo12n")
@@ -1831,14 +2344,15 @@ def main() -> int:
 
     def capture_all(engine, label, per_forward):
         """warmup() bucket by bucket: each moves the counts by its eager
-        warm-up runs and its capture; a second warmup() moves nothing."""
+        warm-up runs (the capture launches nothing); a second warmup()
+        moves nothing."""
         rec = {}
         for b in engine.buckets():
             before = counts()
             engine.warmup([b])
             moved = tuple(a - z for a, z in zip(counts(), before))
             prog = engine.program(b)
-            runs = serve.WARMUP_RUNS + 1
+            runs = serve.WARMUP_RUNS
             check(moved == tuple(runs * n for n in per_forward),
                   f"{label} bucket {b}: warm-up and capture moved the counts by {moved}")
             rec[b] = {"capture_s": prog.capture_s, "pool_mb": prog.pool_bytes / 1e6}
@@ -1883,7 +2397,8 @@ def main() -> int:
             same = all(torch.equal(g, w) for g, w in zip(got, want))
             log(f"[serve {label}] bucket {b}: replay vs eager infer bit-identical {same}, n_det "
                 f"{got[3].tolist()}, counts moved by the replay {replay_moved}")
-            check(replay_moved == (0, 0), f"{label} bucket {b}: the replay ran eagerly")
+            check(replay_moved == tuple(per_forward), f"{label} bucket {b}: the replay counted "
+                  f"{replay_moved} launches, not {tuple(per_forward)}")
             check(same, f"{label} bucket {b}: the replay differs from the eager infer")
             check((len(calls["attn"]), len(calls["nms"])) == tuple(per_forward),
                   f"{label} bucket {b}: the eager infer called (attention, NMS) "
@@ -1976,7 +2491,8 @@ def main() -> int:
         futs = [engine.submit(im) for im in images[:32]]
         served = [f.result(timeout=300) for f in futs]
     burst = engine.stats()
-    check(counts() == before, "a served batch ran eagerly")
+    check(counts() == tuple(a + burst["batches"] for a in before),
+          f"the burst's batch counted {counts()} launches from {before}")
     check(burst["batches"] == 1 and burst["errors"] == 0, f"the burst of 32: {burst}")
     same_detections(served, yolo.predict(images[:32], conf=0.001, iou=0.7, batch_size=32),
                     "Engine burst of 32 vs predict(batch_size=32)")
@@ -1985,7 +2501,8 @@ def main() -> int:
     before = counts()
     with engine1:
         served1 = [engine1.submit(im).result(timeout=300) for im in images[:16]]
-    check(counts() == before, "a served batch ran eagerly")
+    check(counts() == tuple(a + len(served1) for a in before),
+          f"{len(served1)} batches of one counted {counts()} launches from {before}")
     same_detections(served1, yolo.predict(images[:16], conf=0.001, iou=0.7, batch_size=1),
                     "Engine max_batch 1 vs predict(batch_size=1)")
     log(f"[serve yolo11n] futures equal predict bit for bit: a burst of 32 (one batch) and 16 "
@@ -2012,8 +2529,10 @@ def main() -> int:
             f"{rec['errors']} + {rec['client_errors']}")
         check(rec["errors"] == 0 and rec["client_errors"] == 0 and rec["completed"] > 0,
               f"serving {label}: {rec}")
-    check(serve_launches == {"area_attention": 0, "nms_suppress": 0},
-          f"the serving windows launched kernels eagerly: {serve_launches}")
+    # one attention forward and one NMS a served batch, each a replay
+    served_batches = sum(rec["batches"] for rec in (closed, opened, floor))
+    check(serve_launches == {"area_attention": served_batches, "nms_suppress": served_batches},
+          f"the serving windows' {served_batches} batches counted {serve_launches} launches")
     # what the graphs buy: one replay against one eager infer on the same batch
     replay_vs_eager = {}
     for b in (1, 8, 32):
@@ -2108,9 +2627,99 @@ def main() -> int:
         f"Trainer.validate() {({k: want_val[k] for k in ('map50', 'map')})}, largest "
         f"difference {val_err:.3e}")
     check(val_err <= 1e-6, f"val() differs from Trainer.validate() by {val_err}")
-    tmp.cleanup()
     serve_s = time.perf_counter() - t_serve
     log(f"[serve] phases 18-21 in {serve_s:.1f} s")
+    del best_handle, exported, trainer
+    torch.cuda.empty_cache()
+
+    # 22. the train step as a CUDA graph against the eager step: yolo11n at
+    # b32 and yolo12n at b8, 640, bf16, the device cache and the on-card
+    # augmentation
+    t_graph = time.perf_counter()
+    graph_record = {"yolo11n": graph_vs_eager(args.seed, "yolo11n", 32, (1, 1), card),
+                    "yolo12n": graph_vs_eager(args.seed, "yolo12n", TRAINER12_BATCH, (8, 8),
+                                              card)}
+    torch.cuda.empty_cache()
+
+    # 23. the slice's main path: the yolo11n Trainer on phase 12's shapes
+    # dataset with steps_per_dispatch auto (K = 8: one dispatch an epoch;
+    # close_mosaic makes a second program), checkpoints in the background,
+    # validation after each epoch; then the same run with K = 1
+    gcfg = FullConfig(model="yolo11n", data=str(data_yaml), imgsz=640, batch=TRAINER_BATCH,
+                      epochs=TRAINER_EPOCHS, close_mosaic=1, seed=args.seed, device="0",
+                      project=str(root / "runs"), name="graphed")
+    trainer_g, _, graphed_run = trainer_run(gcfg, "graphed")
+    check(trainer_g.steps_per_dispatch(len(trainer_g.train_loader)) == 8 and
+          trainer_g.cfg.cache == "device" and trainer_g.cfg.device_augment,
+          "the default Trainer did not take the graphed device-cache path")
+    del trainer_g
+    # the same run under the profiler: its launches on the card against the
+    # counters (each graph's replays included)
+    graphed_run["profiled_launches"] = profiled_trainer_launches(gcfg)
+    torch.cuda.empty_cache()
+    trainer_e, _, eager_run = trainer_run(dataclasses.replace(gcfg, name="eager",
+                                                              steps_per_dispatch=1), "K=1")
+    del trainer_e
+    torch.cuda.empty_cache()
+
+    # 24. an epoch with device_augment=False: the host augmentation, streamed
+    host_aug = host_augment_epoch(dataclasses.replace(
+        gcfg, name="host_aug", epochs=1, device_augment=False, val=False), "host augment")
+    torch.cuda.empty_cache()
+
+    # 25. remat
+    remat_record = remat_checks(args.seed, card)
+
+    # 26. batch=-1, and the default Trainer at the batch it picks on phase
+    # 12's train images listed AUTOBATCH_REPEATS times (two batches at the cap)
+    ab_yaml = repeated_dataset(data_yaml, root / "autobatch_data", AUTOBATCH_REPEATS)
+    autobatch_record = autobatch_run(dataclasses.replace(
+        gcfg, data=str(ab_yaml), name="autobatch", batch=-1, epochs=2, close_mosaic=0,
+        steps_per_dispatch=2), card)
+    torch.cuda.empty_cache()
+
+    # 27. profile_steps=2
+    profile_record = profile_steps_run(dataclasses.replace(
+        gcfg, name="profiled", epochs=1, profile_steps=2, val=False))
+
+    # 28. the synth yardstick: yolo11n, 30 epochs at 320 on 600 + 100 shapes,
+    # the graphed step (tools/train_synth_torch.py)
+    spec = importlib.util.spec_from_file_location(
+        "train_synth_torch", Path(__file__).resolve().parent / "tools" / "train_synth_torch.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    t0 = time.perf_counter()
+    synth_yaml = synth.dataset(root / "synth")
+    synth_write_s = time.perf_counter() - t0
+    yardstick = synth.run(synth_yaml, root / "synth", "graphed", seed=args.seed, device="0")
+    log(f"[yardstick] dataset written in {synth_write_s:.1f} s; "
+        f"{yardstick['epochs']} epochs in {yardstick['wall_s']:.1f} s: mAP50 "
+        f"{yardstick['map50']:.4f}, mAP50-95 {yardstick['map']:.4f} (floor mAP50 "
+        f"{YARDSTICK_MAP50}); mAP50 by epoch {[round(v, 3) for v in yardstick['map50_by_epoch']]}")
+    check(yardstick["map50"] >= YARDSTICK_MAP50, f"the yardstick reached mAP50 "
+          f"{yardstick['map50']:.4f} < {YARDSTICK_MAP50}")
+    tmp.cleanup()
+    graph_s = time.perf_counter() - t_graph
+    log(f"[graph] phases 22-28 in {graph_s:.1f} s")
+    kernels[0]["train_graph_launches"] = {
+        "yolo11n": graph_record["yolo11n"]["replay_launches"]["forward"],
+        "yolo11n remat": remat_record["replay_launches"][0]}
+    kernels[2]["train_graph_launches"] = {
+        "yolo11n": graph_record["yolo11n"]["replay_launches"]["backward"],
+        "yolo11n remat": remat_record["replay_launches"][1]}
+    kernels[4]["train_graph_launches"] = {
+        "yolo12n": graph_record["yolo12n"]["replay_launches"]["forward"]}
+    kernels[5]["train_graph_launches"] = {
+        "yolo12n": graph_record["yolo12n"]["replay_launches"]["backward"]}
+    for row, key in ((kernels[0], "area_attention"), (kernels[1], "nms_suppress"),
+                     (kernels[2], "area_attention_bwd")):
+        row.setdefault("launches_by_path", {})["yolo11n graphed Trainer"] = \
+            graphed_run["launches"][key]
+    train_graph_record = {
+        "graph_vs_eager": graph_record, "trainer_graphed": graphed_run,
+        "trainer_k1": eager_run, "host_augment": host_aug, "remat": remat_record,
+        "autobatch": autobatch_record, "profile_steps": profile_record,
+        "yardstick": yardstick, "wall_s": graph_s, "card": card}
 
     kernels[0]["serving_graph_launches"] = {"yolo11n": graph11["launches"]["attention"]}
     kernels[1]["serving_graph_launches"] = {
@@ -2128,6 +2737,7 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"serving": serve_record}), flush=True)
+    print(json.dumps({"train_graph": train_graph_record}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "predict": {
         "imgs_per_s_e2e": len(images) / wall, "host_letterbox_ms_per_img": host_ms,

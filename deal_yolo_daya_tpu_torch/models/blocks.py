@@ -14,11 +14,13 @@ C2PSA) and ``AAttn`` (yolo12's A2C2f) run the area-attention kernels
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.area_attention import area_attention
 
@@ -44,6 +46,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.update_stats = True  # off while a checkpointed block recomputes
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -53,6 +56,8 @@ class BatchNorm(nn.Module):
         # the batch mean and 1/sqrt(biased var + eps) it normalised with
         y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
                                                   True, 0.0, BN_EPS)
+        if not self.update_stats:
+            return y
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(invstd.pow(-2) - BN_EPS,
@@ -289,6 +294,29 @@ class A2C2f(nn.Module):
         if self.gamma is None:
             return out
         return x + self.gamma.to(out.dtype).view(-1, 1, 1) * out
+
+
+@contextlib.contextmanager
+def _stats_frozen(module: nn.Module):
+    """Inside the block, ``module``'s BatchNorms normalise as in training but
+    leave their running statistics alone."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = True
+
+
+def rematerialized(module: nn.Module, *args):
+    """``module(*args)`` keeping only its inputs for the backward, which runs
+    the forward again (``torch.utils.checkpoint``, non-reentrant): the JAX
+    package's ``nn.remat``. The recomputation normalises with the same batch
+    statistics and does not move the running ones a second time."""
+    return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _stats_frozen(module)))
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

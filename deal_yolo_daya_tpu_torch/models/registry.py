@@ -38,12 +38,13 @@ def parse_model_spec(model: str) -> Tuple[str, str]:
     return family, "n"
 
 
-def make_detector(family: str, scale: str, nc: int = 80) -> Detector:
+def make_detector(family: str, scale: str, nc: int = 80, remat: bool = False) -> Detector:
     """The uninitialised detector module of a family and scale (on the
-    current default device, so ``torch.device("meta")`` builds it shapes-only)."""
+    current default device, so ``torch.device("meta")`` builds it
+    shapes-only); ``remat`` recomputes its heavy blocks in the backward."""
     if family not in FAMILIES:
         raise ValueError(f"unknown model family {family!r}: one of {sorted(FAMILIES)}")
-    return FAMILIES[family](nc=nc, scale=scale)
+    return FAMILIES[family](nc=nc, scale=scale, remat=remat)
 
 
 def build_detector(spec: str = "yolo11n", nc: int = 80, seed: int = 0,

@@ -22,7 +22,8 @@ import torch
 import torch.nn as nn
 
 from ..device import resolve_device
-from .blocks import BN_EPS, C2PSA, C3k2, ConvBN, DWConv, SPPF, upsample2x
+from .blocks import (A2C2f, BN_EPS, C2PSA, C3k2, ConvBN, DWConv, SPPF, rematerialized,
+                     upsample2x)
 
 YOLO11_SCALES: Dict[str, Tuple[float, float, int]] = {
     "n": (0.50, 0.25, 1024),
@@ -81,17 +82,32 @@ class DetectHead(nn.Module):
 
 class Detector(nn.Module):
     """What the three families share: top-level modules named by their
-    ultralytics index, ``layer(i)``, and the detect head's index ``DETECT``."""
+    ultralytics index, ``layer(i)``, and the detect head's index ``DETECT``.
+
+    ``remat`` (the JAX ``remat``): in a training forward that records
+    gradients, the heavy blocks (``REMAT``: C3k2, SPPF, C2PSA, A2C2f and the
+    head, those a family has) keep only their inputs and run again in the
+    backward; the function and the parameters are the same."""
 
     FAMILY = ""
     SCALES: Dict[str, Tuple[float, float, int]] = {}
     DETECT = 0
+    REMAT = (C3k2, SPPF, C2PSA, A2C2f, DetectHead)
 
-    def __init__(self, nc: int, scale: str):
+    def __init__(self, nc: int, scale: str, remat: bool = False):
         super().__init__()
         if scale not in self.SCALES:
             raise ValueError(f"{self.FAMILY} scale '{scale}' not in {sorted(self.SCALES)}")
-        self.nc, self.scale = nc, scale
+        self.nc, self.scale, self.remat = nc, scale, remat
+
+    def block(self, i: int):
+        """Module ``i`` as the forward calls it: rematerialized under
+        ``remat`` in a training forward with gradients, else itself."""
+        mod = self.layer(i)
+        if self.remat and self.training and torch.is_grad_enabled() \
+                and isinstance(mod, self.REMAT):
+            return lambda *args: rematerialized(mod, *args)
+        return mod
 
     def widths(self):
         """(w, d): the scale's channel width and block depth functions."""
@@ -116,8 +132,8 @@ class YOLO11(Detector):
     SCALES = YOLO11_SCALES
     DETECT = 23
 
-    def __init__(self, nc: int = 80, scale: str = "n"):
-        super().__init__(nc, scale)
+    def __init__(self, nc: int = 80, scale: str = "n", remat: bool = False):
+        super().__init__(nc, scale, remat)
         w, d = self.widths()
         c3k_all = scale in ("m", "l", "x")
         self.add_layers({
@@ -144,7 +160,7 @@ class YOLO11(Detector):
         })
 
     def forward(self, x: torch.Tensor):
-        m = self.layer
+        m = self.block
         x = m(1)(m(0)(x))
         x = m(3)(m(2)(x))
         p3 = m(4)(x)

@@ -36,8 +36,8 @@ class YOLOv12(Detector):
     SCALES = YOLOV12_SCALES
     DETECT = 21
 
-    def __init__(self, nc: int = 80, scale: str = "n"):
-        super().__init__(nc, scale)
+    def __init__(self, nc: int = 80, scale: str = "n", remat: bool = False):
+        super().__init__(nc, scale, remat)
         w, d = self.widths()
         c3k_all = scale in ("m", "l", "x")
         res = scale in ("l", "x")       # gamma residual on the attention stages
@@ -68,7 +68,7 @@ class YOLOv12(Detector):
         })
 
     def forward(self, x: torch.Tensor):
-        m = self.layer
+        m = self.block
         x = m(3)(m(2)(m(1)(m(0)(x))))
         p3 = m(4)(x)
         p4 = m(6)(m(5)(p3))

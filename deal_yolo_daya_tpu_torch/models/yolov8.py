@@ -33,8 +33,8 @@ class YOLOv8(Detector):
     SCALES = YOLOV8_SCALES
     DETECT = 22
 
-    def __init__(self, nc: int = 80, scale: str = "n"):
-        super().__init__(nc, scale)
+    def __init__(self, nc: int = 80, scale: str = "n", remat: bool = False):
+        super().__init__(nc, scale, remat)
         w, d = self.widths()
 
         def c2f(c1: int, c2: int, n: int, shortcut: bool) -> C3k2:
@@ -63,7 +63,7 @@ class YOLOv8(Detector):
         })
 
     def forward(self, x: torch.Tensor):
-        m = self.layer
+        m = self.block
         x = m(3)(m(2)(m(1)(m(0)(x))))
         p3 = m(4)(x)
         p4 = m(6)(m(5)(p3))

@@ -6,15 +6,22 @@ at first use. The hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source builds anew and an
 unchanged one is reused. Nothing here runs at import: the
 CPU tests import every module on a machine with no ``nvcc``.
+
+``count_launch`` and ``GraphLaunches`` keep each kernel module's launch
+counter true under CUDA graphs: a wrapper called while its stream captures
+a graph launches nothing then, and the graph's launches are added at each
+replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
@@ -35,6 +42,9 @@ EXTRA: Dict[str, List[str]] = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+# the counts of the GraphLaunches capturing on each stream (by its handle):
+# autograd runs a captured backward on its own thread, on the same stream
+_capturing: Dict[int, Dict[Tuple[str, str], int]] = {}
 
 
 def nvcc_path() -> str:
@@ -119,3 +129,48 @@ def check(err: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def count_launch(module: str, counter: str = "launches") -> None:
+    """Add one to the launch counter ``<module>.<counter>`` for a launch of
+    its kernel. A launch made while the current stream captures a CUDA
+    graph runs nothing yet: it goes to the ``GraphLaunches`` capturing on
+    that stream, which adds it at each replay; a capture outside one
+    raises."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        counts = _capturing.get(torch.cuda.current_stream().cuda_stream)
+        if counts is None:
+            raise RuntimeError(f"{module}: a kernel captured into a CUDA graph outside "
+                               "GraphLaunches.capture(); its replays would go uncounted")
+        counts[(module, counter)] = counts.get((module, counter), 0) + 1
+        return
+    mod = sys.modules[module]
+    setattr(mod, counter, getattr(mod, counter) + 1)
+
+
+class GraphLaunches:
+    """The kernel launches one CUDA graph holds: ``capture()``, entered
+    inside ``torch.cuda.graph``'s context (on the capture stream), records
+    them; ``replayed()`` after each replay adds them to the kernels'
+    counters."""
+
+    def __init__(self):
+        self.counts: Dict[Tuple[str, str], int] = {}
+
+    @contextlib.contextmanager
+    def capture(self):
+        import torch
+
+        stream = torch.cuda.current_stream().cuda_stream
+        _capturing[stream] = self.counts
+        try:
+            yield self
+        finally:
+            del _capturing[stream]
+
+    def replayed(self) -> None:
+        for (module, counter), n in self.counts.items():
+            mod = sys.modules[module]
+            setattr(mod, counter, getattr(mod, counter) + n)

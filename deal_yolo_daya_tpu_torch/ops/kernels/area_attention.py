@@ -30,7 +30,8 @@ TMA descriptors in C on every call: they hold the tensors' addresses.
 
 ``area_attention`` goes through ``AreaAttention`` on every device: the plain
 versions for a CPU tensor, the kernels for a CUDA tensor. ``launches`` and
-``bwd_launches`` count the kernel launches.
+``bwd_launches`` count the kernel launches, a CUDA graph's at each replay
+(``_build.count_launch``).
 """
 
 from __future__ import annotations
@@ -136,8 +137,7 @@ def area_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int, key_dim
                  key_dim, head_dim, key_dim ** -0.5, int(qkv.dtype == torch.bfloat16),
                  stream)
     _build.check(err, "area_attention launch")
-    global launches
-    launches += 1
+    _build.count_launch(__name__)
     return out, v
 
 
@@ -167,8 +167,7 @@ def area_attention_bwd(qkv: torch.Tensor, d_out: torch.Tensor, d_v: torch.Tensor
                  stats.data_ptr(), ba, n, num_heads, key_dim, head_dim, key_dim ** -0.5,
                  int(qkv.dtype == torch.bfloat16), stream)
     _build.check(err, "area_attention_bwd launch")
-    global bwd_launches
-    bwd_launches += 1
+    _build.count_launch(__name__, "bwd_launches")
     return d_qkv
 
 

@@ -30,7 +30,8 @@ that decides a bit is correctly rounded and never contracted, in the plain
 version's order.
 
 ``nms_suppress`` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; ``launches`` counts the kernel launches.
+kernel for CUDA tensors; ``launches`` counts the kernel launches, a CUDA
+graph's at each replay (``_build.count_launch``).
 """
 
 from __future__ import annotations
@@ -219,6 +220,5 @@ def launch(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
                      float(iou_thres), geometry.cluster, geometry.first, geometry.smem,
                      None if stamps is None else stamps.data_ptr(), stream)
     _build.check(err, "nms_suppress launch")
-    global launches
-    launches += 1
+    _build.count_launch(__name__)
     return keep

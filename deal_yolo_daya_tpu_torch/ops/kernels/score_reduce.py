@@ -23,7 +23,8 @@ two sigmoids round to the same f32 (above ~16.6 both are 1.0); on sigmoid
 scores the lower class wins. The max score is the same either way.
 
 ``score_reduce`` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; ``launches`` counts the kernel launches.
+kernel for CUDA tensors; ``launches`` counts the kernel launches, a CUDA
+graph's at each replay (``_build.count_launch``).
 """
 
 from __future__ import annotations
@@ -100,6 +101,5 @@ def launch(logits: torch.Tensor, mapping: Optional[str] = None
         err = fn(logits.data_ptr(), int(logits.dtype == torch.bfloat16), b, a, nc, sb, sa, sc,
                  MAPPINGS[mapping], score.data_ptr(), cls.data_ptr(), stream)
     _build.check(err, f"score_reduce launch ({mapping})")
-    global launches
-    launches += 1
+    _build.count_launch(__name__)
     return score, cls

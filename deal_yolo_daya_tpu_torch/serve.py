@@ -66,6 +66,7 @@ import torch
 
 from .api import Detections, infer_fused
 from .ops import png
+from .ops.kernels._build import GraphLaunches
 from .ops.letterbox import letterbox_numpy
 
 # eager runs of a bucket's program on a side stream before its capture
@@ -125,8 +126,9 @@ class BucketProgram:
     ``WARMUP_RUNS`` eager runs on a side stream, with a memory pool of its
     own (``pool_bytes``: what the capture reserved); ``capture_s`` is the
     wall of both. The graph reads the weights ``infer`` holds by address,
-    so they must outlive it (the Engine keeps them). On the CPU
-    ``replay()`` runs ``infer`` eagerly, once here."""
+    so they must outlive it (the Engine keeps them). Each replay adds the
+    graph's kernel launches to the kernels' counters (``launches``). On
+    the CPU ``replay()`` runs ``infer`` eagerly, once here."""
 
     def __init__(self, infer: Callable[[torch.Tensor], tuple], bucket: int, imgsz: int,
                  device: torch.device):
@@ -134,6 +136,7 @@ class BucketProgram:
         self.images = torch.zeros((bucket, imgsz, imgsz, 3), dtype=torch.uint8, device=device)
         self._run = lambda: infer(self.images)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches = GraphLaunches()
         self.pool_bytes = 0
         t0 = time.perf_counter()
         if device.type == "cuda":
@@ -154,7 +157,8 @@ class BucketProgram:
         reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()
         # thread_local: the completion thread may wait on an event meanwhile
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"), \
+                self.launches.capture():
             self.outputs = self._run()
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.graph = graph
@@ -166,6 +170,7 @@ class BucketProgram:
             self.outputs = self._run()
         else:
             self.graph.replay()
+            self.launches.replayed()
 
 
 class _Slot:

@@ -11,15 +11,15 @@ packages draw the same batches:
 - ``epoch_indices``/``epoch_raw``/``raw_chunks`` feed the on-card
   augmentation (``train/device_augment.py``): one keep-ratio resize a sample
   on the host, top-left in an (S, S) canvas;
-- ``epoch`` is the non-augmenting letterboxed pass validation reads, with
-  each image's (path, original (h, w), scale, pad).
+- ``epoch`` is the host-augmented pass (``train/augment.py``: mosaic,
+  affine, mixup, HSV and flips, in numpy, in worker threads, one
+  ``default_rng((seed, epoch, slot))`` a sample as in the JAX package) or,
+  without ``augment``, the letterboxed pass validation reads, with each
+  image's (path, original (h, w), scale, pad).
 
-The host augmentation of the JAX package (``train/augment.py``: mosaic,
-affine, HSV and flips with cv2) is not ported: an augmenting ``epoch``
-raises. Images are resized with PyTorch's uint8 bilinear
-(``ops/letterbox.py``) where the JAX package uses cv2's, so a resized pixel
-may differ by a level; a source already at ``imgsz`` is not resized by
-either.
+Images are resized with PyTorch's uint8 bilinear (``ops/letterbox.py``)
+where the JAX package uses cv2's, so a resized pixel may differ by a level;
+a source already at ``imgsz`` is not resized by either.
 """
 
 from __future__ import annotations
@@ -34,13 +34,12 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import yaml
 
-from ..ops.letterbox import letterbox_numpy, load_image, resize_bilinear
+from ..ops.letterbox import letterbox_numpy, load_image
+from .augment import (AugmentConfig, flips, hsv_jitter, mixup, mosaic4, random_affine,
+                      resize_keep_ratio)
 
 MAX_BOXES = 128
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff"}
-HOST_AUGMENT = ("host augmentation (train/augment.py) is not ported yet (ROADMAP.md "
-                "section 1, 'The rest of the Trainer'); the trainer augments on the card "
-                "(device_augment=True)")
 
 
 @dataclass
@@ -149,28 +148,24 @@ def _pad_labels(boxes: np.ndarray, classes: np.ndarray, max_boxes: int):
     return out_b, out_c, out_m
 
 
-def resize_keep_ratio(img: np.ndarray, target: int) -> Tuple[np.ndarray, float]:
-    """Resize so that the long side is ``target`` -> (image, scale)."""
-    h, w = img.shape[:2]
-    r = target / max(h, w)
-    if r != 1.0:
-        img = resize_bilinear(img, round(h * r), round(w * r))
-    return img, r
-
-
 class DataLoader:
     """Batch iterator with the JAX package's deterministic order: the epoch's
     permutation comes from ``default_rng(seed + 1000 * epoch)`` (no shuffle:
-    dataset order), the short final batch wraps to full size."""
+    dataset order), the short final batch wraps to full size. With
+    ``augment``, ``epoch`` applies the host augmentation of ``aug_config``
+    (mosaic with probability ``mosaic`` until ``mosaic_off``, the close_mosaic
+    hook, turns it off; else the letterboxed image through the affine)."""
 
     def __init__(self, dataset: YoloDataset, batch_size: int, imgsz: int = 640,
-                 augment: bool = True, seed: int = 0, max_boxes: int = MAX_BOXES,
+                 augment: bool = True, aug_config: Optional[AugmentConfig] = None,
+                 seed: int = 0, max_boxes: int = MAX_BOXES,
                  shuffle: Optional[bool] = None, drop_last: Optional[bool] = None,
                  keep_meta: bool = False):
         self.ds = dataset
         self.batch_size = batch_size
         self.imgsz = imgsz
         self.augment = augment
+        self.cfg = aug_config or AugmentConfig()
         self.seed = seed
         self.max_boxes = max_boxes
         self.shuffle = augment if shuffle is None else shuffle
@@ -200,27 +195,61 @@ class DataLoader:
                 idxs = np.concatenate([idxs, order[:self.batch_size - len(idxs)]])
             yield idxs
 
-    def _letterboxed(self, i: int):
-        """One sample letterboxed to imgsz, unaugmented: (canvas, padded
-        labels, meta)."""
-        img = self.ds.image(i)
-        h, w = img.shape[:2]
-        boxes, classes = self.ds.boxes_xyxy(i, w, h)
-        canvas, r, (px, py) = letterbox_numpy(img, self.imgsz)
-        if len(boxes):
-            boxes = boxes * r + [px, py, px, py]
-        meta = (str(self.ds.images[i]), (h, w), r, (px, py))
-        return (np.ascontiguousarray(canvas, dtype=np.uint8),
-                *_pad_labels(boxes, classes, self.max_boxes), meta)
+    def _mosaic_sample(self, idx: int, rng: np.random.Generator):
+        others = rng.integers(0, len(self.ds), 3)
+        imgs, bxs, cls = [], [], []
+        for j in [idx, *others.tolist()]:
+            img = self.ds.image(j)
+            h, w = img.shape[:2]
+            b, c = self.ds.boxes_xyxy(j, w, h)
+            imgs.append(img)
+            bxs.append(b)
+            cls.append(c)
+        return mosaic4(imgs, bxs, cls, self.imgsz, rng, self.cfg)
+
+    def _load_one(self, idx: int, rng: np.random.Generator):
+        """One sample, augmented or letterboxed: (image, boxes, classes,
+        meta; meta is None when augmented)."""
+        if self.augment and not self.mosaic_off and rng.random() < self.cfg.mosaic:
+            img, boxes, classes = self._mosaic_sample(idx, rng)
+            if self.cfg.mixup > 0 and rng.random() < self.cfg.mixup:
+                j = int(rng.integers(0, len(self.ds)))
+                img, boxes, classes = mixup(img, boxes, classes,
+                                            *self._mosaic_sample(j, rng), rng)
+            meta = None
+        else:
+            img = self.ds.image(idx)
+            h, w = img.shape[:2]
+            boxes, classes = self.ds.boxes_xyxy(idx, w, h)
+            img, r, (px, py) = letterbox_numpy(img, self.imgsz)
+            if len(boxes):
+                boxes = boxes * r + [px, py, px, py]
+            meta = (str(self.ds.images[idx]), (h, w), r, (px, py))
+            if self.augment:
+                img, boxes, classes = random_affine(img, boxes, classes, rng, self.cfg,
+                                                    self.imgsz)
+                meta = None
+        if self.augment:
+            img = hsv_jitter(img, rng, self.cfg)
+            img, boxes = flips(img, boxes, rng, self.cfg)
+        return img, boxes, classes, meta
 
     def epoch(self, epoch_idx: int = 0, n_workers: int = 8) -> Iterator[Batch]:
-        """The letterboxed, unaugmented pass (validation)."""
-        if self.augment:
-            raise NotImplementedError(HOST_AUGMENT)
+        """The epoch's batches: host-augmented with ``augment`` (a
+        ``default_rng((seed, epoch, slot))`` a sample), else letterboxed.
+        The samples of a batch are built in worker threads."""
+        def build_one(args):
+            slot, i = args
+            rng = np.random.default_rng((self.seed, epoch_idx, int(slot)) if self.augment
+                                        else (self.seed, int(i)))
+            img, boxes, classes, meta = self._load_one(int(i), rng)
+            return (np.ascontiguousarray(img, dtype=np.uint8),
+                    *_pad_labels(boxes, classes, self.max_boxes), meta)
+
         with cf.ThreadPoolExecutor(max_workers=n_workers) as pool:
-            for idxs in self.epoch_indices(epoch_idx):
-                images, gtb, gtc, gtm, metas = zip(*pool.map(self._letterboxed,
-                                                              idxs.tolist()))
+            for b, idxs in enumerate(self.epoch_indices(epoch_idx)):
+                slots = [(b * self.batch_size + j, i) for j, i in enumerate(idxs)]
+                images, gtb, gtc, gtm, metas = zip(*pool.map(build_one, slots))
                 yield Batch(images=np.stack(images), gt_boxes=np.stack(gtb),
                             gt_classes=np.stack(gtc), gt_mask=np.stack(gtm),
                             meta=list(metas) if self.keep_meta else None)

@@ -75,8 +75,11 @@ def draw(b: int, generator: torch.Generator, cfg: DeviceAugConfig,
     kw = dict(generator=generator, device=device)
     partners = torch.randint(0, b, (b, 3), **kw)
     uniforms = torch.rand((b, 10), **kw)
-    hsv = torch.tensor([cfg.hsv_h, cfg.hsv_s, cfg.hsv_v], device=device)
-    gains = 1.0 + (torch.rand((b, 3), **kw) * 2.0 - 1.0) * hsv
+    # the gains column by column, by Python scalars: a tensor of them made on
+    # the card would be a host-to-device copy, which waits for the stream
+    u = torch.rand((b, 3), **kw) * 2.0 - 1.0
+    gains = 1.0 + torch.stack([u[:, 0] * cfg.hsv_h, u[:, 1] * cfg.hsv_s, u[:, 2] * cfg.hsv_v],
+                              dim=-1)
     flips = torch.rand((b, 3), **kw)
     mix_j = torch.randint(0, b, (b,), **kw)
     gamma = -torch.log1p(-torch.rand((b, 2, 32), **kw)).sum(-1)

@@ -86,7 +86,9 @@ def task_aligned_assign(
     # per-GT top-k as k successive argmaxes (ties to the lowest index): only
     # membership matters. A GT whose best metric passes eps keeps all of its
     # top-k, even candidates whose own metric is ~0.
-    gt_has_candidate = work.amax(dim=-1, keepdim=True) > work.new_tensor(eps)  # in bf16
+    # a Python eps compares in work's dtype (bf16), as a tensor of it would,
+    # with no host-to-device copy (none may run inside a CUDA graph's capture)
+    gt_has_candidate = work.amax(dim=-1, keepdim=True) > eps
     anchor_iota = torch.arange(a, device=work.device)
     mask_topk = torch.zeros((b, n, a), dtype=torch.bool, device=work.device)
     for _ in range(topk):

@@ -2,18 +2,27 @@
 kernels only, a bias group that warms down, and parameter EMA.
 
 Counterpart of ``deal_yolo_daya_tpu/train/optimizer.py``. The JAX package
-builds one optax chain; here the same arithmetic is three ``torch.optim``
-parameter groups whose ``lr`` (and SGD ``momentum``) the train step sets from
-the schedules before every update:
+builds one optax chain; here the same arithmetic runs as foreach updates
+over three parameter groups:
 
 - ``decay``: conv kernels, the only leaves with weight decay;
 - ``no_decay``: BatchNorm weights (flax's ``scale``);
 - ``bias``: every leaf named ``bias`` (BatchNorm biases and the head's conv
   biases), on the schedule that warms down from ``warmup_bias_lr``.
 
+The hyperparameters that move from step to step (each group's lr, SGD's
+momentum, Adam's bias corrections, the EMA decay) are not Python numbers
+but entries of one small device vector, ``hyper``, laid out by the ``H_*``
+columns below and filled from the schedules before each step. The update
+reads them on the device, so the same code serves the eager step and the
+step replayed as a CUDA graph (``train/step_graph.py``), which could not
+see a Python float change. The state (momentum buffers, Adam moments, the
+gradients) is made up front, so no step allocates it.
+
 optax's ``add_decayed_weights`` in front of nesterov SGD is
-``torch.optim.SGD(nesterov=True, weight_decay=...)``. The JAX "adamw" chains
-``add_decayed_weights`` before ``adam``: coupled L2, which is
+``torch.optim.SGD(nesterov=True, weight_decay=...)``: d = g + wd p,
+buf = m buf + d, p -= lr (d + m buf). The JAX "adamw" chains
+``add_decayed_weights`` before ``adam``: coupled L2, as
 ``torch.optim.Adam(weight_decay=...)`` and not ``torch.optim.AdamW``.
 """
 
@@ -21,10 +30,21 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Sequence
 
 import torch
 import torch.nn as nn
+
+# the columns of the hyperparameter vector a step reads on the device
+H_LR_MAIN = 0     # the step size of the decay and no_decay groups
+H_LR_BIAS = 1     # the step size of the bias group
+H_MOMENTUM = 2    # SGD momentum
+H_BC2_SQRT = 3    # Adam: sqrt(1 - beta2 ** t)
+H_EMA_DECAY = 4   # the EMA decay of this step (1.0 where it does not move)
+H_GRAD_KEEP = 5   # 0.0 at the first micro-batch of an update: clears .grad
+N_HYPER = 6
+EMA_DECAY = 0.9999
+ADAM_BETA2, ADAM_EPS = 0.999, 1e-8
 
 
 @dataclass
@@ -78,11 +98,19 @@ def momentum_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
     return schedule
 
 
+def ema_decay(step: int, decay: float = EMA_DECAY) -> float:
+    """The EMA decay after ``step`` updates: decay * (1 - exp(-step/2000))."""
+    return decay * (1 - math.exp(-step / 2000.0))
+
+
 def param_groups(model: nn.Module) -> Dict[str, List[nn.Parameter]]:
-    """The three groups: conv kernels (decayed), BatchNorm weights, biases."""
+    """The three groups: conv kernels (decayed), BatchNorm weights, biases.
+    Parameters that take no gradient (frozen modules) are left out."""
     groups: Dict[str, List[nn.Parameter]] = {"decay": [], "no_decay": [], "bias": []}
     for mod in model.modules():
         for name, p in mod.named_parameters(recurse=False):
+            if not p.requires_grad:
+                continue
             if name == "bias":
                 groups["bias"].append(p)
             elif isinstance(mod, nn.Conv2d):
@@ -92,95 +120,171 @@ def param_groups(model: nn.Module) -> Dict[str, List[nn.Parameter]]:
     return groups
 
 
+class _Group:
+    def __init__(self, params: List[nn.Parameter], weight_decay: float, column: int, adam: bool):
+        self.params, self.weight_decay, self.column = params, weight_decay, column
+        with torch.no_grad():
+            for p in params:  # gradients made up front: the backward adds into them
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
+        self.state = {"exp_avg": zeros(), "exp_avg_sq": zeros()} if adam \
+            else {"momentum_buffer": zeros()}
+
+    @property
+    def grads(self) -> List[torch.Tensor]:
+        return [p.grad for p in self.params]
+
+
 class Optimizer:
-    """A ``torch.optim`` optimizer over the three groups, and the schedules
-    that set its hyperparameters. ``step(update_index)`` sets each group's
-    lr (and SGD momentum) for that update, then applies it."""
+    """Nesterov SGD (``sgd``, ``auto``) or Adam (``adam``; ``adamw`` with
+    the coupled L2) over the three groups. ``hyper_row(update_index)`` gives
+    the host values of the ``H_LR_*``, ``H_MOMENTUM`` and ``H_BC2_SQRT``
+    columns for that update; ``step(hyper)`` applies one update reading them
+    from the device vector ``hyper``. No host read, no allocation that
+    outlives the call."""
 
     def __init__(self, cfg: OptimizerConfig, model: nn.Module):
         groups = param_groups(model)
         name = cfg.name.lower()
         if name not in ("sgd", "auto", "adam", "adamw"):
             raise ValueError(f"unknown optimizer: {cfg.name}")
+        self.adam = name in ("adam", "adamw")
+        self.beta1 = cfg.momentum
         decay = cfg.weight_decay if name != "adam" else 0.0
-        spec = [{"params": groups["decay"], "weight_decay": decay, "schedule": "main"},
-                {"params": groups["no_decay"], "weight_decay": 0.0, "schedule": "main"},
-                {"params": groups["bias"], "weight_decay": 0.0, "schedule": "bias"}]
-        self.lr = {"main": lr_schedule(cfg), "bias": lr_schedule(cfg, cfg.warmup_bias_lr)}
-        self.momentum = None
-        if name in ("sgd", "auto"):
-            self.momentum = momentum_schedule(cfg)
-            self.torch = torch.optim.SGD(spec, lr=0.0, momentum=cfg.momentum, nesterov=True)
+        self.groups = [_Group(groups["decay"], decay, H_LR_MAIN, self.adam),
+                       _Group(groups["no_decay"], 0.0, H_LR_MAIN, self.adam),
+                       _Group(groups["bias"], 0.0, H_LR_BIAS, self.adam)]
+        self.lr = {H_LR_MAIN: lr_schedule(cfg), H_LR_BIAS: lr_schedule(cfg, cfg.warmup_bias_lr)}
+        self.momentum = momentum_schedule(cfg)
+
+    def grads(self) -> List[torch.Tensor]:
+        return [t for g in self.groups for t in g.grads]
+
+    def hyper_row(self, update_index: int) -> Dict[int, float]:
+        """The optimizer's columns of ``hyper`` for update ``update_index``
+        (0-based): Adam's step size folds in 1 / (1 - beta1 ** t)."""
+        row = {col: fn(update_index) for col, fn in self.lr.items()}
+        if self.adam:
+            t = update_index + 1
+            for col in self.lr:
+                row[col] /= 1 - self.beta1 ** t
+            row[H_BC2_SQRT] = math.sqrt(1 - ADAM_BETA2 ** t)
         else:
-            self.torch = torch.optim.Adam(spec, lr=0.0, betas=(cfg.momentum, 0.999), eps=1e-8)
+            row[H_MOMENTUM] = self.momentum(update_index)
+        return row
 
-    def step(self, update_index: int) -> None:
-        for group in self.torch.param_groups:
-            group["lr"] = self.lr[group["schedule"]](update_index)
-            if self.momentum is not None:
-                group["momentum"] = self.momentum(update_index)
-        self.torch.step()
+    @torch.no_grad()
+    def step(self, hyper: torch.Tensor) -> None:
+        for g in self.groups:
+            if not g.params:
+                continue
+            grads = g.grads
+            d = (torch._foreach_add(grads, g.params, alpha=g.weight_decay) if g.weight_decay
+                 else grads)
+            lr = hyper[g.column]
+            if self.adam:
+                m, v = g.state["exp_avg"], g.state["exp_avg_sq"]
+                torch._foreach_lerp_(m, d, 1 - self.beta1)
+                torch._foreach_mul_(v, ADAM_BETA2)
+                torch._foreach_addcmul_(v, d, d, value=1 - ADAM_BETA2)
+                denom = torch._foreach_sqrt(v)
+                torch._foreach_div_(denom, hyper[H_BC2_SQRT])
+                torch._foreach_add_(denom, ADAM_EPS)
+                upd = torch._foreach_div(m, denom)
+            else:
+                mom, buf = hyper[H_MOMENTUM], g.state["momentum_buffer"]
+                torch._foreach_mul_(buf, mom)
+                torch._foreach_add_(buf, d)
+                upd = torch._foreach_mul(buf, mom)
+                torch._foreach_add_(upd, d)
+            torch._foreach_mul_(upd, lr)
+            torch._foreach_sub_(g.params, upd)
 
-    def zero_grad(self) -> None:
-        self.torch.zero_grad(set_to_none=True)
+    def state_dict(self) -> Dict:
+        """{"state": {index: {name: tensor}}}, one index a parameter in
+        group order (``torch.optim``'s layout); the tensors are the live
+        buffers (copy them to keep them)."""
+        state, i = {}, 0
+        for g in self.groups:
+            for j in range(len(g.params)):
+                state[i] = {k: v[j] for k, v in g.state.items()}
+                i += 1
+        return {"state": state}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict) -> None:
+        """Copy a ``state_dict()`` into the existing buffers, in place."""
+        i = 0
+        for g in self.groups:
+            for j in range(len(g.params)):
+                for k, v in g.state.items():
+                    v[j].copy_(sd["state"][i][k])
+                i += 1
 
 
 class accumulate_gradients:
     """Gradient accumulation, the counterpart of the JAX package's
     ``accumulate_gradients`` (the ultralytics BaseTrainer cadence,
     ``accumulate = max(round(nbs / batch), 1)``): the gradients of ``k``
-    micro-batches SUM in ``.grad`` (the backward adds to it), and every
-    ``k``-th ``step()`` applies ``inner`` once and clears them. ``mean``
-    divides the sum by ``k`` first, for the batch-mean loss, where a raw SUM
-    would multiply the effective lr by k. ``inner``'s schedules count the
-    applied updates, so their windows are in optimizer steps."""
+    micro-batches SUM in ``.grad`` (the backward adds to it), and the
+    ``k``-th applies ``inner`` once. ``mean`` divides the sum by ``k`` first,
+    for the batch-mean loss, where a raw SUM would multiply the effective lr
+    by k. ``inner``'s schedules count the applied updates, so their windows
+    are in optimizer steps.
+
+    The counts stay on the host: ``window()`` says what the next micro-batch
+    is (its ``H_GRAD_KEEP`` and whether it ends with the update) and
+    ``advance()`` counts it."""
 
     def __init__(self, k: int, inner: Optimizer, mean: bool = False):
         self.k, self.inner, self.mean = max(int(k), 1), inner, mean
         self.micro = 0     # micro-batches summed since the last update
         self.updates = 0   # updates applied
 
-    def zero_grad(self) -> None:
-        """Clear the gradients at the start of a window; inside one they sum."""
-        if self.micro == 0:
-            self.inner.zero_grad()
+    def window(self):
+        """(grad_keep, updates) for the next micro-batch: grad_keep 0.0 at
+        the first of a window (the backward then starts from zeros),
+        ``updates`` whether it applies the update."""
+        return (0.0 if self.micro == 0 else 1.0), self.micro + 1 >= self.k
 
-    def step(self) -> bool:
-        """Count one micro-batch; apply the update at the window's end.
-        Returns whether it did."""
+    def advance(self) -> bool:
+        """Count one micro-batch; returns whether it applied the update."""
         self.micro += 1
         if self.micro < self.k:
             return False
-        if self.mean and self.k > 1:
-            torch._foreach_div_([p.grad for p in self._params() if p.grad is not None],
-                                float(self.k))
-        self.inner.step(self.updates)
         self.updates += 1
         self.micro = 0
         return True
 
-    def _params(self) -> List[nn.Parameter]:
-        return [p for g in self.inner.torch.param_groups for p in g["params"]]
+    @torch.no_grad()
+    def apply(self, hyper: torch.Tensor) -> None:
+        """The update at a window's end, on the summed gradients."""
+        if self.mean and self.k > 1:
+            torch._foreach_div_(self.inner.grads(), float(self.k))
+        self.inner.step(hyper)
 
     def state_dict(self) -> Dict:
         """The optimizer's state, the counts and, inside a window, the
-        gradients summed so far (on the host)."""
-        grads = [None if p.grad is None else p.grad.detach().cpu() for p in self._params()]
-        return {"optimizer": self.inner.torch.state_dict(), "micro": self.micro,
+        gradients summed so far (live tensors, as ``Optimizer.state_dict``)."""
+        grads = [g.detach() for g in self.inner.grads()]
+        return {"optimizer": self.inner.state_dict(), "micro": self.micro,
                 "updates": self.updates, "grads": grads if self.micro else None}
 
+    @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
-        self.inner.torch.load_state_dict(state["optimizer"])
+        self.inner.load_state_dict(state["optimizer"])
         self.micro, self.updates = int(state["micro"]), int(state["updates"])
-        for p, g in zip(self._params(), state["grads"] or []):
-            p.grad = None if g is None else g.to(p.device)
+        for g, saved in zip(self.inner.grads(), state["grads"] or []):
+            g.copy_(saved)
 
 
 @torch.no_grad()
-def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], step: int,
-               decay: float = 0.9999) -> None:
-    """In place: ema = ema * d + p * (1 - d), d = decay * (1 - exp(-step/2000)).
-    Parameters only: the JAX EMA does not cover the batch statistics."""
-    d = decay * (1 - math.exp(-step / 2000.0))
-    torch._foreach_mul_(ema, d)
-    torch._foreach_add_(ema, params, alpha=1 - d)
+def ema_update(ema: Sequence[torch.Tensor], params: Sequence[torch.Tensor], decay) -> None:
+    """In place: ema = ema * d + p * (1 - d). ``decay`` is the step count
+    (d = ``ema_decay(step)``) or d itself as a 0-d device tensor. Parameters
+    only: the JAX EMA does not cover the batch statistics."""
+    if not isinstance(decay, torch.Tensor):
+        decay = torch.tensor(ema_decay(decay), dtype=torch.float32, device=ema[0].device)
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, torch._foreach_mul(params, 1 - decay))

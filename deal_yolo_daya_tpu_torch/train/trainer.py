@@ -17,13 +17,24 @@ on-card augmentation (``train/device_augment.py``) with the per-step seed
 ``(seed << 20) + epoch * 16384 + step``, the dataset held on the card
 (``cache="device"``), validation with the EMA weights after each epoch,
 ``results.csv`` and ``args.yaml``, ``weights/{last,best,epochN}.pt`` and
-resume. What the JAX Trainer has and this one does not yet: the host
-augmentation (``device_augment=False`` raises), chunked dispatch
-(``steps_per_dispatch`` > 1), several devices, ``batch=-1``,
-``profile_steps``, ``remat`` and the plots; see ROADMAP.md. ``async_ckpt``,
-``donate`` and ``fold_div_barrier`` are accepted and have no counterpart:
-checkpoints are written synchronously, PyTorch frees buffers itself, and
-the barrier works around an XLA compiler fault.
+resume, and the JAX Trainer's options on one device:
+
+- ``steps_per_dispatch``: with the device cache, K steps a dispatch, each
+  a replay of one CUDA graph of the whole iteration (``train/step_graph.py``,
+  the counterpart of the chunked ``lax.scan``); None resolves as in JAX, and
+  the epoch's remainder and the profiled epoch run eagerly;
+- ``device_augment=False``: the host augmentation (``train/augment.py``)
+  in the loader's worker threads, streamed. ``device_augment=None``
+  augments on the card, where the JAX package picks the host on machines
+  of more than 2 cores: this port's card machines have no cv2, and the
+  host augmentation in numpy is the slower;
+- ``remat``, ``profile_steps`` (a ``torch.profiler`` Chrome trace of steps
+  1..N of the first epoch under ``<run>/profile``), ``async_ckpt``
+  (``train/async_ckpt.py``) and ``batch=-1`` (``train/autobatch.py``).
+
+Several devices and the plots are not ported (ROADMAP.md). ``donate`` and
+``fold_div_barrier`` are accepted and have no counterpart: PyTorch frees
+buffers itself, and the barrier works around an XLA compiler fault.
 """
 
 from __future__ import annotations
@@ -47,11 +58,16 @@ from ..models.yolo11 import init_weights
 from ..ops.decode import decode_predictions
 from ..ops.nms import batched_nms
 from .artifacts import RunDir
-from .data import HOST_AUGMENT, DataLoader, Prefetcher, YoloDataset
+from .async_ckpt import CheckpointWriter, snapshot
+from .augment import AugmentConfig
+from .autobatch import suggest_batch
+from .data import DataLoader, Prefetcher, YoloDataset
 from .device_augment import DeviceAugConfig, augment_batch, step_seed
+from .step_graph import StepProgram, auto_steps_per_dispatch
 from .loss import LossConfig, detection_loss
 from .metrics import DetMetrics
-from .optimizer import Optimizer, OptimizerConfig, accumulate_gradients, ema_update, lr_schedule
+from .optimizer import (H_EMA_DECAY, H_GRAD_KEEP, N_HYPER, Optimizer, OptimizerConfig,
+                        accumulate_gradients, ema_decay, ema_update, lr_schedule)
 
 STEM_KERNEL = "0.conv.weight"
 LOSS_PARTS = ("box_loss", "cls_loss", "dfl_loss", "num_fg")
@@ -65,7 +81,7 @@ class TrainConfig:
     data: str = ""
     epochs: int = 100
     imgsz: int = 640
-    batch: int = 16             # -1 (autobatch) is not ported: raises
+    batch: int = 16             # -1: the largest that fits (train/autobatch.py)
     auto_batch_bytes: int = 0   # for batch=-1
     device: str = ""            # "" or "0": the card; "cpu"; others raise
     amp: bool = True
@@ -112,14 +128,16 @@ class TrainConfig:
     iou: float = 0.7            # validation NMS IoU threshold
     max_det: int = 300
     donate: bool = False        # no counterpart (XLA buffer donation)
-    # None (auto) and True: augment on the card; False (the host
-    # augmentation) is not ported: raises
+    # None (auto) and True: augment on the card; False: on the host
+    # (train/augment.py), streamed
     device_augment: Optional[bool] = None
-    profile_steps: int = 0      # not ported: raises when > 0
-    remat: bool = False         # not ported: raises when True
+    profile_steps: int = 0      # > 0: a torch.profiler trace of steps 1..N into <run>/profile
+    remat: bool = False         # recompute the heavy blocks in the backward
     fold_input_div: bool = True
     fold_div_barrier: Optional[bool] = None  # no counterpart (an XLA workaround)
-    steps_per_dispatch: Optional[int] = None  # > 1 (chunked dispatch) not ported: raises
+    # device cache only: K steps a dispatch as CUDA graph replays; None:
+    # the largest K in [4, 16] dividing the epoch's batches, else 8; 1: eager
+    steps_per_dispatch: Optional[int] = None
     loss_batch_scale: bool = False
     # nominal batch: > 0 sums round(nbs / batch) micro-batch gradients a
     # step and scales weight decay by batch * accumulate / nbs
@@ -131,7 +149,7 @@ class TrainConfig:
     # freeze the first N modules (ultralytics indices; the head never):
     # no gradients, no updates, BN running statistics still move
     freeze: int = 0
-    async_ckpt: bool = True     # no counterpart: checkpoints are synchronous
+    async_ckpt: bool = True     # checkpoints written by a background thread
     keep_last: int = 5          # newest epochN checkpoints kept (<= 0: all)
     extra: Dict[str, Any] = field(default_factory=dict)
 
@@ -167,7 +185,14 @@ class TrainState:
     ``accumulate`` sums that many micro-batch gradients an update (the EMA
     then moves once an update); ``frozen`` names top-level modules that get
     no gradients and no updates; ``family`` and ``scale`` name the detector
-    (by default those of ``cfg.model``).
+    (by default those of ``cfg.model``); ``cfg.remat`` recomputes the heavy
+    blocks' activations in the backward.
+
+    A step is ``next_hyper()`` on the host (the schedules' values for the
+    next micro-batch copied into the device vector ``hyper``, and the
+    counts), then ``iteration(...)`` on the device, which reads them from
+    ``hyper``. The CUDA graph of ``train/step_graph.py`` captures
+    ``iteration`` as it is.
 
     >>> state = TrainState(TrainConfig(), nc=80, steps_per_epoch=100)  # on the card
     >>> total = state.step(images_u8, gt_boxes, gt_classes, gt_mask)
@@ -183,7 +208,8 @@ class TrainState:
         self.dtype = torch.bfloat16 if cfg.amp else torch.float32
         self.family, self.scale = parse_model_spec(cfg.model) if family is None \
             else (family, scale)
-        model = init_weights(make_detector(self.family, self.scale, nc), cfg.seed)
+        model = init_weights(make_detector(self.family, self.scale, nc, remat=cfg.remat),
+                             cfg.seed)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         for name, mod in model.named_children():
@@ -200,13 +226,16 @@ class TrainState:
             cos_lr=cfg.cos_lr, epochs=cfg.epochs, steps_per_epoch=steps_per_epoch)
         self.optimizer = accumulate_gradients(accumulate, Optimizer(self.opt_cfg, self.model),
                                               mean=not cfg.loss_batch_scale)
-        self.params = list(self.model.parameters())
-        self.ema = [p.detach().clone() for p in self.params]
+        self.params = [p.detach() for p in self.model.parameters()]
+        self.ema = [p.clone() for p in self.params]
         self.updates = 0  # micro-batch steps taken (the JAX state.step)
-        self.loss_acc = self.zero_loss_acc()
+        self.loss_acc = {k: torch.zeros((), device=self.device) for k in LOSS_PARTS}
+        self.hyper = torch.zeros(N_HYPER, device=self.device)
 
-    def zero_loss_acc(self) -> Dict[str, torch.Tensor]:
-        return {k: torch.zeros((), device=self.device) for k in LOSS_PARTS}
+    def zero_loss_acc(self) -> None:
+        """Set the loss sums to 0, in place (a captured step adds into them)."""
+        for v in self.loss_acc.values():
+            v.zero_()
 
     def ema_state_dict(self) -> Dict[str, torch.Tensor]:
         """The EMA parameters under the model's state-dict names."""
@@ -220,7 +249,9 @@ class TrainState:
                 STEM_KERNEL, self.model.get_parameter(STEM_KERNEL)) * (1.0 / 255.0)
         else:
             x = x / 255.0
-        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.cfg.amp):
+        # no cast cache: a CUDA graph must not keep casts across its capture
+        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.cfg.amp,
+                            cache_enabled=False):
             return functional_call(self.model, params, (x,))
 
     def forward(self, images: torch.Tensor):
@@ -246,6 +277,42 @@ class TrainState:
         return detection_loss(box, cls, gt_classes, gt_boxes, gt_mask,
                               (self.cfg.imgsz, self.cfg.imgsz), self.loss_cfg)
 
+    def next_hyper(self) -> bool:
+        """Copy the next micro-batch's row into ``hyper`` (a pinned copy on
+        the current stream) and count it (``updates`` and the optimizer's
+        counts) -> whether it applies the update."""
+        acc = self.optimizer
+        keep, update = acc.window()
+        row = [0.0] * N_HYPER
+        row[H_GRAD_KEEP], row[H_EMA_DECAY] = keep, 1.0
+        if update:
+            for col, v in acc.inner.hyper_row(acc.updates).items():
+                row[col] = v
+            row[H_EMA_DECAY] = ema_decay(acc.updates + 1)
+        acc.advance()
+        self.updates += 1
+        self.hyper.copy_(torch.tensor(row, pin_memory=self.device.type == "cuda"),
+                         non_blocking=True)
+        return update
+
+    def iteration(self, images: torch.Tensor, gt_boxes: torch.Tensor,
+                  gt_classes: torch.Tensor, gt_mask: torch.Tensor, update: bool) -> torch.Tensor:
+        """One micro-batch on the device with the values in ``hyper``: clear
+        or keep the summed gradients, forward, loss, backward, and with
+        ``update`` the optimizer and the EMA; the loss parts are added to
+        ``loss_acc``. No host read. Returns the total loss."""
+        grads = self.optimizer.inner.grads()
+        torch._foreach_mul_(grads, self.hyper[H_GRAD_KEEP])
+        total, parts = self.loss(images, gt_boxes, gt_classes, gt_mask)
+        total.backward()
+        if update:
+            self.optimizer.apply(self.hyper)
+            ema_update(self.ema, self.params, self.hyper[H_EMA_DECAY])
+        with torch.no_grad():
+            for k in LOSS_PARTS:
+                self.loss_acc[k].add_(parts[k].detach())
+        return total.detach()
+
     def step(self, images: torch.Tensor, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
              gt_mask: torch.Tensor) -> torch.Tensor:
         """One micro-batch on a u8 (B, S, S, 3) batch with padded GT (B, N, 4)
@@ -254,26 +321,21 @@ class TrainState:
         total loss as a device tensor; the parts are added to ``loss_acc``.
         Without accumulation each parameter's ``.grad`` then holds this
         step's gradient."""
-        self.optimizer.zero_grad()
-        total, parts = self.loss(images, gt_boxes, gt_classes, gt_mask)
-        total.backward()
-        self.updates += 1
-        if self.optimizer.step():
-            ema_update(self.ema, [p.detach() for p in self.params], self.optimizer.updates)
-        with torch.no_grad():
-            for k in LOSS_PARTS:
-                self.loss_acc[k] += parts[k].detach()
-        return total.detach()
+        return self.iteration(images, gt_boxes, gt_classes, gt_mask, self.next_hyper())
+
+    def state_views(self) -> Dict[str, Any]:
+        """What ``state()`` holds, as the live tensors on the device."""
+        return {"model": {k: v.detach() for k, v in self.model.state_dict().items()},
+                "ema": self.ema_state_dict(), "optimizer": self.optimizer.state_dict(),
+                "updates": self.updates}
 
     def state(self) -> Dict[str, Any]:
-        """Parameters and BN statistics and EMA (on the host), the optimizer's
-        state and the count."""
-        return {"model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-                "ema": {k: v.cpu() for k, v in self.ema_state_dict().items()},
-                "optimizer": self.optimizer.state_dict(), "updates": self.updates}
+        """Parameters and BN statistics and EMA, the optimizer's state and
+        the count, copied to the host."""
+        return to_host(self.state_views())
 
     def load_state(self, state: Dict[str, Any]) -> None:
-        """Restore what ``state()`` returned."""
+        """Restore what ``state()`` returned, in place."""
         self.model.load_state_dict(state["model"], strict=True)
         ema = state["ema"]
         with torch.no_grad():
@@ -281,6 +343,12 @@ class TrainState:
                 e.copy_(ema[name])
         self.optimizer.load_state_dict(state["optimizer"])
         self.updates = int(state["updates"])
+
+
+def to_host(obj):
+    """A nest of dicts, lists and tensors with every tensor copied to the host."""
+    return snapshot(obj, lambda t: t.detach().cpu() if t.device.type != "cpu"
+                    else t.detach().clone())
 
 
 def load_checkpoint(path) -> Dict[str, Any]:
@@ -328,11 +396,12 @@ class Trainer:
     def __init__(self, config: TrainConfig,
                  init_state_dict: Optional[Dict[str, torch.Tensor]] = None):
         self.cfg = cfg = config
-        self._check_supported(cfg)
         self.device = _device_of(cfg.device)
         self._dev_cache = None
         self._dev_cache_failed = False
         self._val_staged = None
+        self._program: Optional[StepProgram] = None
+        self._writer = CheckpointWriter()
         if str(cfg.model).endswith(".pt"):
             ckpt = load_checkpoint(cfg.model)
             self.family, self.scale = checkpoint_family(ckpt), ckpt["scale"]
@@ -360,12 +429,21 @@ class Trainer:
         self.nc = max(self.train_ds.nc, 1)
         self.names = self.train_ds.names or [str(i) for i in range(self.nc)]
 
-        if cfg.device_augment is None:
+        if cfg.device_augment is None:  # the card (see the module docstring)
             cfg.device_augment = True
-        if not cfg.device_augment:
-            raise NotImplementedError(HOST_AUGMENT)
         if cfg.cache is None:
-            cfg.cache = "device"
+            cfg.cache = "device" if cfg.device_augment else False
+        if cfg.batch < 0:
+            on_card = cfg.cache == "device" and cfg.device_augment
+            cached = self._device_cache_bytes() if on_card else 0
+            cached = 0 if cached > self._cache_budget() else cached
+            cfg.batch = suggest_batch(
+                lambda: TrainState(cfg, self.nc, 100, device=self.device, family=self.family,
+                                   scale=self.scale),
+                cfg.imgsz, self.device, max_boxes=cfg.max_boxes,
+                limit_bytes=cfg.auto_batch_bytes or None, reserve_bytes=cached,
+                graphed=bool(cached) and cfg.steps_per_dispatch != 1,
+                evaluate=lambda st, *batch: self.eval_step(*batch, state=st))
         self.aug_cfg = DeviceAugConfig(
             mosaic=cfg.mosaic, mixup=cfg.mixup, scale=cfg.scale, translate=cfg.translate,
             degrees=cfg.degrees, shear=cfg.shear, hsv_h=cfg.hsv_h, hsv_s=cfg.hsv_s,
@@ -373,8 +451,12 @@ class Trainer:
         if max(abs(cfg.degrees), abs(cfg.shear)) > 45.0:
             print("degrees/shear above 45: the on-card augmentation samples every pixel "
                   "by gather (the slow path)")
-        self.train_loader = DataLoader(self.train_ds, cfg.batch, cfg.imgsz, augment=True,
-                                       seed=cfg.seed, max_boxes=cfg.max_boxes)
+        self.train_loader = DataLoader(
+            self.train_ds, cfg.batch, cfg.imgsz, augment=True, seed=cfg.seed,
+            max_boxes=cfg.max_boxes, aug_config=AugmentConfig(
+                mosaic=cfg.mosaic, mixup=cfg.mixup, hsv_h=cfg.hsv_h, hsv_s=cfg.hsv_s,
+                hsv_v=cfg.hsv_v, fliplr=cfg.fliplr, flipud=cfg.flipud, scale=cfg.scale,
+                translate=cfg.translate, degrees=cfg.degrees, shear=cfg.shear, bgr=cfg.bgr))
         self.val_loader = DataLoader(self.val_ds, cfg.batch, cfg.imgsz, augment=False,
                                      seed=cfg.seed, max_boxes=cfg.max_boxes, keep_meta=True,
                                      shuffle=False, drop_last=False)
@@ -411,15 +493,6 @@ class Trainer:
         if cfg.resume:
             self._try_resume()
 
-    @staticmethod
-    def _check_supported(cfg: TrainConfig) -> None:
-        missing = {"batch=-1 (autobatch)": cfg.batch < 0,
-                   "profile_steps": cfg.profile_steps > 0, "remat": bool(cfg.remat),
-                   "steps_per_dispatch > 1 (chunked dispatch)": (cfg.steps_per_dispatch or 1) > 1}
-        for what, asked in missing.items():
-            if asked:
-                raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md section 1)")
-
     def _overlay(self, init: Optional[Dict[str, torch.Tensor]]):
         """``init`` laid over a fresh init where the shapes fit."""
         if init is None:
@@ -444,9 +517,7 @@ class Trainer:
             return self._dev_cache
         dl = self.train_loader
         n = len(dl.ds)
-        per_img = dl.imgsz * dl.imgsz * 3 + dl.max_boxes * 24 + 16
-        need = (n + len(self.val_ds)) * per_img  # and the val batches kept there
-        budget = float(self.cfg.extra.get("cache_budget_gb", 8.0)) * 1e9
+        need, budget = self._device_cache_bytes(), self._cache_budget()
         if n == 0 or need > budget or n < self.cfg.batch:
             print(f"cache=device needs about {need / 1e9:.1f} GB (budget {budget / 1e9:.1f} "
                   "GB) or a set of at least one batch; streaming instead")
@@ -469,6 +540,15 @@ class Trainer:
         self._dev_cache = parts
         return parts
 
+    def _device_cache_bytes(self) -> int:
+        """The bytes of the train set on the device, and of the val batches
+        kept there."""
+        per_img = self.cfg.imgsz * self.cfg.imgsz * 3 + self.cfg.max_boxes * 24 + 16
+        return (len(self.train_ds) + len(self.val_ds)) * per_img
+
+    def _cache_budget(self) -> float:
+        return float(self.cfg.extra.get("cache_budget_gb", 8.0)) * 1e9
+
     def _to_device(self, arrays):
         pin = self.device.type == "cuda"
         return tuple((torch.from_numpy(a).pin_memory() if pin else torch.from_numpy(a))
@@ -480,18 +560,32 @@ class Trainer:
         return (self.run.path / "weights").resolve()
 
     def checkpoint(self, epoch: int, fit: float) -> Dict[str, Any]:
-        return {**self.state.state(), "format": CHECKPOINT_FORMAT, "epoch": epoch,
+        return to_host(self.checkpoint_views(epoch, fit))
+
+    def checkpoint_views(self, epoch: int, fit: float) -> Dict[str, Any]:
+        """``checkpoint()`` with the live device tensors in place of copies."""
+        return {**self.state.state_views(), "format": CHECKPOINT_FORMAT, "epoch": epoch,
                 "fitness": fit, "nc": self.nc, "names": list(self.names),
                 "family": self.family, "scale": self.scale, "imgsz": self.cfg.imgsz,
                 "train_args": json.loads(json.dumps(dataclasses.asdict(self.cfg), default=str))}
 
     def save_checkpoint(self, tag: str, epoch: int, fit: float):
-        """weights/<tag>.pt, written whole or not at all."""
+        """weights/<tag>.pt, written whole or not at all: by the background
+        writer under ``async_ckpt`` (an error is raised by the next
+        ``flush_checkpoints``), else here."""
         path = self._ckpt_dir() / f"{tag}.pt"
+        if self.cfg.async_ckpt:
+            self._writer.save(path, self.checkpoint_views(epoch, fit),
+                              after=self._gc_epoch_checkpoints)
+            return
         tmp = path.with_suffix(".pt.tmp")
         torch.save(self.checkpoint(epoch, fit), tmp)
         os.replace(tmp, path)
         self._gc_epoch_checkpoints()
+
+    def flush_checkpoints(self) -> None:
+        """Wait for the background writes; raise the first error one met."""
+        self._writer.flush()
 
     def _gc_epoch_checkpoints(self):
         """Keep the newest cfg.keep_last epochN checkpoints (last and best stay)."""
@@ -507,6 +601,7 @@ class Trainer:
             epochs[n].unlink()
 
     def _try_resume(self):
+        self.flush_checkpoints()
         path = self.cfg.resume
         path = self._ckpt_dir() / "last.pt" if path is True else Path(str(path))
         if not path.exists():
@@ -519,26 +614,114 @@ class Trainer:
 
     # ------------------------------------------------------------------ train
 
+    def _aug_now(self) -> DeviceAugConfig:
+        """The on-card augmentation of the current epoch (close_mosaic turns
+        mosaic and mixup off)."""
+        if self.train_loader.mosaic_off:
+            return self.aug_cfg._replace(mosaic=0.0, mixup=0.0)
+        return self.aug_cfg
+
     def augment(self, batch, seed: int):
         """The on-card augmentation of one raw batch (on the device)."""
-        cfg = self.aug_cfg
-        if self.train_loader.mosaic_off:  # the close_mosaic hook
-            cfg = cfg._replace(mosaic=0.0, mixup=0.0)
-        return augment_batch(*batch, seed, self.cfg.imgsz, cfg, max_boxes=self.cfg.max_boxes)
+        return augment_batch(*batch, seed, self.cfg.imgsz, self._aug_now(),
+                             max_boxes=self.cfg.max_boxes)
 
-    def _epoch_batches(self, epoch: int):
-        """The epoch's raw batches on the device: gathered from the device
-        cache, or decoded on the host and copied in a background thread."""
-        if self.cfg.cache == "device" and self._ensure_device_cache() is not None:
+    def _uses_device_cache(self) -> bool:
+        return (self.cfg.cache == "device" and bool(self.cfg.device_augment)
+                and self._ensure_device_cache() is not None)
+
+    def steps_per_dispatch(self, n_batches: int = 0) -> int:
+        """The resolved K (``auto_steps_per_dispatch``)."""
+        return auto_steps_per_dispatch(self.cfg.steps_per_dispatch, n_batches)
+
+    def step_program(self) -> StepProgram:
+        """The step program of the current augmentation; a close_mosaic
+        flip replaces it (and frees the old one's graphs)."""
+        aug = self._aug_now()
+        prog = self._program
+        if prog is None or prog.aug_cfg != aug:
+            self._program = prog = None
+            prog = self._program = StepProgram(self.state, self._dev_cache, aug, self.cfg.imgsz,
+                                               self.cfg.max_boxes, self.cfg.batch)
+        return prog
+
+    def _epoch_batches(self, epoch: int, first: int = 0):
+        """The epoch's batches from its ``first`` on, on the device: raw
+        ones for the on-card augmentation (gathered from the device cache,
+        or decoded on the host and copied in a background thread), or
+        augmented on the host, GT bucketed, copied likewise."""
+        cfg = self.cfg
+        if self._uses_device_cache():
             cache = self._dev_cache
-            for idxs in self.train_loader.epoch_indices(epoch):
+            for idxs in list(self.train_loader.epoch_indices(epoch))[first:]:
                 idx = torch.from_numpy(idxs).to(self.device)
                 yield tuple(t[idx] for t in cache)
             return
-        yield from Prefetcher(
-            self.train_loader.epoch_raw(epoch), depth=self.cfg.workers,
-            transfer=lambda b: self._to_device((b.images, b.hw, b.gt_boxes, b.gt_classes,
-                                                b.gt_mask)))
+        if first:
+            raise ValueError("a streamed epoch starts at its first batch")
+        if cfg.device_augment:
+            yield from Prefetcher(
+                self.train_loader.epoch_raw(epoch), depth=cfg.workers,
+                transfer=lambda b: self._to_device((b.images, b.hw, b.gt_boxes, b.gt_classes,
+                                                    b.gt_mask)))
+            return
+
+        def transfer(b):
+            return self._to_device((b.images, *bucket_gt(b.gt_boxes, b.gt_classes, b.gt_mask,
+                                                         cfg.max_boxes)))
+
+        yield from Prefetcher(self.train_loader.epoch(epoch), depth=cfg.workers,
+                              transfer=transfer)
+
+    def _profile(self, prof=None):
+        """Start a torch.profiler trace (no ``prof``), or stop ``prof`` and
+        write it to <run>/profile/trace.json."""
+        from torch.profiler import ProfilerActivity, profile
+
+        if prof is None:
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                             if self.device.type == "cuda" else [])
+            prof = profile(activities=acts)
+            prof.start()
+            return prof
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = self.run.path / "profile"
+        out.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(out / "trace.json"))
+        print(f"profiler trace written to {out / 'trace.json'}")
+        return None
+
+    def _train_epoch(self, epoch: int) -> int:
+        """One epoch's steps -> their count. With the device cache and K > 1
+        (not in a profiled epoch) K steps a dispatch through the step
+        program, the remainder eagerly, as the JAX Trainer does."""
+        cfg = self.cfg
+        n_steps = 0
+        profiled = cfg.profile_steps > 0 and epoch == self.start_epoch
+        if self._uses_device_cache() and not profiled:
+            all_idx = list(self.train_loader.epoch_indices(epoch))
+            k = self.steps_per_dispatch(len(all_idx))
+            if k > 1:
+                prog = self.step_program()
+                for c in range(len(all_idx) // k):
+                    prog.run(np.stack(all_idx[c * k:(c + 1) * k]),
+                             [step_seed(cfg.seed, epoch, c * k + j) for j in range(k)])
+                    n_steps += k
+        prof = None
+        for batch in self._epoch_batches(epoch, n_steps):
+            if profiled and n_steps == 1:  # after step 0: its builds stay out of the trace
+                prof = self._profile()
+            if cfg.device_augment:
+                batch = self.augment(batch, step_seed(cfg.seed, epoch, n_steps))
+            self.state.step(*batch)
+            n_steps += 1
+            if prof is not None and n_steps >= 1 + cfg.profile_steps:
+                prof = self._profile(prof)
+        if prof is not None:  # a short epoch: close the trace
+            self._profile(prof)
+        return n_steps
 
     def train(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -549,12 +732,9 @@ class Trainer:
         for epoch in range(self.start_epoch, cfg.epochs):
             if cfg.close_mosaic and cfg.epochs - epoch <= cfg.close_mosaic:
                 self.train_loader.mosaic_off = True
-            self.state.loss_acc = self.state.zero_loss_acc()
-            n_steps = 0
+            self.state.zero_loss_acc()
             epoch_t0 = time.time()
-            for batch in self._epoch_batches(epoch):
-                self.state.step(*self.augment(batch, step_seed(cfg.seed, epoch, n_steps)))
-                n_steps += 1
+            n_steps = self._train_epoch(epoch)
             t_dispatch = time.time()
             losses = {"box_loss": 0.0, "cls_loss": 0.0, "dfl_loss": 0.0}
             if n_steps:  # one read of the device sums an epoch
@@ -607,20 +787,24 @@ class Trainer:
                 print(f"training time limit of {cfg.time} h reached")
                 break
 
+        self._program = None  # its graphs' memory pool goes with it
+        self._writer.close()
         final_metrics = self.validate()[0] if cfg.val else {}
         print(f"training done in {time.time() - t0:.1f} s; results in {self.run.path}")
         return {"save_dir": self.run.path, "best_fitness": best_fit, "metrics": final_metrics}
 
     # ------------------------------------------------------------------ val
 
-    def eval_step(self, images, gt_boxes, gt_classes, gt_mask, inv, use_ema: bool = True):
+    def eval_step(self, images, gt_boxes, gt_classes, gt_mask, inv, use_ema: bool = True,
+                  state: Optional[TrainState] = None):
         """One validation batch on the device -> (detections (boxes, scores,
         classes, n_det), their boxes in original-image pixels, the GT boxes
-        likewise, loss parts). ``inv`` (B, 5) is [r, pad_x, pad_y, w, h]."""
+        likewise, loss parts). ``inv`` (B, 5) is [r, pad_x, pad_y, w, h].
+        ``state`` is the Trainer's unless given (the batch=-1 probe's)."""
         imgsz = (self.cfg.imgsz, self.cfg.imgsz)
-        box, cls = self.state.eval_forward(images, use_ema)
-        _, parts = detection_loss(box, cls, gt_classes, gt_boxes, gt_mask, imgsz,
-                                  self.state.loss_cfg)
+        state = self.state if state is None else state
+        box, cls = state.eval_forward(images, use_ema)
+        _, parts = detection_loss(box, cls, gt_classes, gt_boxes, gt_mask, imgsz, state.loss_cfg)
         boxes, scores = decode_predictions(box, cls, imgsz)
         det = batched_nms(boxes, scores, conf_thres=self.cfg.conf, iou_thres=self.cfg.iou,
                           pre_topk=1000, max_det=self.cfg.max_det)

@@ -94,12 +94,6 @@ def test_validation_epoch_matches_jax(data_yaml, imgsz):
         assert g.meta == w.meta
 
 
-def test_augmenting_epoch_is_not_ported(data_yaml):
-    _, pl = _loaders(data_yaml, "train", augment=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        next(pl.epoch(0))
-
-
 def test_raw_batches_match_jax(data_yaml):
     """load_raw, raw_chunks (the device cache's feed) and epoch_raw."""
     jl, pl = _loaders(data_yaml, "train", augment=True)

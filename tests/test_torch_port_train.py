@@ -451,7 +451,10 @@ def test_optimizer_steps_match_optax(name):
         params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
         for (m, k), p in port_of.items():
             p.grad = to_port(grads[m][k])
-        opt.step(step)
+        hyper = torch.zeros(port_opt.N_HYPER)
+        for col, v in opt.hyper_row(step).items():
+            hyper[col] = v
+        opt.step(hyper)
         for (m, k), p in port_of.items():
             np.testing.assert_allclose(p.detach().numpy(), to_port(params[m][k]).numpy(),
                                        rtol=1e-5, atol=1e-6, err_msg=f"{name} {m}.{k} {step}")

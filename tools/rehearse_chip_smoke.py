@@ -81,13 +81,32 @@ REPLACEMENTS = [
     ("profiled_replay(engine, 32,", "profiled_replay(engine, 4,"),
     ("profiled_replay(eng, 8,", "profiled_replay(eng, 4,"),
     ("for b in (1, 8, 32):", "for b in (1, 2, 4):"),
-    ("runs = serve.WARMUP_RUNS + 1", "runs = 1"),
-    ("check(replay_moved == (0, 0),", "check(True,"),
-    ("check(counts() == before, \"a served batch ran eagerly\")",
-     "check(True, \"a served batch ran eagerly\")"),
-    ("check(serve_launches == {", "check(True or {"),
+    ("            runs = serve.WARMUP_RUNS\n", "            runs = 1\n"),
     ("check(seen == tuple(per_forward),", "check(True,"),
     ("if seen == tuple(per_forward):", "if True:"),
+    # the graphed train step (phases 22-28): on the CPU the step program runs
+    # its iteration eagerly, so there is no graph to replay or profile
+    ("GRAPH_STEPS = 8", "GRAPH_STEPS = 2"),
+    ("imgsz, n_cache, k = 640,", "imgsz, n_cache, k = 128,"),
+    ('"yolo11n", 32, (1, 1), card)', '"yolo11n", 2, (1, 1), card)'),
+    ("prog.graphs[True].replay()", "prog.iteration(True)"),
+    ("        if rows:\n            return rows, wall", "        if True:\n            return rows, wall"),
+    ("check(launched == tuple(per_step),", "check(True,"),
+    ("        if rows:\n            break", "        if True:\n            break"),
+    ("check(on_card == counted,", "check(True,"),
+    ("check(n_batches >= 2 and any(p.graphs for p in programs),",
+     "check(n_batches >= 2 and bool(programs),"),
+    ("check(need <= limit,", "check(True,"),
+    ("make_train_batch(seed, 4, 640)", "make_train_batch(seed, 2, 128)"),
+    ("make_train_batch(seed, 32, 640)", "make_train_batch(seed, 2, 128)"),
+    ("torch.full((32, 2), 640.0", "torch.full((2, 2), 128.0"),
+    ("DeviceAugConfig(), 640, GRAPH_MAX_BOXES, 32)", "DeviceAugConfig(), 128, GRAPH_MAX_BOXES, 2)"),
+    ("permutation(32) for j in range(k)", "permutation(2) for j in range(k)"),
+    ("check(replay == (2, 1) and", "check(True or"),
+    ("check(all(found.values()),", "check(True,"),
+    ('synth.dataset(root / "synth")', 'synth.dataset(root / "synth", 8, 4, 64)'),
+    ('"graphed", seed=args.seed, device="cpu")', '"graphed", seed=args.seed, device="cpu", epochs=1, imgsz=64)'),
+    ('check(yardstick["map50"] >= YARDSTICK_MAP50,', 'check(True,'),
 ]
 
 
@@ -110,6 +129,11 @@ def _stub_cuda(torch):
     torch.cuda.device_count = lambda: 1
     torch.cuda.get_device_name = lambda *a: "CPU rehearsal"
     torch.cuda.max_memory_allocated = lambda *a: 0
+    torch.cuda.memory_allocated = lambda *a: 0
+    torch.cuda.memory_reserved = lambda *a: 0
+    torch.cuda.max_memory_reserved = lambda *a: 0
+    torch.cuda.reset_peak_memory_stats = lambda *a: None
+    torch.cuda.mem_get_info = lambda *a: (0, 0)
     torch.cuda.Event = _Event
     run = subprocess.run
 
