@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's yolo11n and yolo12n predict, train step (eager
-and as a CUDA graph) and Trainer, yolov8n predict, and the serving Engine of
-all three, on one NVIDIA card and hold its CUDA kernels against their plain
-PyTorch versions.
+and as a CUDA graph) and Trainer, yolov8n predict, the serving Engine of all
+three, int8 (w8a8) predict, serving, bundles and validation, and ultralytics
+checkpoints in, on one NVIDIA card and hold its CUDA kernels against their
+plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -151,7 +152,35 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
 27. ``profile_steps=2``: the Chrome trace holds the attention kernels;
 28. the synth yardstick (``tools/train_synth_torch.py``): yolo11n, 30 epochs
    at 320 on 600 + 100 shapes images, the graphed step; mAP50 must reach
-   YARDSTICK_MAP50.
+   YARDSTICK_MAP50;
+29. int8 predict, this slice's main path: ``quantize_int8`` on phase 5's 64
+   images (yolo11n, nc 80, 640, random weights from ``--seed``, class biases
+   at 0), calibrated on the card; the int8 raw head outputs against the
+   fused model's on a b32 batch at the JAX package's bar (INT8_HEAD_BAR, in
+   f32; bf16 printed); predict at b32
+   with the counts at 0 before and read after: the s8 conv once a quantized
+   conv (74), attention and NMS once, a batch; img/s end to end and device
+   ms a b32 batch, int8 and bf16 in turn; the weights' bytes both ways;
+30. the s8 conv (``csrc/int8_conv.cu``) against its plain version, s32 sums
+   and outputs bit for bit, and against itself (two launches), on every
+   quantized conv's input of phase 29's first batch and on edge shapes
+   (Cin 3, K = 27; stride 2; 1x1; B = 1; Cout 67; Cin 20; bf16 and f32;
+   inputs at +-127 steps, beyond, and on the k + 0.5 rounding ties); its
+   times at the heaviest path conv with cuDNN's bf16 conv of the same shape
+   and the bound, and summed over a b32 int8 infer;
+31. the int8 Engine: buckets 1-32 captured, each replay bit-identical to
+   the eager int8 ``infer``, and one profiled b32 replay with the s8 conv,
+   attention and NMS inside the graph;
+32. ``export``/``from_export`` of the int8 handle, predicting bit for bit as
+   its source;
+33. an ultralytics-layout fp16 ``best.pt`` of phase 12's weights
+   (``tools/ultralytics_pt.py``, stand-in classes): ``from_ultralytics``
+   predicts bit for bit as the fp16-rounded weights; ``Trainer(model=<.pt>)``
+   fine-tunes an epoch under nc 4, its launches held to its steps and its
+   report naming the class head;
+34. the yardstick in int8: phase 28's model, ``val()`` in bf16, then
+   ``quantize_int8`` on 64 of its train images and ``val(int8=True)``: int8
+   mAP50-95 must reach INT8_MAP_SHARE of bf16's.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
@@ -160,8 +189,9 @@ its global-memory mapping's time at K = 4096, the (32, 32) attention builds
 as rows of their own, each kernel's launches inside the serving graphs, and
 the yolo12n and yolov8n records under ``families``, and each attention
 kernel's ``train_graph_launches``, its launches inside one replay of the
-graphed step) and the last line the device record; the ``serving`` and
-``train_graph`` records and the card's name come before them.
+graphed step; the s8 conv's row last) and the last line the device
+record; the ``serving``, ``train_graph`` and ``int8`` records and the
+card's name come before them.
 """
 
 from __future__ import annotations
@@ -242,6 +272,16 @@ GRAPH_MAX_BOXES = 32
 # that accumulates in another order
 GRAPH_TOL = 1e-4
 AUTOBATCH_REPEATS = 8        # phase 26: 8 x 256 train images, two batches at the cap of 1024
+# w8a8 (phases 29-34): the H100's dense int8 tensor-core peak (NVIDIA data
+# sheet), operations/s
+INT8_OPS = 1979e12
+# the int8 raw head outputs against the bf16 fused model's at each level: the
+# JAX package's own bar (tests/test_quant.py:44-53), correlation above and
+# mean relative difference below
+INT8_HEAD_BAR = (0.98, 0.1)
+# the int8 yardstick: mAP50-95 in int8 at least this share of bf16's (the JAX
+# package measured -0.8% on its own yardstick)
+INT8_MAP_SHARE = 0.98
 # the synth yardstick (phase 28): a floor that catches a broken step; the
 # JAX package reached 0.988 on its own data
 YARDSTICK_MAP50 = 0.90
@@ -999,6 +1039,477 @@ def profile_steps_run(cfg):
     return {"trace_mb": trace.stat().st_size / 1e6, "kernel_events": found}
 
 
+# ---------------------------------------------------------------- phases 29-34
+
+
+def same_bits(a, b) -> bool:
+    """The same shape and the same bits (so -0.0 is not 0.0 and NaN is NaN)."""
+    import torch
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(ints), b.contiguous().view(ints)))
+
+
+def same_detections(got, want, what: str) -> None:
+    """Two predict results with the same boxes, scores and classes, bit for bit."""
+    import numpy as np
+
+    check(len(got) == len(want) and all(
+        len(g) == len(w) and np.array_equal(g.boxes, w.boxes)
+        and np.array_equal(g.scores, w.scores) and np.array_equal(g.classes, w.classes)
+        for g, w in zip(got, want)), f"{what}: the detections differ")
+
+
+def s8_bound(x_shape, cout: int, k: int, stride: int, esize: int):
+    """The s8 conv's least time on the card -> (ms, "bytes" or "operations",
+    bytes, operations): the input read once, the weights (k*k*Cin bytes a
+    row) and scales once, the output written once, at 3.35 TB/s; 2 int8
+    operations a multiply-add at 1,979 TOP/s."""
+    b, c, h, w = x_shape
+    ho, wo = (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1
+    nbytes = b * h * w * c * esize + cout * k * k * c + cout * 4 + b * ho * wo * cout * esize
+    ops = 2.0 * b * ho * wo * cout * k * k * c
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def graph_time_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in a CUDA
+    graph (after 3 on a side stream), its replays timed by CUDA events, over
+    the calls, so no host launch cost sits between them. For the s8 conv,
+    whose launches the card's profiler drops late in a run (it recorded 31,
+    42, 44 and 36 of 50 back-to-back launches of one conv in four runs, and
+    in one none of some path convs in three windows of 10, where a run of
+    phases 29-32 alone recorded all)."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels._build import GraphLaunches
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph), GraphLaunches().capture():  # the counters stay put
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def model_bytes(model) -> int:
+    """The bytes of a model's parameters and buffers."""
+    return sum(t.numel() * t.element_size() for t in model.state_dict().values())
+
+
+def int8_predict_phase(seed: int, images, bf16_handle):
+    """Phase 29: phase 5's handle (class biases at 0), ``quantize_int8`` on
+    its 64 images, calibrated on the card; the int8 raw head outputs
+    against the fused model's on one b32 batch (INT8_HEAD_BAR held in f32,
+    the bf16 figures printed); then predict with the counts at 0 just
+    before and read just after (the s8 conv once a quantized conv,
+    attention and NMS once, a batch), the first batch's conv inputs
+    recorded; img/s end to end and device ms a b32 batch, int8 and bf16
+    (phase 5's handle) in turn; the weights' bytes both ways."""
+    import numpy as np
+    import torch
+
+    from deal_yolo_daya_tpu_torch.api import YOLO
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import int8_conv as ic
+    from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
+    from deal_yolo_daya_tpu_torch.ops.letterbox import letterbox_numpy
+
+    from deal_yolo_daya_tpu_torch.models.quant import quantized_model
+    from deal_yolo_daya_tpu_torch.models.yolo11 import fuse_conv_bn
+
+    dev = torch.device("cuda")
+    q11 = YOLO("yolo11n", nc=80, imgsz=640, seed=seed, device=dev)
+    zero_class_bias(q11)  # conf 0.001 then keeps a dense candidate set, as in phase 5
+    batch = torch.from_numpy(np.stack([letterbox_numpy(im, 640)[0] for im in images[:32]])).to(dev)
+    x = batch.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        ref = {"bfloat16": q11._fused_model()(x.to(q11.dtype)),
+               "float32": fuse_conv_bn(q11._model)(x.float() / 255.0)}
+    bf16_bytes = model_bytes(q11._fused_model())
+    t0 = time.perf_counter()
+    q11.quantize_int8(images)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    net = q11._fused_model()
+    with torch.no_grad():
+        got = {"bfloat16": net(x.to(q11.dtype)),
+               "float32": quantized_model(fuse_conv_bn(q11._model), q11._quant, torch.float32,
+                                          dev)(x.float())}
+    # the bar holds in f32, as the JAX test runs it, with the class biases at
+    # 0: the random-weight logits spread ~1e-5 about their bias, so in bf16
+    # near the box bias 1.0 (a step 2^-7), and in f32 at the class prior
+    # (-8.8 at stride 32, a step 1e-6), the correlation would be the rounding
+    # of both models, not the quantizer's (0.95 measured); bf16 is printed
+    heads = []
+    for dtype in ("float32", "bfloat16"):
+        for kind, k in (("box", 0), ("cls", 1)):
+            for level, (g, r) in enumerate(zip(got[dtype][k], ref[dtype][k])):
+                a, b = g.float().flatten(), r.float().flatten()
+                corr = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+                rel = ((a - b).abs().mean() / (b.abs().mean() + 1e-9)).item()
+                heads.append({"dtype": dtype, "head": f"{kind}{level}",  # NaN: both constant
+                              "corr": corr if math.isfinite(corr) else None,
+                              "mean_rel_diff": rel})
+    for dtype in ("float32", "bfloat16"):
+        rows = [(h["head"], h["corr"] and round(h["corr"], 5), round(h["mean_rel_diff"], 5))
+                for h in heads if h["dtype"] == dtype]
+        log(f"[int8] raw heads vs the fused model in {dtype} on a b32 batch: {rows}"
+            + (f" (bar: correlation > {INT8_HEAD_BAR[0]}, mean relative difference < "
+               f"{INT8_HEAD_BAR[1]})" if dtype == "float32" else " (printed only)"))
+    log(f"[int8] quantize_int8 on {len(images)} images in {quant_s:.2f} s: {len(q11._quant)} "
+        f"convs int8")
+    for h in (h for h in heads if h["dtype"] == "float32"):
+        check((h["corr"] or 0.0) > INT8_HEAD_BAR[0] and h["mean_rel_diff"] < INT8_HEAD_BAR[1],
+              f"int8 {h['head']} in f32: correlation {h['corr']}, mean relative difference "
+              f"{h['mean_rel_diff']:.4f} (bar {INT8_HEAD_BAR})")
+    int8_bytes = model_bytes(net)
+
+    n_q = len(q11._quant)
+    recorded = []
+
+    def record(x, packed, scale, inv_a, k, s):
+        if len(recorded) < n_q:  # the first batch's calls
+            recorded.append((x.clone(), packed, scale, inv_a, k, s))
+        return orig(x, packed, scale, inv_a, k, s)
+
+    with patched(ic, "int8_conv", record) as orig:
+        aa.launches = ns.launches = ic.launches = 0
+        results = q11.predict(images, conf=0.001, batch_size=32)
+        torch.cuda.synchronize()
+        launches = {"int8_conv": ic.launches, "area_attention": aa.launches,
+                    "nms_suppress": ns.launches}
+    n_batches = -(-len(images) // 32)
+    want = {"int8_conv": n_q * n_batches, "area_attention": n_batches,
+            "nms_suppress": n_batches}
+    log(f"[int8] predict {len(results)} images at b32: launches {launches} ({n_q} quantized "
+        f"convs, {n_batches} batches)")
+    check(launches == want, f"int8 predict launched {launches}, not {want}")
+    check(len(recorded) == n_q, "the int8 predict did not go through every quantized conv")
+    check(len(results) == len(images) and min(len(d) for d in results) > 0,
+          "int8 predict lost images or detections")
+    for d in results:
+        check(np.isfinite(d.boxes).all() and np.isfinite(d.scores).all(), "non-finite int8 output")
+
+    timing = {}
+    for label, handle in (("int8", q11), ("bf16", bf16_handle), ("int8 again", q11),
+                          ("bf16 again", bf16_handle)):
+        device_ms = cuda_time_ms(lambda: handle.infer(batch, conf=0.001), 20)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            handle.predict(images, conf=0.001, batch_size=32)
+            walls.append(time.perf_counter() - t0)
+        timing[label] = {"imgs_per_s_e2e": len(images) / sorted(walls)[1],
+                         "device_ms_per_b32": device_ms}
+    log(f"[int8] predict b32 640 (int8, bf16, int8, bf16 in turn): "
+        + "; ".join(f"{k} {v['imgs_per_s_e2e']:.1f} img/s end to end, device "
+                    f"{v['device_ms_per_b32']:.3f} ms a b32 batch" for k, v in timing.items())
+        + f"; weights {int8_bytes / 1e6:.3f} MB int8 against {bf16_bytes / 1e6:.3f} MB bf16")
+    return q11, batch, recorded, {
+        "quantized_convs": n_q, "quantize_s": quant_s, "heads_vs_bf16": heads,
+        "launches": launches, "timing": timing, "weights_bytes": {"int8": int8_bytes,
+                                                                  "bf16": bf16_bytes}}
+
+
+def s8_conv_checks(q11, batch, recorded, seed: int):
+    """Phase 30: the s8 conv kernel against its plain version bit for bit
+    (the s32 sums and the output) and against itself (two launches), on
+    every quantized conv's input of phase 29's first batch and on edge
+    shapes (the stem's Cin 3, K = 27; stride 2; 1x1; B = 1; a Cout no
+    multiple of the 64-wide tile; a Cin off the 8-channel loads; bf16 and
+    f32; inputs at +-127 steps, beyond, and at k + 0.5 steps of a_scale).
+    Then its times: at the heaviest recorded conv (device time, a call,
+    the plain version, cuDNN's bf16 conv of the same shape, the bound) and
+    summed over a b32 int8 infer (the profiler), with the bound summed over
+    the recorded convs."""
+    import torch
+    import torch.nn.functional as F
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import int8_conv as ic
+
+    dev = torch.device("cuda")
+
+    def parity(label, x, packed, scale, inv_a, k, s):
+        y, acc = ic.launch(x, packed, scale, inv_a, k, s, with_acc=True)
+        y2, acc2 = ic.launch(x, packed, scale, inv_a, k, s, with_acc=True)
+        yp, accp = ic.int8_conv_plain(x, packed, scale, inv_a, k, s)
+        torch.cuda.synchronize()
+        same = same_bits(acc, accp.to(acc.dtype)) and same_bits(y, yp)
+        twice = same_bits(acc, acc2) and same_bits(y, y2)
+        err = (y.float() - yp.float()).abs().max().item()
+        check(same, f"s8 conv {label}: the kernel differs from its plain version (max |diff| "
+              f"{err}, s32 sums equal {torch.equal(acc, accp)})")
+        check(twice, f"s8 conv {label}: two launches differ")
+        return err
+
+    errs = [parity(f"path conv {i} {tuple(x.shape)} k{k} s{s}", x, p, sc, ia, k, s)
+            for i, (x, p, sc, ia, k, s) in enumerate(recorded)]
+    log(f"[s8 conv] {len(recorded)} path convs of a b32 batch: s32 sums and outputs bit for bit "
+        f"equal to the plain version, two launches bit-identical")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # (B, Cin, H, W, Cout, k, stride)
+    edges = [(2, 3, 64, 64, 16, 3, 2), (1, 64, 20, 20, 67, 1, 1), (1, 16, 9, 7, 32, 3, 1),
+             (2, 256, 10, 10, 80, 3, 2), (3, 20, 11, 13, 24, 3, 1), (1, 128, 1, 1, 64, 1, 1)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, c, h, w, n, k, s in edges:
+            a_scale = 0.05
+            steps = torch.randn((b, h, w, c), generator=gen, device=dev) * 60
+            pick = torch.randint(0, 4, (b, h, w, c), generator=gen, device=dev)
+            edge = torch.tensor([127.0, -127.0, 200.0, -200.0], device=dev)[pick]
+            half = torch.round(steps) + 0.5  # k + 0.5 steps: ties of the rounding
+            sel = torch.randint(0, 3, (b, h, w, c), generator=gen, device=dev)
+            vals = torch.where(sel == 0, steps, torch.where(sel == 1, edge, half))
+            x = (vals * a_scale).to(dtype).permute(0, 3, 1, 2)
+            wq = torch.randint(-127, 128, (n, c, k, k), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int8)
+            scale = torch.rand(n, generator=gen, device=dev) * 1e-2 * a_scale
+            inv_a = float(torch.tensor(1.0) / torch.tensor(a_scale))
+            errs.append(parity(f"edge {(b, c, h, w, n, k, s)} {dtype}", x, ic.pack_weight(wq),
+                               scale, inv_a, k, s))
+    log(f"[s8 conv] edge shapes {edges} in bf16 and f32: bit for bit equal to the plain "
+        f"version, two launches bit-identical")
+
+    def macs(rec):
+        x, packed, _, _, k, s = rec
+        return s8_bound(tuple(x.shape), packed.shape[0], k, s, x.element_size())[3]
+
+    x, packed, scale, inv_a, k, s = max(recorded, key=macs)
+    conv = lambda: ic.launch(x, packed, scale, inv_a, k, s)  # noqa: E731
+    ms = cuda_time_ms(conv, 200)
+    dev_ms = graph_time_ms(conv)
+    plain_ms = cuda_time_ms(lambda: ic.int8_conv_plain(x, packed, scale, inv_a, k, s), 5)
+    w_bf16 = ic.unpack_weight(packed, x.shape[1], k).to(x.dtype).contiguous(
+        memory_format=torch.channels_last)
+    library = lambda: F.conv2d(x, w_bf16, stride=s, padding=k // 2)  # noqa: E731
+    lib_ms = cuda_time_ms(library, 200)
+    lib_dev_ms = graph_time_ms(library)
+    bound, bound_by, nbytes, ops = s8_bound(tuple(x.shape), packed.shape[0], k, s,
+                                            x.element_size())
+    log(f"[time] int8_conv heaviest path conv {tuple(x.shape)} -> {packed.shape[0]} k{k} s{s} "
+        f"{x.dtype}: kernel device {dev_ms:.4f} ms (a CUDA graph of 20 launches), a call "
+        f"{ms:.4f} ms with the host; plain {plain_ms:.4f} ms; cuDNN bf16 conv device "
+        f"{lib_dev_ms:.4f} ms, a call {lib_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GOP)")
+    # summed over a b32 batch: each path conv's device time
+    per_conv = [graph_time_ms(lambda r=r: ic.launch(*r), calls=10) for r in recorded]
+    b32_ms = sum(per_conv)
+    b32_bound = sum(s8_bound(tuple(r[0].shape), r[1].shape[0], r[4], r[5],
+                             r[0].element_size())[0] for r in recorded)
+    infer_ms, _ = device_time_ms(lambda: q11.infer(batch, conf=0.001), calls=5)
+    log(f"[time] int8_conv summed over a b32 batch's {len(recorded)} path convs: {b32_ms:.4f} ms "
+        f"of device time (bound {b32_bound:.4f} ms); the whole int8 infer {infer_ms:.4f} ms "
+        f"(0: no whole profiler window)")
+    return {
+        "name": "int8_conv", "route": "cuda",
+        "source": "deal_yolo_daya_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "deal_yolo_daya_tpu/models/quant.py:64 (_int8_conv_call: XLA's int8 "
+                    "lax.conv_general_dilated, no pallas_call)",
+        "launches": None, "max_abs_err": max(errs), "tol": 0.0, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+        "library_device_ms": lib_dev_ms, "library": "cuDNN bf16 conv (F.conv2d)",
+        "device_ms_from": "CUDA events around a CUDA graph of 20 launches",
+        "shape": [list(x.shape), packed.shape[0], k, s], "dtype": str(x.dtype),
+        "b32_device_ms": b32_ms,
+        "b32_device_ms_by_conv": per_conv, "b32_bound_ms": b32_bound,
+        "b32_infer_device_ms": infer_ms or None, "path_convs": len(recorded), "edges": edges}
+
+
+def int8_engine_phase(q11, batch, max_batch: int = 32):
+    """Phase 31: an Engine over the int8 handle, one CUDA graph a bucket: the
+    counts move by the eager warm-up runs at each capture; each replay is
+    bit-identical to the eager int8 ``infer`` and adds its graph's launches
+    (the s8 conv once a quantized conv, attention and NMS once); one
+    profiled b32 replay shows the three kernels inside the graph."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deal_yolo_daya_tpu_torch import serve
+    from deal_yolo_daya_tpu_torch.models.quant import Int8Detector
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import int8_conv as ic
+    from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
+
+    def counts():
+        return ic.launches, aa.launches, ns.launches
+
+    per = (len(q11._quant), 1, 1)
+    eng = serve.Engine(q11, max_batch=max_batch, conf=0.001, iou=0.7)
+    check(isinstance(eng._net, Int8Detector), "the Engine does not serve the int8 model")
+    caps = {}
+    for b in eng.buckets():
+        before = counts()
+        eng.warmup([b])
+        moved = tuple(a - z for a, z in zip(counts(), before))
+        check(moved == tuple(serve.WARMUP_RUNS * n for n in per),
+              f"int8 bucket {b}: warm-up and capture moved the counts by {moved}")
+        prog = eng.program(b)
+        caps[b] = {"capture_s": prog.capture_s, "pool_mb": prog.pool_bytes / 1e6}
+    replays = {}
+    for b in eng.buckets():
+        prog = eng.program(b)
+        prog.images.copy_(batch[:b])
+        before = counts()
+        prog.replay()
+        got = [t.clone() for t in prog.outputs]
+        moved = tuple(a - z for a, z in zip(counts(), before))
+        want = q11.infer(batch[:b], conf=eng.conf, iou=eng.iou, max_det=eng.max_det)
+        torch.cuda.synchronize()
+        same = all(same_bits(g, w) for g, w in zip(got, want))
+        check(moved == per, f"int8 bucket {b}: a replay counted {moved}, not {per}")
+        check(same, f"int8 bucket {b}: the replay differs from the eager int8 infer")
+        replays[b] = {"n_det": got[3].tolist()}
+    captured = ", ".join(f"{b}: {c['capture_s'] * 1e3:.0f} ms, {c['pool_mb']:.0f} MB"
+                         for b, c in caps.items())
+    log(f"[serve int8] buckets {eng.buckets()} captured ({captured}); every replay "
+        f"bit-identical to the eager int8 infer, counts {per} a replay")
+    prog = eng.program(max_batch)
+    prog.replay()
+    torch.cuda.synchronize()
+    words = (("int8_conv", "int8_conv_kernel"), ("attention", "attention_"), ("nms", "nms_"))
+    for attempt in range(5):  # the card's profiler drops launches (graph_time_ms)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prog.replay()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+        seen = tuple(sum(r[1] for r in rows if w in r[0]) for _, w in words)
+        if seen == per:
+            break
+        time.sleep(1.0)
+    ms = {site: sum(r[2] for r in rows if w in r[0]) for site, w in words}
+    busy = sum(r[2] for r in rows)
+    log(f"[serve int8] one replay of bucket {max_batch} under the profiler: launches "
+        f"{dict(zip((s for s, _ in words), seen))} ({attempt + 1} windows; the counters: "
+        f"{per}), device ms {ms}, busy {busy:.3f} ms")
+    # the counters hold a replay's launches exactly (above); the profiler must
+    # see each kernel inside the graph, and no launch the counters do not
+    check(all(0 < n <= want for n, want in zip(seen, per)),
+          f"the profiler saw {seen} launches in the int8 graph, the counters {per}")
+    eng.shutdown()
+    return {"captures": caps, "replays": replays, "graph_launches": dict(zip(
+        (s for s, _ in words), seen)), "graph_device_ms": ms, "graph_busy_ms": busy}
+
+
+def int8_export_phase(q11, images, out_dir):
+    """Phase 32: ``export``/``from_export`` of the int8 handle: the loaded
+    handle predicts bit for bit as its source."""
+    import json as _json
+
+    import torch
+
+    from deal_yolo_daya_tpu_torch.api import YOLO
+
+    bundle = q11.export(out_dir)
+    meta = _json.loads((bundle / "meta.json").read_text())
+    loaded = YOLO.from_export(bundle, device=torch.device("cuda"))
+    check(meta["int8"] is True and sorted(loaded._quant) == sorted(q11._quant),
+          "the int8 bundle lost its qtree")
+    same_detections(loaded.predict(images[:32], conf=0.001, batch_size=32),
+              q11.predict(images[:32], conf=0.001, batch_size=32), "int8 from_export")
+    log(f"[export int8] {sorted(p.name for p in bundle.iterdir())}: from_export predicts bit for "
+        f"bit as its source on 32 images")
+    return {"files": sorted(p.name for p in bundle.iterdir())}
+
+
+def ultralytics_phase(best_pt: Path, data_yaml: Path, root: Path, images, seed: int, cfg_cls):
+    """Phase 33: phase 12's best.pt weights written as an ultralytics-layout
+    checkpoint (tools/ultralytics_pt.py: fp16, a module tree of stand-in
+    classes, names, an ``ema`` entry); ``YOLO.from_ultralytics`` predicts bit
+    for bit as a handle loaded with the same fp16-rounded weights; then
+    ``Trainer(model=<that .pt>)`` fine-tunes one epoch on phase 12's images
+    under nc 4 (the intersect load), its launches held to its steps."""
+    import torch
+    import yaml
+
+    from deal_yolo_daya_tpu_torch.api import YOLO
+
+    spec = importlib.util.spec_from_file_location(
+        "ultralytics_pt", Path(__file__).resolve().parent / "tools" / "ultralytics_pt.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    dev = torch.device("cuda")
+    src = YOLO(str(best_pt), device=dev)
+    sd = {k: v.detach().cpu() for k, v in src._model.state_dict().items()}
+    upt = tool.write_checkpoint(root / "ultralytics_best.pt", sd, dict(enumerate(src.names)))
+    check("ultralytics" not in sys.modules, "the stand-in classes stayed importable")
+    u = YOLO.from_ultralytics(upt, imgsz=640, device=dev)
+    check((u.family, u.scale, u.nc, u.names) == (src.family, src.scale, src.nc, src.names),
+          "from_ultralytics lost the family, scale, nc or names")
+    check(not u.import_report["missing"] and not u.import_report["shape_mismatch"],
+          f"from_ultralytics import report {u.import_report}")
+    ref = YOLO(f"{src.family}{src.scale}", nc=src.nc, imgsz=640, device=dev)
+    ref._ensure_built().load_state_dict({k: v.half().float() for k, v in sd.items()},
+                                        strict=True)
+    same_detections(u.predict(images[:32], conf=0.001, batch_size=32),
+              ref.predict(images[:32], conf=0.001, batch_size=32), "from_ultralytics")
+    log(f"[ultralytics] {upt.name} ({upt.stat().st_size / 1e6:.2f} MB, fp16): from_ultralytics "
+        f"imported {u.import_report['imported']} tensors, skipped "
+        f"{len(u.import_report['skipped'])}; predicts bit for bit as the fp16-rounded weights")
+    names = yaml.safe_load(Path(data_yaml).read_text())["names"]
+    names = dict(enumerate(names)) if isinstance(names, list) else dict(names)
+    data4 = Path(data_yaml).with_name("data_nc4.yaml")
+    data4.write_text(yaml.safe_dump({**yaml.safe_load(Path(data_yaml).read_text()),
+                                     "names": {**names, len(names): "extra"}}))
+    cfg = cfg_cls(model=str(upt), data=str(data4), imgsz=640, batch=TRAINER_BATCH, epochs=1,
+                  close_mosaic=0, seed=seed, device="0", project=str(root / "runs"),
+                  name="ultralytics_ft", steps_per_dispatch=1)
+    trainer, _, run = trainer_run(cfg, "from an ultralytics .pt, nc 4")
+    report = trainer.import_report
+    head = {f"{trainer.state.model.DETECT}.cv3.{i}.2.{p}" for i in range(3)
+            for p in ("weight", "bias")}
+    check(trainer.nc == 4 and head <= set(report["shape_mismatch"]) and all(
+        k.startswith(f"{trainer.state.model.DETECT}.cv3.") for k in report["shape_mismatch"]),
+        f"the fine-tune's report {report['shape_mismatch']} does not name the class head")
+    log(f"[ultralytics] Trainer(model=<.pt>) at nc 4: imported {report['imported']} tensors, "
+        f"{len(report['shape_mismatch'])} of the class head keep the fresh init "
+        f"({sorted(report['shape_mismatch'])[:4]} ...); launches {run['launches']}")
+    del trainer
+    return {"imported": u.import_report["imported"], "fine_tune_launches": run["launches"],
+            "fine_tune_shape_mismatch": report["shape_mismatch"],
+            "fine_tune_epochs": run["epochs"]}
+
+
+def int8_yardstick_phase(save_dir: Path, synth_yaml: Path, root: Path):
+    """Phase 34: phase 28's trained yolo11n: ``val()`` in bf16, then
+    ``quantize_int8`` on 64 of its train images, then ``val(int8=True)``;
+    int8 mAP50-95 must reach INT8_MAP_SHARE of bf16's."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.api import YOLO
+
+    ys = YOLO(str(Path(save_dir) / "weights" / "best.pt"), device=torch.device("cuda"))
+    kw = dict(device="0", imgsz=ys.imgsz, project=str(root / "runs"))
+    bf16 = ys.val(str(synth_yaml), name="yardstick_bf16", **kw)
+    train = sorted((Path(synth_yaml).parent / "images" / "train").iterdir())[:64]
+    ys.quantize_int8(train)
+    int8 = ys.val(str(synth_yaml), int8=True, name="yardstick_int8", **kw)
+    log(f"[yardstick int8] imgsz {ys.imgsz}: bf16 mAP50 {bf16['map50']:.4f} mAP50-95 "
+        f"{bf16['map']:.4f}; int8 ({len(ys._quant)} convs, calibrated on {len(train)} train "
+        f"images) mAP50 {int8['map50']:.4f} mAP50-95 {int8['map']:.4f}: "
+        f"{int8['map'] / max(bf16['map'], 1e-9):.4f} of bf16 (floor {INT8_MAP_SHARE})")
+    check(int8["map"] >= INT8_MAP_SHARE * bf16["map"], f"int8 mAP50-95 {int8['map']:.4f} is "
+          f"below {INT8_MAP_SHARE} x bf16's {bf16['map']:.4f}")
+    return {"bf16": {"map50": bf16["map50"], "map": bf16["map"]},
+            "int8": {"map50": int8["map50"], "map": int8["map"]},
+            "calibration_images": len(train)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1051,7 +1562,8 @@ def main() -> int:
             log(f"[ptxas {name}] {ln}")
     # the wgmma kernels keep their accumulators in registers, NMS its chain's
     # 32 row words and score_reduce a row's 16-byte vectors: no spills
-    for name in ("area_attention", "area_attention_bwd", "nms_suppress", "score_reduce"):
+    for name in ("area_attention", "area_attention_bwd", "nms_suppress", "score_reduce",
+                 "int8_conv"):
         if name in logs:
             spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
             check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -2470,12 +2982,6 @@ def main() -> int:
             device.append(e0.elapsed_time(e1))
         return float(np.median(host)), float(np.median(device))
 
-    def same_detections(got, want, what):
-        check(len(got) == len(want) and all(
-            len(g) == len(w) and np.array_equal(g.boxes, w.boxes)
-            and np.array_equal(g.scores, w.scores) and np.array_equal(g.classes, w.classes)
-            for g, w in zip(got, want)), f"{what}: the detections differ")
-
     t_serve = time.perf_counter()
     engine = Engine(yolo, max_batch=32, conf=0.001, iou=0.7)
     captures11 = capture_all(engine, "yolo11n", (1, 1))
@@ -2698,9 +3204,32 @@ def main() -> int:
         f"{YARDSTICK_MAP50}); mAP50 by epoch {[round(v, 3) for v in yardstick['map50_by_epoch']]}")
     check(yardstick["map50"] >= YARDSTICK_MAP50, f"the yardstick reached mAP50 "
           f"{yardstick['map50']:.4f} < {YARDSTICK_MAP50}")
-    tmp.cleanup()
     graph_s = time.perf_counter() - t_graph
     log(f"[graph] phases 22-28 in {graph_s:.1f} s")
+
+    # 29-34. w8a8 and ultralytics checkpoints: int8 predict (the slice's main
+    # path), the s8 conv against its plain version, the int8 Engine, int8
+    # bundles, an ultralytics .pt in and fine-tuned, the yardstick in int8
+    t_int8 = time.perf_counter()
+    q11, q_batch, conv_inputs, int8_record = int8_predict_phase(args.seed, images, yolo)
+    s8_row = s8_conv_checks(q11, q_batch, conv_inputs, args.seed)
+    s8_row["launches"] = int8_record["launches"]["int8_conv"]
+    del conv_inputs
+    int8_record["engine"] = int8_engine_phase(q11, q_batch)
+    int8_record["export"] = int8_export_phase(q11, images, root / "bundle_int8")
+    del q11
+    torch.cuda.empty_cache()
+    int8_record["ultralytics"] = ultralytics_phase(save_dir / "weights" / "best.pt", data_yaml,
+                                                   root, images, args.seed, FullConfig)
+    int8_record["yardstick"] = int8_yardstick_phase(yardstick["save_dir"], synth_yaml, root)
+    tmp.cleanup()
+    int8_record["wall_s"] = time.perf_counter() - t_int8
+    int8_record["card"] = card
+    s8_row["launches_by_path"] = {
+        "int8 predict": int8_record["launches"]["int8_conv"],
+        "int8 serving graph (b32 replay)": int8_record["engine"]["graph_launches"]["int8_conv"]}
+    kernels.append(s8_row)
+    log(f"[int8] phases 29-34 in {int8_record['wall_s']:.1f} s")
     kernels[0]["train_graph_launches"] = {
         "yolo11n": graph_record["yolo11n"]["replay_launches"]["forward"],
         "yolo11n remat": remat_record["replay_launches"][0]}
@@ -2738,6 +3267,7 @@ def main() -> int:
 
     print(json.dumps({"serving": serve_record}), flush=True)
     print(json.dumps({"train_graph": train_graph_record}), flush=True)
+    print(json.dumps({"int8": int8_record}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "predict": {
         "imgs_per_s_e2e": len(images) / wall, "host_letterbox_ms_per_img": host_ms,

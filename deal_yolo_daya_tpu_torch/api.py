@@ -8,8 +8,13 @@ into the stem, host letterbox, batched device forward, decode, NMS, and
 and adopts its EMA weights; ``val`` validates the handle's weights with it;
 ``YOLO("<run>/weights/best.pt")`` loads a checkpoint that Trainer wrote, of
 the family it records (yolo11 when it records none, as checkpoints written
-before the registry); ``export``/``from_export`` write and load a serving
-bundle (``serve.Engine`` serves a handle). The model runs on the card
+before the registry), and ``YOLO("<ultralytics>.pt")`` or
+``YOLO.from_ultralytics`` an ultralytics checkpoint (read without
+ultralytics, ``models/torch_import.py``); ``load`` puts a Trainer checkpoint
+into a handle; ``quantize_int8`` switches predict, the Engine and
+``val(int8=True)`` to the w8a8 model (``models/quant.py``, the s8 conv
+kernel); ``export``/``from_export`` write and load a serving bundle, int8
+included (``serve.Engine`` serves a handle). The model runs on the card
 unless the caller passes ``device="cpu"``.
 """
 
@@ -23,15 +28,27 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.registry import build_detector, make_detector, parse_model_spec
+from .models.quant import quantize_int8 as quantize_qtree, quantized_model
+from .models.registry import build_detector, infer_arch, make_detector, parse_model_spec
+from .models.torch_import import detect_nc, import_state_dict, read_torch_checkpoint
 from .models.yolo11 import folded_state_dict, fuse_conv_bn
 from .ops.decode import decode_predictions
 from .ops.letterbox import letterbox_numpy, load_image
 from .ops.nms import batched_nms
 
 IMAGE_SUFFIXES = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
-INT8_NOT_PORTED = ("int8 serving (quantize_int8) is not ported yet: it needs an int8 "
-                   "convolution (ROADMAP.md section 1, 'The rest of api.py')")
+
+
+def list_sources(source) -> list:
+    """An image path, a directory of images, an (H, W, 3) array or a list of
+    those -> the list of sources."""
+    if isinstance(source, (str, Path)):
+        p = Path(source)
+        return sorted(q for q in p.iterdir()
+                      if q.suffix.lower() in IMAGE_SUFFIXES) if p.is_dir() else [p]
+    if isinstance(source, np.ndarray):
+        return [source]
+    return list(source)
 
 
 @torch.no_grad()
@@ -111,6 +128,8 @@ class YOLO:
     >>> results = model.predict(["img.jpg"])
     >>> model.train(data="data.yaml", epochs=10)      # then predicts with the EMA weights
     >>> model = YOLO("runs/train/train/weights/best.pt")
+    >>> model = YOLO("ultralytics_best.pt")           # or YOLO.from_ultralytics(path)
+    >>> model.quantize_int8("calib_images/")          # predict and serve in w8a8
     >>> model = YOLO("yolo11n", device="cpu", dtype=torch.float32)
     """
 
@@ -125,29 +144,90 @@ class YOLO:
         self.names: List[str] = [str(i) for i in range(nc)]
         self._model = None
         self._fused_cache = None
+        self._quant = None  # the int8 qtree after quantize_int8 (models/quant.py)
         self._weights_loaded = False  # True after a checkpoint or train(): train() fine-tunes
         self.trainer = None
+        self.import_report = None
         if self.model_spec.endswith(".pt"):
-            self._load_checkpoint(self.model_spec)
+            from .train.trainer import ForeignCheckpoint, load_checkpoint
+
+            if not Path(self.model_spec).exists():
+                raise FileNotFoundError(f"model weights not found: {self.model_spec}")
+            try:
+                ckpt = load_checkpoint(self.model_spec)
+            except ForeignCheckpoint:  # an ultralytics .pt
+                self._import_ultralytics(*read_torch_checkpoint(self.model_spec))
+            else:
+                self._adopt_checkpoint(ckpt)
         else:
             self.family, self.scale = parse_model_spec(self.model_spec)
 
-    def _load_checkpoint(self, path) -> None:
+    def _set_model(self, model) -> None:
+        """Adopt loaded f32 weights: the fused and int8 models go with the old."""
+        self._model = model.to(self.device).eval()
+        self._fused_cache = None
+        self._quant = None
+        self._weights_loaded = True
+
+    def _adopt_checkpoint(self, ckpt: Dict[str, Any], imgsz: bool = True) -> None:
         """Adopt a checkpoint of the port's Trainer: its architecture, nc,
-        names, imgsz, and the EMA weights with the live BN statistics."""
-        from .train.trainer import checkpoint_family, inference_state_dict, load_checkpoint
+        names, imgsz (unless ``imgsz`` is False), and the EMA weights with the
+        live BN statistics."""
+        from .train.trainer import checkpoint_family, inference_state_dict
+
+        self.family, self.scale = checkpoint_family(ckpt), ckpt["scale"]
+        self.nc, self.names = int(ckpt["nc"]), list(ckpt["names"])
+        if imgsz:
+            self.imgsz = int(ckpt["imgsz"])
+        model = make_detector(self.family, self.scale, self.nc)
+        model.load_state_dict(inference_state_dict(ckpt), strict=True)
+        self._set_model(model)
+
+    def _import_ultralytics(self, sd: Dict[str, Any], meta: Dict[str, Any]) -> None:
+        """Adopt an ultralytics state dict: family, scale and nc from its
+        weights, imported strictly (``import_report``), its class names."""
+        family, scale = infer_arch(sd)
+        self.family, self.scale, self.nc = family, scale, detect_nc(sd)
+        model = make_detector(family, scale, self.nc)
+        state_dict, self.import_report = import_state_dict(sd, model)
+        model.load_state_dict(state_dict, strict=True)
+        self._set_model(model)
+        names = meta.get("names")
+        self.names = [names.get(i, str(i)) for i in range(self.nc)] if names \
+            else [str(i) for i in range(self.nc)]
+
+    @classmethod
+    def from_ultralytics(cls, ckpt, imgsz: int = 640, device=None,
+                         dtype: Optional[torch.dtype] = None) -> "YOLO":
+        """A handle from a trained ultralytics YOLO11/YOLOv8/YOLOv12
+        checkpoint: ``ckpt`` is a .pt path (read without ultralytics
+        installed) or a loaded state dict. Family, scale and nc come from the
+        weights, class names from the checkpoint where it has them; the
+        import's report is ``import_report``. On the card unless
+        ``device="cpu"``; ``dtype`` as ``YOLO``'s."""
+        sd, meta = read_torch_checkpoint(ckpt) if isinstance(ckpt, (str, Path)) \
+            else (dict(ckpt), {})
+        family, scale = infer_arch(sd)
+        handle = cls(f"{family}{scale}", imgsz=imgsz, device=device, dtype=dtype)
+        handle._import_ultralytics(sd, meta)
+        return handle
+
+    def load(self, path) -> "YOLO":
+        """Load a checkpoint of the port's Trainer into this handle: the
+        architecture, nc and names from the checkpoint (the JAX ``load``
+        takes them from the tree), the handle's imgsz kept. An ultralytics
+        .pt raises ValueError (``from_ultralytics`` reads those)."""
+        from .train.trainer import ForeignCheckpoint, load_checkpoint
 
         if not Path(path).exists():
             raise FileNotFoundError(f"model weights not found: {path}")
-        ckpt = load_checkpoint(path)
-        self.family, self.scale = checkpoint_family(ckpt), ckpt["scale"]
-        self.nc, self.imgsz = int(ckpt["nc"]), int(ckpt["imgsz"])
-        self.names = list(ckpt["names"])
-        model = make_detector(self.family, self.scale, self.nc)
-        model.load_state_dict(inference_state_dict(ckpt), strict=True)
-        self._model = model.to(self.device).eval()
-        self._fused_cache = None
-        self._weights_loaded = True
+        try:
+            ckpt = load_checkpoint(path)
+        except ForeignCheckpoint as err:
+            raise ValueError(f"{err}; an ultralytics .pt loads with "
+                             "YOLO.from_ultralytics") from None
+        self._adopt_checkpoint(ckpt, imgsz=False)
+        return self
 
     def _ensure_built(self):
         """The f32 model with random weights from ``seed``, built once."""
@@ -157,17 +237,49 @@ class YOLO:
         return self._model
 
     def _fused_model(self):
-        """BN-folded inference model in ``dtype`` with the 1/255 input
-        normalisation folded into the stem, cached per model object: it
-        takes raw 0..255 images."""
+        """The inference model in ``dtype``, channels_last, taking raw 0..255
+        images, cached per model object and qtree: BN-folded with the 1/255
+        folded into the stem, or after ``quantize_int8`` the int8 model
+        (``models/quant.py::quantized_model``, which divides first)."""
         model = self._ensure_built()
         cur = self._fused_cache
-        if cur is not None and cur[0] is model:
-            return cur[1]
-        fused = fuse_conv_bn(model, input_scale=1.0 / 255.0)
-        fused = fused.to(dtype=self.dtype, memory_format=torch.channels_last).eval()
-        self._fused_cache = (model, fused)
+        if cur is not None and cur[0] is model and cur[1] is self._quant:
+            return cur[2]
+        if self._quant is None:
+            fused = fuse_conv_bn(model, input_scale=1.0 / 255.0)
+            fused = fused.to(dtype=self.dtype, memory_format=torch.channels_last).eval()
+        else:
+            fused = quantized_model(fuse_conv_bn(model), self._quant, self.dtype, self.device)
+        self._fused_cache = (model, self._quant, fused)
         return fused
+
+    def quantize_int8(self, calib_source, max_images: int = 64,
+                      batch_size: int = 16) -> "YOLO":
+        """Switch predict, the Engine and ``val(int8=True)`` to the
+        post-training int8 (w8a8) model. ``calib_source`` takes predict's
+        source forms; up to ``max_images`` of them, letterboxed, calibrate the
+        per-conv activation ranges in batches of ``batch_size`` (as the JAX
+        ``quantize_int8``: f32 / 255 on the host, then the working dtype).
+        Weights quantize per output channel over the BN-folded kernels;
+        depthwise and detect-head logit convs stay full precision. A later
+        checkpoint load or train() drops the quantization."""
+        sources = list_sources(calib_source)[:max_images]
+        if not sources:
+            raise ValueError("quantize_int8 needs at least one calibration image")
+        fused = fuse_conv_bn(self._ensure_built())
+        calib = quantized_model(fused, {}, self.dtype, self.device).net  # no conv quantized
+
+        def batches():
+            for start in range(0, len(sources), batch_size):
+                canvases = [letterbox_numpy(src if isinstance(src, np.ndarray)
+                                            else load_image(src), self.imgsz)[0]
+                            for src in sources[start:start + batch_size]]
+                x = torch.from_numpy(np.stack(canvases).astype(np.float32) / 255.0)
+                yield x.to(self.device).permute(0, 3, 1, 2).to(self.dtype)
+
+        self._quant = quantize_qtree(fused, batches(), calib_model=calib)
+        self._fused_cache = None
+        return self
 
     def train(self, data: str, **kwargs) -> Dict[str, Any]:
         """Train on a YOLO-layout ``data.yaml`` with the port's Trainer
@@ -186,27 +298,29 @@ class YOLO:
         self.family, self.scale = self.trainer.family, self.trainer.scale
         model = make_detector(self.family, self.scale, self.nc)
         model.load_state_dict(inference_state_dict(self.trainer.state.state()), strict=True)
-        self._model = model.to(self.device).eval()
-        self._fused_cache = None
+        self._set_model(model)  # a further train() continues from these
         self.save_dir = result["save_dir"]
-        self._weights_loaded = True  # a further train() continues from these
         return result
 
     def export(self, out_dir) -> Path:
         """Write a serving bundle: ``variables.pt``, the BN-folded weights
         under the detector's state-dict keys as the JAX ``fuse_conv_bn``
         stores a fold (``models.yolo11.folded_state_dict``; no 1/255 input
-        fold), written by ``torch.save``, and ``meta.json`` with the JAX
-        bundle's keys (family, scale, nc, names, imgsz, fused, int8). Load
-        it with ``YOLO.from_export``."""
+        fold), written by ``torch.save``; after ``quantize_int8`` also
+        ``quant.pt``, the qtree (module name -> w_int8, w_scale, a_scale);
+        and ``meta.json`` with the JAX bundle's keys (family, scale, nc,
+        names, imgsz, fused, int8). Load it with ``YOLO.from_export``."""
         model = self._ensure_built()
         out_dir = Path(out_dir).resolve()
         out_dir.mkdir(parents=True, exist_ok=True)
         torch.save({k: v.cpu() for k, v in folded_state_dict(model).items()},
                    out_dir / "variables.pt")
+        if self._quant is not None:
+            torch.save(self._quant, out_dir / "quant.pt")
         (out_dir / "meta.json").write_text(json.dumps({
             "family": self.family, "scale": self.scale, "nc": self.nc,
-            "names": list(self.names), "imgsz": self.imgsz, "fused": True, "int8": False,
+            "names": list(self.names), "imgsz": self.imgsz, "fused": True,
+            "int8": self._quant is not None,
         }, ensure_ascii=False))
         return out_dir
 
@@ -215,13 +329,12 @@ class YOLO:
         """Load a serving bundle written by ``export()``: the plain detector
         of its family, scale and nc, loaded strictly with the folded weights
         (``_fused_model()`` folds them again to the same bits), on the card
-        unless ``device="cpu"``. The JAX package's bundles hold orbax
-        checkpoints, which need jax to read: this package reads only its
-        own. An int8 bundle raises NotImplementedError."""
+        unless ``device="cpu"``; an int8 bundle's qtree (``quant.pt``) comes
+        back with it, so the handle predicts in w8a8. The JAX package's
+        bundles hold orbax checkpoints, which need jax to read: this package
+        reads only its own."""
         bundle_dir = Path(bundle_dir).resolve()
         meta = json.loads((bundle_dir / "meta.json").read_text())
-        if meta.get("int8"):
-            raise NotImplementedError(f"{bundle_dir}: {INT8_NOT_PORTED}")
         family = meta.get("family", "yolo11")  # pre-registry bundles: yolo11
         handle = cls(f"{family}{meta['scale']}", nc=meta["nc"], imgsz=meta["imgsz"],
                      device=device)
@@ -233,24 +346,32 @@ class YOLO:
         model = make_detector(family, meta["scale"], handle.nc)
         model.load_state_dict(torch.load(bundle_dir / "variables.pt", map_location="cpu",
                                          weights_only=True), strict=True)
-        handle._model = model.to(handle.device).eval()
-        handle._fused_cache = None
-        handle._weights_loaded = True
+        handle._set_model(model)
+        if meta.get("int8"):  # the variables are already BN-folded: folding again is exact
+            handle._quant = torch.load(bundle_dir / "quant.pt", map_location="cpu",
+                                       weights_only=True)
         return handle
 
     def val(self, data: str, int8: bool = False, **kwargs) -> Dict[str, float]:
         """Validate the handle's weights on a YOLO-layout ``data.yaml`` with
         the port's Trainer (``TrainConfig`` fields by name): its live model
         and EMA both take the weights, and ``Trainer.validate``'s metrics
-        come back; nothing is trained and no plot is written."""
+        come back; nothing is trained and no plot is written. ``int8`` scores
+        the int8 model of ``quantize_int8`` through the same validation (the
+        JAX ``eval_apply``)."""
         from .train.trainer import Trainer, make_config
 
+        eval_apply = None
         if int8:
-            raise NotImplementedError(INT8_NOT_PORTED)
+            if self._quant is None:
+                raise ValueError("call quantize_int8() before val(int8=True)")
+            net, dtype = self._fused_model(), self.dtype
+            eval_apply = lambda images: net(images.permute(0, 3, 1, 2).to(dtype))  # noqa: E731
         kwargs.setdefault("device", "cpu" if self.device.type == "cpu" else "")
         cfg = make_config(f"{self.family}{self.scale}", data, **kwargs)
         cfg.val = True
-        trainer = Trainer(cfg, init_state_dict=self._ensure_built().state_dict())
+        trainer = Trainer(cfg, init_state_dict=self._ensure_built().state_dict(),
+                          eval_apply=eval_apply)
         metrics, _ = trainer.validate()
         return metrics
 
@@ -273,14 +394,7 @@ class YOLO:
         """Detect over an image path, a directory of images, an (H, W, 3)
         RGB uint8 array, or a list of those."""
         imgsz = self.imgsz
-        if isinstance(source, (str, Path)):
-            p = Path(source)
-            sources = sorted(q for q in p.iterdir()
-                             if q.suffix.lower() in IMAGE_SUFFIXES) if p.is_dir() else [p]
-        elif isinstance(source, np.ndarray):
-            sources = [source]
-        else:
-            sources = list(source)
+        sources = list_sources(source)
 
         def prepare(chunk):
             """Host stage: decode and letterbox one chunk into a batch padded

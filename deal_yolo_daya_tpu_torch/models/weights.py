@@ -109,3 +109,24 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"{coll}/{top}: not a {family} module")
             walk(sub, [str(top_modules[top])], top == "detect")
     return out
+
+
+def qtree_from_jax(qtree: Dict[Any, Dict[str, Any]]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's int8 qtree (flax module paths, as tuples or
+    "/"-joined as its bundles store them, -> {w_int8 HWIO, w_scale, a_scale})
+    -> the port's (``models/quant.py``): ultralytics module names ("1.conv",
+    "23.cv3.0.0.1.conv", ...) -> {w_int8 OIHW int8, w_scale f32, a_scale f32}."""
+    paths = {k if isinstance(k, tuple) else tuple(k.split("/")): v for k, v in qtree.items()}
+    top_modules = TOP_MODULES_BY_FAMILY[family_of_tree({p[0]: None for p in paths})]
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for path, q in paths.items():
+        segs = [str(top_modules[path[0]])]
+        for seg in path[1:]:
+            segs += _translate_segment(seg, path[0] == "detect")
+        w = np.array(q["w_int8"], np.int8).transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        out[".".join(segs)] = {
+            "w_int8": torch.from_numpy(np.ascontiguousarray(w)),
+            "w_scale": torch.from_numpy(np.array(q["w_scale"], np.float32)),
+            "a_scale": torch.tensor(np.float32(q["a_scale"])),
+        }
+    return out

@@ -36,6 +36,7 @@ COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 EXTRA: Dict[str, List[str]] = {
     "area_attention": [],
     "area_attention_bwd": [],
+    "int8_conv": [],
     "nms_suppress": ["-fmad=false"],
     "score_reduce": [],
 }

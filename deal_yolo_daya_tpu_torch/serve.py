@@ -10,7 +10,9 @@ Design (CUDA-first):
 
 - One CUDA graph a bucket, the counterpart of the JAX package's one
   compiled executable a bucket. The work of ``YOLO.infer`` (the BN-folded
-  forward, decode, ``batched_nms``) is captured once per bucket from a
+  forward, or after ``quantize_int8`` the int8 model with its s8 conv
+  kernels, as the JAX Engine's int8 branch; decode, ``batched_nms``) is
+  captured once per bucket from a
   static (b, S, S, 3) uint8 input buffer into static outputs, in the
   bucket's own memory pool (buckets replay in any order, which a shared
   pool does not allow). Every served batch on the card is one replay: the

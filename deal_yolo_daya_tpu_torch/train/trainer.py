@@ -42,18 +42,20 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import pickle
 import re
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from ..device import resolve_device
-from ..models.registry import FAMILIES, make_detector, parse_model_spec
+from ..models.registry import FAMILIES, infer_arch, make_detector, parse_model_spec
+from ..models.torch_import import import_state_dict, read_torch_checkpoint
 from ..models.yolo11 import init_weights
 from ..ops.decode import decode_predictions
 from ..ops.nms import batched_nms
@@ -351,13 +353,20 @@ def to_host(obj):
                     else t.detach().clone())
 
 
+class ForeignCheckpoint(ValueError):
+    """A .pt that the port's Trainer did not write (an ultralytics one goes
+    through ``models/torch_import.py``)."""
+
+
 def load_checkpoint(path) -> Dict[str, Any]:
-    """A checkpoint the port's Trainer wrote, on the host."""
-    ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    """A checkpoint the port's Trainer wrote, on the host; raises
+    ForeignCheckpoint for any other file."""
+    try:
+        ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:  # pickled classes: not this Trainer's format
+        ckpt = None
     if not isinstance(ckpt, dict) or ckpt.get("format") != CHECKPOINT_FORMAT:
-        raise NotImplementedError(
-            f"{path}: not a checkpoint of this package's Trainer; reading ultralytics "
-            ".pt files is not ported yet (ROADMAP.md section 1, 'A jax-free .pt reader')")
+        raise ForeignCheckpoint(f"{path}: not a checkpoint of this package's Trainer")
     return ckpt
 
 
@@ -390,23 +399,40 @@ class Trainer:
 
     ``init_state_dict`` (the JAX ``init_variables``) starts from those
     weights where their shapes fit, and from the fresh init elsewhere (a
-    class head under another nc). ``model="<run>/weights/best.pt"`` does the
-    same from a checkpoint of this Trainer."""
+    class head under another nc; the JAX ``_apply_pretrained``, reported in
+    ``import_report``). ``model="<run>/weights/best.pt"`` does the same from
+    a checkpoint of this Trainer, and ``model="<ultralytics>.pt"`` from an
+    ultralytics checkpoint (``models/torch_import.py``), the architecture
+    taken from either; explicit ``init_state_dict`` wins over both."""
 
     def __init__(self, config: TrainConfig,
-                 init_state_dict: Optional[Dict[str, torch.Tensor]] = None):
+                 init_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 eval_apply: Optional[Callable[[torch.Tensor], Any]] = None):
         self.cfg = cfg = config
+        # validation's forward in place of the EMA model's: a u8 (B, S, S, 3)
+        # batch -> per-level (box, cls), e.g. the int8 model (api.val)
+        self._eval_apply = eval_apply
         self.device = _device_of(cfg.device)
         self._dev_cache = None
         self._dev_cache_failed = False
         self._val_staged = None
         self._program: Optional[StepProgram] = None
         self._writer = CheckpointWriter()
+        self.import_report: Optional[Dict[str, Any]] = None
+        init, source = init_state_dict, "the given weights"
         if str(cfg.model).endswith(".pt"):
-            ckpt = load_checkpoint(cfg.model)
-            self.family, self.scale = checkpoint_family(ckpt), ckpt["scale"]
-            if init_state_dict is None:  # explicit weights win over the spec's
-                init_state_dict = inference_state_dict(ckpt)
+            if not Path(cfg.model).exists():
+                raise FileNotFoundError(f"model weights not found: {cfg.model}")
+            try:
+                ckpt = load_checkpoint(cfg.model)
+            except ForeignCheckpoint:  # an ultralytics .pt
+                spec_weights, _ = read_torch_checkpoint(cfg.model)
+                self.family, self.scale = infer_arch(spec_weights)  # ValueError: no detector
+            else:
+                spec_weights = inference_state_dict(ckpt)
+                self.family, self.scale = checkpoint_family(ckpt), ckpt["scale"]
+            if init is None:  # explicit weights win over the spec's
+                init, source = spec_weights, cfg.model
         else:
             self.family, self.scale = parse_model_spec(cfg.model)
 
@@ -486,26 +512,25 @@ class Trainer:
         self.frozen = frozen_modules(cfg.freeze, self.family)
         self.state = TrainState(
             cfg, self.nc, steps_per_epoch, device=self.device,
-            state_dict=self._overlay(init_state_dict), opt_cfg=self.opt_cfg,
-            accumulate=self.accumulate, frozen=self.frozen, family=self.family,
-            scale=self.scale)
+            state_dict=None if init is None else self._overlay(init, source),
+            opt_cfg=self.opt_cfg, accumulate=self.accumulate, frozen=self.frozen,
+            family=self.family, scale=self.scale)
         self.start_epoch = 0
         if cfg.resume:
             self._try_resume()
 
-    def _overlay(self, init: Optional[Dict[str, torch.Tensor]]):
-        """``init`` laid over a fresh init where the shapes fit."""
-        if init is None:
-            return None
-        fresh = init_weights(make_detector(self.family, self.scale, self.nc),
-                             self.cfg.seed).state_dict()
-        moved = [k for k, v in init.items() if k in fresh and fresh[k].shape == v.shape]
-        skipped = len(init) - len(moved)
-        for k in moved:
-            fresh[k] = init[k].detach().float().cpu()
-        print(f"loaded {len(moved)} tensors of the given weights"
-              + (f" ({skipped} of another shape keep the fresh init)" if skipped else ""))
-        return fresh
+    def _overlay(self, init: Dict[str, Any], source: str) -> Dict[str, torch.Tensor]:
+        """``init`` (ultralytics keys: the given weights, a checkpoint's or an
+        ultralytics .pt's) laid over a fresh init by ``import_state_dict``
+        with ``strict=False``: a tensor of another shape (the class head
+        under another nc) keeps the fresh init. The report is logged and
+        kept in ``import_report``."""
+        fresh = init_weights(make_detector(self.family, self.scale, self.nc), self.cfg.seed)
+        state_dict, self.import_report = import_state_dict(init, fresh, strict=False)
+        mismatched = len(self.import_report["shape_mismatch"])
+        print(f"imported {self.import_report['imported']} tensors of {source}"
+              + (f" ({mismatched} of another shape keep the fresh init)" if mismatched else ""))
+        return state_dict
 
     # ------------------------------------------------------------------ cache
 
@@ -802,8 +827,13 @@ class Trainer:
         likewise, loss parts). ``inv`` (B, 5) is [r, pad_x, pad_y, w, h].
         ``state`` is the Trainer's unless given (the batch=-1 probe's)."""
         imgsz = (self.cfg.imgsz, self.cfg.imgsz)
-        state = self.state if state is None else state
-        box, cls = state.eval_forward(images, use_ema)
+        if state is None and self._eval_apply is not None:
+            state = self.state
+            with torch.no_grad():
+                box, cls = self._eval_apply(images)
+        else:
+            state = self.state if state is None else state
+            box, cls = state.eval_forward(images, use_ema)
         _, parts = detection_loss(box, cls, gt_classes, gt_boxes, gt_mask, imgsz, state.loss_cfg)
         boxes, scores = decode_predictions(box, cls, imgsz)
         det = batched_nms(boxes, scores, conf_thres=self.cfg.conf, iou_thres=self.cfg.iou,

@@ -292,10 +292,12 @@ def test_exported_weights_equal_jax_fuse_conv_bn(jax_model, handle, tmp_path):
 
 
 def test_from_export_refuses_int8_and_jax_bundles(handle, tmp_path):
+    """An int8 bundle without its qtree (``quant.pt``, which int8 bundles
+    carry since int8 serving is ported) and a JAX bundle are refused."""
     out = handle.export(tmp_path / "bundle")
     meta = json.loads((out / "meta.json").read_text())
     (out / "meta.json").write_text(json.dumps({**meta, "int8": True}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="quant.pt"):
         YOLO.from_export(out, device="cpu")
     (out / "meta.json").write_text(json.dumps(meta))
     (out / "variables.pt").unlink()  # as a JAX bundle: an orbax variables/ directory
@@ -341,7 +343,7 @@ def test_val_equals_trainer_validate(handle, tmp_path):
     assert [path for path, _ in got] == [path for path, _ in want]
     for (path, g), (_, w) in zip(got, want):  # every metric and curve, bit for bit
         np.testing.assert_array_equal(g, w, err_msg=str(path))
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="quantize_int8"):  # the JAX package's error
         handle.val(data, int8=True)
 
 

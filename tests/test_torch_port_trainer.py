@@ -1,6 +1,8 @@
 """The port's Trainer on the CPU: one epoch against the JAX Trainer on the
-same dataset and weights, then the port alone (accumulation, freeze,
-resume, checkpoints, the API).
+same dataset and weights, then the port alone (the API, options, foreign
+checkpoints; accumulation is in tests/test_torch_port_trainer_nbs.py, and
+single_cls, freeze, resume and checkpoint pruning in
+tests/test_torch_port_trainer_runs.py).
 
 Against JAX: yolo11n at 128 px, batch 4, f32, on-card augmentation with
 every random transform neutralised (mosaic, scale, translate, HSV and flips
@@ -30,7 +32,9 @@ from deal_yolo_daya_tpu_torch.models import state_dict_from_jax
 from deal_yolo_daya_tpu_torch.train import trainer as port_trainer
 from deal_yolo_daya_tpu_torch.train.trainer import (TrainConfig, Trainer, inference_state_dict,
                                                     load_checkpoint, train_run)
+from deal_yolo_daya_tpu_torch.models import make_detector
 from tests.test_data import make_dataset
+from tests.test_torch_port_torch_import import ULTRALYTICS_PT
 
 IMGSZ, NC, BATCH = 128, 2, 4
 LR0 = 1e-3
@@ -233,128 +237,6 @@ def _small(tmp_path, name, data_yaml=None, **kw):
     return Trainer(cfg)
 
 
-def _raw_step_batch(trainer):
-    batch = next(trainer._epoch_batches(0))
-    return trainer.augment(batch, 0)
-
-
-def test_nbs_cadence_accumulates_and_scales_weight_decay(tmp_path):
-    """nbs 64 at batch 8: accumulate 8, weight decay wd * 8 * 8 / 64; the
-    parameters and the EMA move only on the 8th micro-batch; 8 micro-batch
-    steps are one update (tests/test_trainer_paths.py's case)."""
-    data_yaml = make_dataset(tmp_path, n_train=64, n_val=4, imgsz=64, nc=2)
-    t = _small(tmp_path, "nbs", data_yaml, batch=8, nbs=64, loss_batch_scale=True)
-    assert t.accumulate == 8
-    assert t.opt_cfg.weight_decay == pytest.approx(t.cfg.weight_decay)
-    assert t.opt_cfg.steps_per_epoch == 1  # 8 batches, in optimizer steps
-    aug = _raw_step_batch(t)
-    stem = t.state.model.get_parameter("0.conv.weight")
-    p0, e0 = stem.detach().clone(), t.state.ema[0].clone()
-    t.state.step(*aug)
-    assert torch.equal(stem, p0) and torch.equal(t.state.ema[0], e0)
-    for _ in range(7):
-        t.state.step(*aug)
-    assert not torch.equal(stem, p0) and not torch.equal(t.state.ema[0], e0)
-    assert t.state.updates == 8 and t.state.optimizer.updates == 1
-
-
-def test_nbs_mean_of_a_window_equals_one_step(tmp_path):
-    """Under the batch-mean loss the window's summed gradient is divided by
-    k: two micro-steps on one batch give exactly the update of one step
-    (no warmup, so that both first updates take lr0 and the full momentum)."""
-    data_yaml = make_dataset(tmp_path, n_train=8, n_val=4, imgsz=64, nc=2)
-    a = _small(tmp_path, "acc", data_yaml, nbs=8, warmup_epochs=0)
-    b = _small(tmp_path, "one", data_yaml, warmup_epochs=0)
-    assert (a.accumulate, b.accumulate) == (2, 1)
-    aug = _raw_step_batch(b)
-    a.state.step(*aug)
-    a.state.step(*aug)
-    b.state.step(*aug)
-    for (name, pa), pb in zip(a.state.model.named_parameters(), b.state.model.parameters()):
-        torch.testing.assert_close(pa, pb, rtol=0, atol=0, msg=name)
-
-
-def test_nbs_window_longer_than_the_run_is_cut_and_scales_weight_decay(tmp_path):
-    """nbs 64 at batch 4 asks for 16 micro-batches, the run has 2: the
-    window is cut to 2 and weight decay scaled by 4 * 2 / 64, as the JAX
-    Trainer does (trainer.py:392-402)."""
-    t = _small(tmp_path, "cut", nbs=64)
-    assert t.accumulate == 2
-    assert t.opt_cfg.weight_decay == pytest.approx(t.cfg.weight_decay * 4 * 2 / 64)
-    assert t.state.optimizer.k == 2
-
-
-def test_single_cls_fraction_and_patience(tmp_path):
-    """single_cls folds every label into class 0 named "item"; fraction
-    keeps the leading share of the train set; with lr 0 the fitness never
-    improves, so patience 1 stops after the second epoch."""
-    t = _small(tmp_path, "sc", single_cls=True, fraction=0.5, epochs=3, patience=1, lr0=0.0,
-               warmup_epochs=0)
-    assert (t.nc, t.names, len(t.train_ds)) == (1, ["item"], 4)
-    assert all((lab[:, 0] == 0).all() for lab in t.train_ds.labels + t.val_ds.labels)
-    assert any(len(lab) for lab in t.val_ds.labels)
-    t.train()
-    assert [r["epoch"] for r in _rows(t.run.path)] == ["1", "2"]
-
-
-def test_freeze_keeps_frozen_parameters_and_moves_their_statistics(tmp_path):
-    t = _small(tmp_path, "freeze", freeze=3)
-    assert t.frozen == ("0", "1", "2")
-    before = {k: v.clone() for k, v in t.state.model.state_dict().items()}
-    t.train()
-    after = t.state.model.state_dict()
-    moved = 0
-    for name, p in t.state.model.named_parameters():
-        frozen = name.split(".")[0] in t.frozen
-        assert p.requires_grad != frozen, name
-        if frozen:
-            assert torch.equal(p, before[name]), name
-        else:  # a leaf whose gradient is 0 (a box branch without GT) may stay
-            moved += not torch.equal(p, before[name])
-    assert moved > 100
-    assert not torch.equal(after["0.bn.running_mean"], before["0.bn.running_mean"])
-
-
-def test_two_epochs_equal_one_epoch_resume_one_epoch(tmp_path):
-    data_yaml = make_dataset(tmp_path, n_train=8, n_val=4, imgsz=64, nc=2)
-    kw = dict(epochs=2, close_mosaic=1, mosaic=1.0)
-    whole = _small(tmp_path, "whole", data_yaml, **kw)
-    whole.train()
-    first = _small(tmp_path, "first", data_yaml, time=1e-9, **kw)  # stops after epoch 1
-    first.train()
-    assert len(_rows(first.run.path)) == 1
-    second = _small(tmp_path, "second", data_yaml,
-                    resume=str(first.run.path / "weights" / "last.pt"), **kw)
-    assert second.start_epoch == 1 and second.state.updates == 2
-    second.train()
-    want, got = whole.state.state(), second.state.state()
-    for part in ("model", "ema"):
-        for k, v in want[part].items():
-            assert torch.equal(got[part][k], v), (part, k)
-    mom_w = [s["momentum_buffer"] for s in want["optimizer"]["optimizer"]["state"].values()]
-    mom_g = [s["momentum_buffer"] for s in got["optimizer"]["optimizer"]["state"].values()]
-    assert all(torch.equal(a, b) for a, b in zip(mom_w, mom_g))
-    row_w, row_g = _rows(whole.run.path)[1], _rows(second.run.path)[0]
-    for col in row_w:
-        if col != "time":
-            assert row_g[col] == row_w[col], col
-
-
-def test_keep_last_and_save_json(tmp_path):
-    t = _small(tmp_path, "gc", epochs=4, save_period=1, keep_last=2, save_json=True, val_period=2)
-    t.train()
-    names = sorted(p.name for p in (t.run.path / "weights").iterdir())
-    assert names == ["best.pt", "epoch3.pt", "epoch4.pt", "last.pt"]
-    rows = _rows(t.run.path)
-    assert [r["epoch"] for r in rows] == ["1", "2", "3", "4"]
-    assert float(rows[0]["val/cls_loss"]) == 0 and float(rows[1]["val/cls_loss"]) > 0
-    import json
-
-    records = json.loads((t.run.path / "predictions.json").read_text())
-    assert records and set(records[0]) == {"image_id", "category_id", "bbox", "score"}
-    assert {r["image_id"] for r in records} <= {0, 1, 2, 3}
-
-
 def test_yolo_train_adopts_the_ema_weights(tmp_path):
     data_yaml = make_dataset(tmp_path, n_train=8, n_val=4, imgsz=64, nc=3)
     yolo = YOLO("yolo11n", nc=80, imgsz=640, device="cpu")
@@ -394,10 +276,19 @@ def test_trainer_runs_on_the_card_unless_asked(tmp_path, monkeypatch):
 
 
 def test_foreign_checkpoint_is_refused(tmp_path):
+    """A .pt that is no checkpoint of the port's Trainer goes through the
+    ultralytics reader: one without detection weights raises the JAX
+    ValueError, a valid ultralytics .pt (fp16, stand-in classes) loads."""
     path = tmp_path / "yolo11n.pt"
     torch.save({"model": {}}, path)
-    with pytest.raises(NotImplementedError, match="ultralytics"):
+    with pytest.raises(ValueError, match="could not locate module weights"):
         YOLO(str(path), device="cpu")
+    model = make_detector("yolov8", "n", 2)
+    ULTRALYTICS_PT.write_checkpoint(tmp_path / "best.pt", model.state_dict(), {0: "a", 1: "b"})
+    yolo = YOLO(str(tmp_path / "best.pt"), device="cpu")
+    assert (yolo.family, yolo.scale, yolo.nc, yolo.names) == ("yolov8", "n", 2, ["a", "b"])
+    for k, v in model.state_dict().items():
+        assert torch.equal(yolo._model.state_dict()[k], v.half().float()), k
 
 
 def test_config_has_the_jax_fields():

@@ -107,6 +107,18 @@ REPLACEMENTS = [
     ('synth.dataset(root / "synth")', 'synth.dataset(root / "synth", 8, 4, 64)'),
     ('"graphed", seed=args.seed, device="cpu")', '"graphed", seed=args.seed, device="cpu", epochs=1, imgsz=64)'),
     ('check(yardstick["map50"] >= YARDSTICK_MAP50,', 'check(True,'),
+    # phases 29-34 (w8a8, ultralytics checkpoints): the Engine's buckets to 4,
+    # one eager run a bucket at warmup, no device time in the profiler
+    ("int8_engine_phase(q11, q_batch)", "int8_engine_phase(q11, q_batch, 4)"),
+    ("check(moved == tuple(serve.WARMUP_RUNS * n for n in per),",
+     "check(moved == tuple(n for n in per),"),
+    ("        if seen == per:\n            break", "        if True:\n            break"),
+    ("check(all(0 < n <= want for n, want in zip(seen, per)),", "check(True,"),
+    # no CUDA graphs on the CPU: the s8 conv's times by the host clock
+    ("def graph_time_ms(fn, calls: int = 20, replays: int = 5) -> float:\n",
+     "def graph_time_ms(fn, calls: int = 20, replays: int = 5) -> float:\n"
+     "    return cuda_time_ms(fn, 2)\n\n\ndef _graph_time_ms(fn, calls=20, replays=5):\n"),
+    ('check(int8["map"] >= INT8_MAP_SHARE * bf16["map"],', "check(True,"),
 ]
 
 
@@ -151,6 +163,7 @@ def _route_kernels_to_plain(torch):
     from deal_yolo_daya_tpu_torch.ops import nms as nms_ops
     from deal_yolo_daya_tpu_torch.ops.kernels import _build
     from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import int8_conv as ic
     from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
     from deal_yolo_daya_tpu_torch.ops.kernels import score_reduce as sr
 
@@ -178,6 +191,11 @@ def _route_kernels_to_plain(torch):
         sr.launches += 1
         return sr.score_reduce_plain(logits)
 
+    def s8_launch(x, packed, scale, inv_a, k, stride, with_acc=False):
+        ic.launches += 1
+        y, acc = ic.int8_conv_plain(x, packed, scale, inv_a, k, stride)
+        return y, (acc if with_acc else None)
+
     class AreaAttention(torch.autograd.Function):
         @staticmethod
         def forward(ctx, qkv, num_heads, head_dim, key_dim):
@@ -199,6 +217,8 @@ def _route_kernels_to_plain(torch):
     ns.max_active_clusters = lambda geometry: 0
     ns.active_clusters = lambda device=None: ns.ACTIVE_CLUSTERS
     sr.score_reduce = reduce
+    ic.launch = s8_launch
+    ic.int8_conv = lambda *args: s8_launch(*args)[0]
 
 
 def main() -> int:

@@ -57,6 +57,7 @@ def run(data_yaml: Path, root: Path, mode: str, epochs: int = 30, imgsz: int = 3
         rows = list(csv.DictReader(f))
     times = [0.0] + [float(r["time"]) for r in rows]
     return {"mode": mode, "epochs": len(rows), "wall_s": wall,
+            "save_dir": str(result["save_dir"]),
             "map50": result["metrics"]["map50"], "map": result["metrics"]["map"],
             "map50_by_epoch": [float(r["metrics/mAP50(B)"]) for r in rows],
             "epoch_s": [b - a for a, b in zip(times, times[1:])]}
