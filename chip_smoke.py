@@ -158,19 +158,31 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    at 0), calibrated on the card; the int8 raw head outputs against the
    fused model's on a b32 batch at the JAX package's bar (INT8_HEAD_BAR, in
    f32; bf16 printed); predict at b32
-   with the counts at 0 before and read after: the s8 conv once a quantized
-   conv (74), attention and NMS once, a batch; img/s end to end and device
-   ms a b32 batch, int8 and bf16 in turn; the weights' bytes both ways;
-30. the s8 conv (``csrc/int8_conv.cu``) against its plain version, s32 sums
-   and outputs bit for bit, and against itself (two launches), on every
-   quantized conv's input of phase 29's first batch and on edge shapes
-   (Cin 3, K = 27; stride 2; 1x1; B = 1; Cout 67; Cin 20; bf16 and f32;
-   inputs at +-127 steps, beyond, and on the k + 0.5 rounding ties); its
-   times at the heaviest path conv with cuDNN's bf16 conv of the same shape
-   and the bound, and summed over a b32 int8 infer;
+   with the counts at 0 before and read after: the s8 ConvBN kernel once a
+   quantized ConvBN (74: 69 on the tma route, 3 on the direct route, the
+   stem's Cin 3 and one Cin 8 on the narrow route), attention and NMS once,
+   a batch; img/s end
+   to end and device ms a b32 batch, int8 and bf16 in turn; the weights'
+   bytes both ways;
+30. the fused s8 ConvBN (``csrc/int8_conv.cu``: conv, bias, SiLU) against
+   its plain version, s32 sums bit for bit and outputs within S8_OUT_ULPS
+   (0), and against itself (two launches), on every quantized ConvBN's
+   input of phase 29's first batch and on edge shapes with and without act
+   (Cin 3, K = 27; Cin 8; Cout 8, 67, 300; stride 2 at odd sizes; 1x1; B =
+   1; M no multiple of the tile; Cin 48 at 3x3; a conv too wide for the
+   wgmma kernel, on the narrow one; a base off the 16-byte alignment, on
+   the direct route; a channel slice; bf16 and f32; inputs at +-127 steps, beyond,
+   and on the k + 0.5 rounding ties); its times at the heaviest path conv
+   with cuDNN's bf16 conv of the same shape and the bound, summed over a
+   b32 batch by route, and ``torch._int_mm`` on the 1x1 convs as a
+   yardstick;
 31. the int8 Engine: buckets 1-32 captured, each replay bit-identical to
-   the eager int8 ``infer``, and one profiled b32 replay with the s8 conv,
-   attention and NMS inside the graph;
+   the eager int8 ``infer``; no bias add or SiLU outside the s8 kernel,
+   exactly: each ``Int8ConvBN`` forward dispatches no arithmetic op of its
+   own, and the int8 forward as many adds as the bf16 one and as many SiLUs
+   less as it has quantized ConvBNs with act (TorchDispatchMode); one
+   profiled b32 replay with the s8 ConvBN, attention and NMS inside the
+   graph; a b32 replay timed by CUDA events, int8 against bf16;
 32. ``export``/``from_export`` of the int8 handle, predicting bit for bit as
    its source;
 33. an ultralytics-layout fp16 ``best.pt`` of phase 12's weights
@@ -282,6 +294,12 @@ INT8_HEAD_BAR = (0.98, 0.1)
 # the int8 yardstick: mAP50-95 in int8 at least this share of bf16's (the JAX
 # package measured -0.8% on its own yardstick)
 INT8_MAP_SHARE = 0.98
+# the fused s8 ConvBN's output against its plain version: the kernel rounds
+# each step as PyTorch does (IEEE division, the accurate expf), so 0 ulps;
+# any element that differs is counted and printed
+S8_OUT_ULPS = 0
+# the s8 ConvBN's routes (ops/kernels/int8_conv.py::plan), each with its count
+S8_ROUTES = ("tma", "direct", "narrow")
 # the synth yardstick (phase 28): a floor that catches a broken step; the
 # JAX package reached 0.988 on its own data
 YARDSTICK_MAP50 = 0.90
@@ -1183,22 +1201,27 @@ def int8_predict_phase(seed: int, images, bf16_handle):
     n_q = len(q11._quant)
     recorded = []
 
-    def record(x, packed, scale, inv_a, k, s):
+    def record(x, packed, scale, bias, inv_a, k, s, act):
         if len(recorded) < n_q:  # the first batch's calls
-            recorded.append((x.clone(), packed, scale, inv_a, k, s))
-        return orig(x, packed, scale, inv_a, k, s)
+            recorded.append((x.clone(), packed, scale, bias, inv_a, k, s, act))
+        return orig(x, packed, scale, bias, inv_a, k, s, act)
 
-    with patched(ic, "int8_conv", record) as orig:
+    with patched(ic, "int8_conv_bn", record) as orig:
         aa.launches = ns.launches = ic.launches = 0
+        ic.tma_launches = ic.direct_launches = ic.narrow_launches = 0
         results = q11.predict(images, conf=0.001, batch_size=32)
         torch.cuda.synchronize()
         launches = {"int8_conv": ic.launches, "area_attention": aa.launches,
-                    "nms_suppress": ns.launches}
+                    "nms_suppress": ns.launches,
+                    **{f"int8_conv {rt}": getattr(ic, f"{rt}_launches") for rt in S8_ROUTES}}
     n_batches = -(-len(images) // 32)
+    routes = [ic.plan_for(r[0], r[1].shape[0], r[5], r[6]).route for r in recorded]
     want = {"int8_conv": n_q * n_batches, "area_attention": n_batches,
-            "nms_suppress": n_batches}
+            "nms_suppress": n_batches,
+            **{f"int8_conv {rt}": routes.count(rt) * n_batches for rt in S8_ROUTES}}
     log(f"[int8] predict {len(results)} images at b32: launches {launches} ({n_q} quantized "
-        f"convs, {n_batches} batches)")
+        f"ConvBNs by route {dict((rt, routes.count(rt)) for rt in S8_ROUTES)}, {n_batches} "
+        f"batches)")
     check(launches == want, f"int8 predict launched {launches}, not {want}")
     check(len(recorded) == n_q, "the int8 predict did not go through every quantized conv")
     check(len(results) == len(images) and min(len(d) for d in results) > 0,
@@ -1227,73 +1250,164 @@ def int8_predict_phase(seed: int, images, bf16_handle):
                                                                   "bf16": bf16_bytes}}
 
 
+def ulps_apart(a, b) -> int:
+    """The largest distance in units in the last place between two float
+    tensors of one dtype (bf16 or f32), by their ordered bit patterns."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    def ordered(t):
+        v = t.contiguous().view(ints).to(torch.int64)
+        top = 1 << (8 * t.element_size() - 1)
+        return torch.where(v < 0, -(v + top), v)
+    return int((ordered(a) - ordered(b)).abs().max().item()) if a.numel() else 0
+
+
+def dispatched_ops(net, x, inside=None):
+    """The aten ops of one eager forward of ``net`` on ``x``, by op name
+    (``add``, ``add_``, ``silu``, ...), caught by a TorchDispatchMode: ->
+    (all ops, the ops dispatched inside a forward of a module of type
+    ``inside``, the number of such forwards)."""
+    import collections
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    depth = [0]
+    seen = {"all": collections.Counter(), "inside": collections.Counter(), "calls": 0}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            seen["all"][name] += 1
+            if depth[0]:
+                seen["inside"][name] += 1
+            return func(*args, **(kwargs or {}))
+
+    def enter(*_):
+        depth[0] += 1
+        seen["calls"] += 1
+
+    def leave(*_):
+        depth[0] -= 1
+
+    hooks = []
+    if inside is not None:
+        for m in net.modules():
+            if isinstance(m, inside):
+                hooks += [m.register_forward_pre_hook(enter), m.register_forward_hook(leave)]
+    try:
+        with torch.no_grad(), Count():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen["all"], seen["inside"], seen["calls"]
+
+
 def s8_conv_checks(q11, batch, recorded, seed: int):
-    """Phase 30: the s8 conv kernel against its plain version bit for bit
-    (the s32 sums and the output) and against itself (two launches), on
-    every quantized conv's input of phase 29's first batch and on edge
-    shapes (the stem's Cin 3, K = 27; stride 2; 1x1; B = 1; a Cout no
-    multiple of the 64-wide tile; a Cin off the 8-channel loads; bf16 and
-    f32; inputs at +-127 steps, beyond, and at k + 0.5 steps of a_scale).
-    Then its times: at the heaviest recorded conv (device time, a call,
-    the plain version, cuDNN's bf16 conv of the same shape, the bound) and
-    summed over a b32 int8 infer (the profiler), with the bound summed over
-    the recorded convs."""
+    """Phase 30: the fused s8 ConvBN kernels (``csrc/int8_conv.cu``) against
+    their plain version (``int8_conv_bn_plain``) and against themselves (two
+    launches): the s32 sums bit for bit, the output (scale, bias, SiLU) bit
+    for bit or within S8_OUT_ULPS with its count, on every quantized
+    ConvBN's input of phase 29's first batch (with its own act) and on edge
+    shapes with and without act, bf16 and f32 (the stem's Cin 3, K = 27;
+    Cin 8; Cout 8, 67, 80 and 300; B = 1; M no multiple of the 64-pixel
+    tile; odd sizes at stride 2; Cin 48 with a 3x3 kernel; 1 x 1 images;
+    1024 -> 512 at 3x3, too wide for the wgmma path's shared memory, on the
+    narrow path; a base off the 16-byte alignment; a channel slice; inputs
+    at +-127 steps, beyond, and on the k + 0.5 rounding ties). Then the
+    times: the heaviest path conv (device time by CUDA graph, a call with
+    the host, the plain version, cuDNN's bf16 conv, the bound), summed over
+    a b32 batch's path convs, and ``torch._int_mm`` (cuBLASLt s8 x s8 -> s32
+    on the int8 input, a yardstick the port never calls) on the 1x1 convs."""
     import torch
     import torch.nn.functional as F
 
     from deal_yolo_daya_tpu_torch.ops.kernels import int8_conv as ic
 
     dev = torch.device("cuda")
+    diffs = {"checked": 0, "out_elements_differing": 0, "max_ulps": 0}
 
-    def parity(label, x, packed, scale, inv_a, k, s):
-        y, acc = ic.launch(x, packed, scale, inv_a, k, s, with_acc=True)
-        y2, acc2 = ic.launch(x, packed, scale, inv_a, k, s, with_acc=True)
-        yp, accp = ic.int8_conv_plain(x, packed, scale, inv_a, k, s)
+    def parity(label, x, packed, scale, bias, inv_a, k, s, act):
+        y, acc = ic.launch(x, packed, scale, bias, inv_a, k, s, act, with_acc=True)
+        y2, acc2 = ic.launch(x, packed, scale, bias, inv_a, k, s, act, with_acc=True)
+        yp, accp = ic.int8_conv_bn_plain(x, packed, scale, bias, inv_a, k, s, act)
         torch.cuda.synchronize()
-        same = same_bits(acc, accp.to(acc.dtype)) and same_bits(y, yp)
         twice = same_bits(acc, acc2) and same_bits(y, y2)
-        err = (y.float() - yp.float()).abs().max().item()
-        check(same, f"s8 conv {label}: the kernel differs from its plain version (max |diff| "
-              f"{err}, s32 sums equal {torch.equal(acc, accp)})")
+        check(same_bits(acc, accp.to(acc.dtype)), f"s8 conv {label}: the s32 sums differ from "
+              f"the plain version's ({int((acc != accp).sum())} of {acc.numel()})")
         check(twice, f"s8 conv {label}: two launches differ")
-        return err
+        ints = {2: torch.int16, 4: torch.int32}[y.element_size()]
+        differing = int((y.contiguous().view(ints) != yp.contiguous().view(ints)).sum())
+        ulps = ulps_apart(y, yp)
+        check(ulps <= S8_OUT_ULPS, f"s8 conv {label}: the output is {ulps} ulps from the plain "
+              f"version's ({differing} elements differ; bound {S8_OUT_ULPS})")
+        diffs["checked"] += y.numel()
+        diffs["out_elements_differing"] += differing
+        diffs["max_ulps"] = max(diffs["max_ulps"], ulps)
+        return (y.float() - yp.float()).abs().max().item()
 
-    errs = [parity(f"path conv {i} {tuple(x.shape)} k{k} s{s}", x, p, sc, ia, k, s)
-            for i, (x, p, sc, ia, k, s) in enumerate(recorded)]
-    log(f"[s8 conv] {len(recorded)} path convs of a b32 batch: s32 sums and outputs bit for bit "
-        f"equal to the plain version, two launches bit-identical")
+    errs = [parity(f"path conv {i} {tuple(r[0].shape)} -> {r[1].shape[0]} k{r[5]} s{r[6]} "
+                   f"act {r[7]}", *r) for i, r in enumerate(recorded)]
+    log(f"[s8 conv] {len(recorded)} path convs of a b32 batch: s32 sums bit for bit equal to "
+        f"the plain version, two launches bit-identical; outputs: {diffs}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     # (B, Cin, H, W, Cout, k, stride)
     edges = [(2, 3, 64, 64, 16, 3, 2), (1, 64, 20, 20, 67, 1, 1), (1, 16, 9, 7, 32, 3, 1),
-             (2, 256, 10, 10, 80, 3, 2), (3, 20, 11, 13, 24, 3, 1), (1, 128, 1, 1, 64, 1, 1)]
+             (2, 256, 10, 10, 80, 3, 2), (3, 20, 11, 13, 24, 3, 1), (1, 128, 1, 1, 64, 1, 1),
+             (2, 8, 20, 20, 16, 3, 1), (2, 16, 20, 20, 8, 3, 1), (1, 32, 9, 11, 32, 1, 1),
+             (2, 64, 19, 21, 64, 3, 2), (2, 16, 15, 13, 32, 3, 2), (2, 48, 12, 12, 64, 3, 1),
+             (1, 64, 12, 12, 300, 3, 1), (2, 512, 10, 10, 256, 1, 1), (1, 1024, 6, 6, 512, 3, 1)]
+
+    def inputs(b, c, h, w, n, k, dtype, offset=0, extra=0):
+        a_scale = 0.05
+        shape = (b, h, w, c + extra)
+        steps = torch.randn(shape, generator=gen, device=dev) * 60
+        pick = torch.randint(0, 4, shape, generator=gen, device=dev)
+        edge = torch.tensor([127.0, -127.0, 200.0, -200.0], device=dev)[pick]
+        half = torch.round(steps) + 0.5  # k + 0.5 steps: ties of the rounding
+        sel = torch.randint(0, 3, shape, generator=gen, device=dev)
+        vals = torch.where(sel == 0, steps, torch.where(sel == 1, edge, half))
+        x = (vals * a_scale).to(dtype)
+        if offset:  # the same values from a base `offset` elements past an aligned one
+            flat = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+            flat[offset:] = x.flatten()
+            x = flat[offset:].view(shape)
+        x = x.permute(0, 3, 1, 2)[:, extra:]
+        wq = torch.randint(-127, 128, (n, c, k, k), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        scale = torch.rand(n, generator=gen, device=dev) * 1e-2 * a_scale
+        bias = (torch.randn(n, generator=gen, device=dev) * 2).to(dtype)
+        inv_a = float(torch.tensor(1.0) / torch.tensor(a_scale))
+        return x, ic.pack_weight(wq), scale, bias, inv_a
+
+    cases = [(e, 0, 0) for e in edges] + [((2, 64, 20, 20, 64, 3, 1), 3, 0),
+                                          ((2, 32, 20, 20, 32, 3, 2), 1, 0),
+                                          ((2, 32, 20, 20, 32, 3, 1), 0, 32),
+                                          ((2, 8, 20, 20, 16, 3, 1), 0, 8)]
     for dtype in (torch.bfloat16, torch.float32):
-        for b, c, h, w, n, k, s in edges:
-            a_scale = 0.05
-            steps = torch.randn((b, h, w, c), generator=gen, device=dev) * 60
-            pick = torch.randint(0, 4, (b, h, w, c), generator=gen, device=dev)
-            edge = torch.tensor([127.0, -127.0, 200.0, -200.0], device=dev)[pick]
-            half = torch.round(steps) + 0.5  # k + 0.5 steps: ties of the rounding
-            sel = torch.randint(0, 3, (b, h, w, c), generator=gen, device=dev)
-            vals = torch.where(sel == 0, steps, torch.where(sel == 1, edge, half))
-            x = (vals * a_scale).to(dtype).permute(0, 3, 1, 2)
-            wq = torch.randint(-127, 128, (n, c, k, k), generator=gen, device=dev,
-                               dtype=torch.int32).to(torch.int8)
-            scale = torch.rand(n, generator=gen, device=dev) * 1e-2 * a_scale
-            inv_a = float(torch.tensor(1.0) / torch.tensor(a_scale))
-            errs.append(parity(f"edge {(b, c, h, w, n, k, s)} {dtype}", x, ic.pack_weight(wq),
-                               scale, inv_a, k, s))
-    log(f"[s8 conv] edge shapes {edges} in bf16 and f32: bit for bit equal to the plain "
-        f"version, two launches bit-identical")
+        for (b, c, h, w, n, k, s), offset, extra in cases:
+            x, packed, scale, bias, inv_a = inputs(b, c, h, w, n, k, dtype, offset, extra)
+            for act in (True, False):
+                errs.append(parity(f"edge {(b, c, h, w, n, k, s)} {dtype} act {act} base+"
+                                   f"{offset} slice of {c + extra} "
+                                   f"({ic.plan_for(x, n, k, s).route})", x,
+                                   packed, scale, bias, inv_a, k, s, act))
+    log(f"[s8 conv] {len(cases)} edge cases (base offsets and channel slices included) in bf16 "
+        f"and f32, with and without act: s32 sums bit for bit, two launches bit-identical; "
+        f"outputs over all checks: {diffs} (bound {S8_OUT_ULPS} ulps)")
 
     def macs(rec):
-        x, packed, _, _, k, s = rec
+        x, packed, _, _, _, k, s, _ = rec
         return s8_bound(tuple(x.shape), packed.shape[0], k, s, x.element_size())[3]
 
-    x, packed, scale, inv_a, k, s = max(recorded, key=macs)
-    conv = lambda: ic.launch(x, packed, scale, inv_a, k, s)  # noqa: E731
+    rec = max(recorded, key=macs)
+    x, packed, scale, bias, inv_a, k, s, act = rec
+    conv = lambda: ic.launch(*rec)  # noqa: E731
     ms = cuda_time_ms(conv, 200)
     dev_ms = graph_time_ms(conv)
-    plain_ms = cuda_time_ms(lambda: ic.int8_conv_plain(x, packed, scale, inv_a, k, s), 5)
+    plain_ms = cuda_time_ms(lambda: ic.int8_conv_bn_plain(*rec), 5)
     w_bf16 = ic.unpack_weight(packed, x.shape[1], k).to(x.dtype).contiguous(
         memory_format=torch.channels_last)
     library = lambda: F.conv2d(x, w_bf16, stride=s, padding=k // 2)  # noqa: E731
@@ -1302,45 +1416,79 @@ def s8_conv_checks(q11, batch, recorded, seed: int):
     bound, bound_by, nbytes, ops = s8_bound(tuple(x.shape), packed.shape[0], k, s,
                                             x.element_size())
     log(f"[time] int8_conv heaviest path conv {tuple(x.shape)} -> {packed.shape[0]} k{k} s{s} "
-        f"{x.dtype}: kernel device {dev_ms:.4f} ms (a CUDA graph of 20 launches), a call "
-        f"{ms:.4f} ms with the host; plain {plain_ms:.4f} ms; cuDNN bf16 conv device "
-        f"{lib_dev_ms:.4f} ms, a call {lib_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}: "
-        f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GOP)")
+        f"{x.dtype} ({ic.plan_for(x, packed.shape[0], k, s).route}): kernel device {dev_ms:.4f} "
+        f"ms (a CUDA graph of 20 launches), a call {ms:.4f} ms with the host; plain "
+        f"{plain_ms:.4f} ms; cuDNN bf16 conv device {lib_dev_ms:.4f} ms, a call {lib_ms:.4f} ms; "
+        f"bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GOP)")
     # summed over a b32 batch: each path conv's device time
     per_conv = [graph_time_ms(lambda r=r: ic.launch(*r), calls=10) for r in recorded]
     b32_ms = sum(per_conv)
-    b32_bound = sum(s8_bound(tuple(r[0].shape), r[1].shape[0], r[4], r[5],
-                             r[0].element_size())[0] for r in recorded)
+    bounds = [s8_bound(tuple(r[0].shape), r[1].shape[0], r[5], r[6], r[0].element_size())[0]
+              for r in recorded]
+    routes = [ic.plan_for(r[0], r[1].shape[0], r[5], r[6]).route for r in recorded]
+    by_route = {rt: {"convs": routes.count(rt),
+                     "device_ms": sum(t for t, r in zip(per_conv, routes) if r == rt),
+                     "bound_ms": sum(b for b, r in zip(bounds, routes) if r == rt)}
+                for rt in sorted(set(routes))}
     infer_ms, _ = device_time_ms(lambda: q11.infer(batch, conf=0.001), calls=5)
     log(f"[time] int8_conv summed over a b32 batch's {len(recorded)} path convs: {b32_ms:.4f} ms "
-        f"of device time (bound {b32_bound:.4f} ms); the whole int8 infer {infer_ms:.4f} ms "
-        f"(0: no whole profiler window)")
+        f"of device time (bound {sum(bounds):.4f} ms); by route "
+        f"{by_route}; the whole int8 infer {infer_ms:.4f} ms (0: no whole profiler window)")
+    # the library yardstick on the 1x1 convs: cuBLASLt's s8 GEMM on the
+    # (M, Cin) int8 input (quantized beforehand) times the (Cin, Cout)
+    # weights, s32 out: the products alone, no quantizer and no epilogue
+    ones = [(i, r) for i, r in enumerate(recorded) if r[5] == 1 and r[6] == 1]
+    mm_ms = []
+    for i, r in ones:
+        xr = r[0]
+        xq = torch.clamp(torch.round(xr.float() * r[4]), -127, 127).to(torch.int8)
+        a = xq.permute(0, 2, 3, 1).reshape(-1, xr.shape[1]).contiguous()
+        wt = ic.unpack_weight(r[1], xr.shape[1], 1).reshape(r[1].shape[0], -1).contiguous().t()
+        check(torch.equal(torch._int_mm(a, wt), ic.launch(*r, with_acc=True)[1].permute(
+            0, 2, 3, 1).reshape(a.shape[0], -1)), f"torch._int_mm disagrees on 1x1 conv {i}")
+        mm_ms.append(graph_time_ms(lambda a=a, wt=wt: torch._int_mm(a, wt), calls=10))
+    heavy = max(range(len(ones)), key=lambda j: macs(ones[j][1]))
+    int_mm = {"convs": len(ones), "device_ms": sum(mm_ms),
+              "kernel_device_ms": sum(per_conv[i] for i, _ in ones),
+              "heaviest": [list(ones[heavy][1][0].shape), ones[heavy][1][1].shape[0]],
+              "heaviest_device_ms": mm_ms[heavy],
+              "heaviest_kernel_device_ms": per_conv[ones[heavy][0]]}
+    log(f"[time] torch._int_mm (cuBLASLt s8 GEMM, s32 out, no quantizer or epilogue) on the "
+        f"{len(ones)} 1x1 path convs: {int_mm}")
     return {
         "name": "int8_conv", "route": "cuda",
         "source": "deal_yolo_daya_tpu_torch/csrc/int8_conv.cu",
         "replaces": "deal_yolo_daya_tpu/models/quant.py:64 (_int8_conv_call: XLA's int8 "
-                    "lax.conv_general_dilated, no pallas_call)",
+                    "lax.conv_general_dilated, no pallas_call; with the ConvBN's bias and SiLU)",
         "launches": None, "max_abs_err": max(errs), "tol": 0.0, "ms": ms, "device_ms": dev_ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
         "library_device_ms": lib_dev_ms, "library": "cuDNN bf16 conv (F.conv2d)",
         "device_ms_from": "CUDA events around a CUDA graph of 20 launches",
         "shape": [list(x.shape), packed.shape[0], k, s], "dtype": str(x.dtype),
-        "b32_device_ms": b32_ms,
-        "b32_device_ms_by_conv": per_conv, "b32_bound_ms": b32_bound,
-        "b32_infer_device_ms": infer_ms or None, "path_convs": len(recorded), "edges": edges}
+        "route_of_shape": ic.plan_for(x, packed.shape[0], k, s).route, "out_vs_plain": diffs,
+        "b32_device_ms": b32_ms, "b32_device_ms_by_conv": per_conv, "b32_bound_ms": sum(bounds),
+        "b32_by_route": by_route, "int_mm_1x1": int_mm, "b32_infer_device_ms": infer_ms or None,
+        "path_convs": len(recorded), "edges": [list(c) for c in cases]}
 
 
-def int8_engine_phase(q11, batch, max_batch: int = 32):
+def int8_engine_phase(q11, batch, bf16_handle, max_batch: int = 32):
     """Phase 31: an Engine over the int8 handle, one CUDA graph a bucket: the
     counts move by the eager warm-up runs at each capture; each replay is
     bit-identical to the eager int8 ``infer`` and adds its graph's launches
-    (the s8 conv once a quantized conv, attention and NMS once); one
-    profiled b32 replay shows the three kernels inside the graph."""
+    (the s8 ConvBN once a quantized ConvBN, attention and NMS once); the ops
+    one eager forward dispatches hold exactly no bias add or SiLU outside
+    the s8 kernel; one profiled b32 replay shows the three kernels inside
+    the graph and no more SiLU kernels than the bf16 ConvBNs left. Then the
+    b32 replay's device time
+    by CUDA events around back-to-back replays, int8 and bf16 (an Engine
+    over phase 5's handle, bucket 32 alone) in turn: the profiler drops s8
+    launches late in a run, events do not."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from deal_yolo_daya_tpu_torch import serve
-    from deal_yolo_daya_tpu_torch.models.quant import Int8Detector
+    from deal_yolo_daya_tpu_torch.models.blocks import ConvBN
+    from deal_yolo_daya_tpu_torch.models.quant import Int8ConvBN, Int8Detector
     from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
     from deal_yolo_daya_tpu_torch.ops.kernels import int8_conv as ic
     from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
@@ -1378,10 +1526,46 @@ def int8_engine_phase(q11, batch, max_batch: int = 32):
                          for b, c in caps.items())
     log(f"[serve int8] buckets {eng.buckets()} captured ({captured}); every replay "
         f"bit-identical to the eager int8 infer, counts {per} a replay")
+    # no bias add or SiLU outside the s8 kernel, exactly: each Int8ConvBN
+    # forward dispatches no arithmetic op of its own (one s8 launch, the
+    # output's allocation and views), and the whole int8 forward dispatches
+    # as many adds as the bf16 one (the residual and head adds) and as many
+    # SiLUs less as there are quantized ConvBNs with act; the graphs replay
+    # exactly these launches (the counters and bit-identical replays above)
+    x2 = batch[:2].permute(0, 3, 1, 2)
+    before = ic.launches
+    ops8, inside, calls = dispatched_ops(eng._net, x2.to(q11.dtype), Int8ConvBN)
+    s8_calls = ic.launches - before
+    ops16 = dispatched_ops(bf16_handle._fused_model(), x2.to(bf16_handle.dtype))[0]
+    n_act = sum(1 for m in eng._net.modules() if isinstance(m, Int8ConvBN) and m.act)
+
+    def total(ops, word):
+        return sum(v for op, v in ops.items() if op.rstrip("_") == word)
+
+    dispatch = {"int8_add": total(ops8, "add"), "bf16_add": total(ops16, "add"),
+                "int8_silu": total(ops8, "silu"), "bf16_silu": total(ops16, "silu"),
+                "quantized_with_act": n_act, "int8convbn_forwards": calls, "s8_launches": s8_calls,
+                "ops_inside_int8convbn": dict(inside)}
+    log(f"[serve int8] ops dispatched by one eager forward (b2): {dispatch}")
+    check(calls == per[0] and s8_calls == per[0],
+          f"{calls} Int8ConvBN forwards launched {s8_calls} s8 kernels, not {per[0]}")
+    check(set(inside) <= {"empty", "permute"}, f"an Int8ConvBN forward dispatched "
+          f"{dict(inside)} beside its s8 launch: its bias or SiLU left the kernel")
+    check(dispatch["int8_add"] == dispatch["bf16_add"],
+          f"the int8 forward dispatched {dispatch['int8_add']} adds, the bf16 one "
+          f"{dispatch['bf16_add']}: a quantized ConvBN's bias left its kernel")
+    check(dispatch["int8_silu"] == dispatch["bf16_silu"] - n_act,
+          f"the int8 forward dispatched {dispatch['int8_silu']} SiLUs, not the bf16 forward's "
+          f"{dispatch['bf16_silu']} less its {n_act} quantized ConvBNs with act")
     prog = eng.program(max_batch)
     prog.replay()
     torch.cuda.synchronize()
-    words = (("int8_conv", "int8_conv_kernel"), ("attention", "attention_"), ("nms", "nms_"))
+    # the s8 ConvBN kernels by name; a SiLU runs only for the ConvBNs left
+    # in bf16 (depthwise), none for the quantized ones, whose SiLU and bias
+    # are in the kernel's epilogue (before, each quantized ConvBN also
+    # launched an add and a SiLU)
+    silu_want = sum(1 for m in eng._net.modules() if isinstance(m, ConvBN) and m.act)
+    words = (("int8_conv", "s8_conv_"), ("attention", "attention_"), ("nms", "nms_"))
     for attempt in range(5):  # the card's profiler drops launches (graph_time_ms)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             prog.replay()
@@ -1389,21 +1573,54 @@ def int8_engine_phase(q11, batch, max_batch: int = 32):
         rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
         seen = tuple(sum(r[1] for r in rows if w in r[0]) for _, w in words)
-        if seen == per:
+        silu = sum(r[1] for r in rows if "silu" in r[0].lower())
+        adds = sum(r[1] for r in rows if "add" in r[0].lower() and "s8_conv_" not in r[0])
+        if seen == per and silu == silu_want:
             break
         time.sleep(1.0)
     ms = {site: sum(r[2] for r in rows if w in r[0]) for site, w in words}
     busy = sum(r[2] for r in rows)
     log(f"[serve int8] one replay of bucket {max_batch} under the profiler: launches "
         f"{dict(zip((s for s, _ in words), seen))} ({attempt + 1} windows; the counters: "
-        f"{per}), device ms {ms}, busy {busy:.3f} ms")
+        f"{per}), SiLU kernels {silu} (the {silu_want} bf16 ConvBNs with act), add kernels "
+        f"{adds}, {sum(r[1] for r in rows)} launches in all, device ms {ms}, busy {busy:.3f} ms")
+    top = sorted(rows, key=lambda r: -r[2])[:12]
+    log("[serve int8] the replay's kernels by device time: " + "; ".join(
+        f"{c} x {k[:60]} {t:.4f} ms" for k, c, t in top))
     # the counters hold a replay's launches exactly (above); the profiler must
     # see each kernel inside the graph, and no launch the counters do not
     check(all(0 < n <= want for n, want in zip(seen, per)),
           f"the profiler saw {seen} launches in the int8 graph, the counters {per}")
+    check(silu <= silu_want, f"the int8 replay ran {silu} SiLU kernels, beyond the {silu_want} "
+          f"of the ConvBNs left in bf16: a quantized ConvBN's SiLU left its kernel")
+    bf16_eng = serve.Engine(bf16_handle, max_batch=max_batch, conf=0.001, iou=0.7)
+    bf16_eng.warmup([max_batch])
+    progs = {"int8": prog, "bf16": bf16_eng.program(max_batch)}
+    progs["bf16"].images.copy_(batch[:max_batch])
+
+    def replay_ms(pr, n=20):
+        for _ in range(3):
+            pr.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            pr.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    replay_times = {}
+    for label in ("int8", "bf16", "int8 again", "bf16 again"):
+        replay_times[label] = replay_ms(progs[label.split()[0]])
+    log(f"[serve int8] a b32 replay back to back (CUDA events, int8, bf16, int8, bf16 in "
+        f"turn): " + ", ".join(f"{k} {v:.4f} ms" for k, v in replay_times.items()))
+    bf16_eng.shutdown()
     eng.shutdown()
     return {"captures": caps, "replays": replays, "graph_launches": dict(zip(
-        (s for s, _ in words), seen)), "graph_device_ms": ms, "graph_busy_ms": busy}
+        (s for s, _ in words), seen)), "graph_device_ms": ms, "graph_busy_ms": busy,
+        "replay_ms_by_events": replay_times,
+        "graph_silu_launches": silu, "graph_add_launches": adds, "dispatched": dispatch,
+        "graph_all_launches": sum(r[1] for r in rows)}
 
 
 def int8_export_phase(q11, images, out_dir):
@@ -3215,7 +3432,7 @@ def main() -> int:
     s8_row = s8_conv_checks(q11, q_batch, conv_inputs, args.seed)
     s8_row["launches"] = int8_record["launches"]["int8_conv"]
     del conv_inputs
-    int8_record["engine"] = int8_engine_phase(q11, q_batch)
+    int8_record["engine"] = int8_engine_phase(q11, q_batch, yolo)
     int8_record["export"] = int8_export_phase(q11, images, root / "bundle_int8")
     del q11
     torch.cuda.empty_cache()
@@ -3227,7 +3444,10 @@ def main() -> int:
     int8_record["card"] = card
     s8_row["launches_by_path"] = {
         "int8 predict": int8_record["launches"]["int8_conv"],
-        "int8 serving graph (b32 replay)": int8_record["engine"]["graph_launches"]["int8_conv"]}
+        **{f"int8 predict, {rt} route": int8_record["launches"][f"int8_conv {rt}"]
+           for rt in S8_ROUTES},
+        "int8 serving graph (b32 replay, profiler)":
+            int8_record["engine"]["graph_launches"]["int8_conv"]}
     kernels.append(s8_row)
     log(f"[int8] phases 29-34 in {int8_record['wall_s']:.1f} s")
     kernels[0]["train_graph_launches"] = {

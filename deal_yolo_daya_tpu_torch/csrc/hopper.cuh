@@ -1,7 +1,8 @@
-// Building blocks of the Hopper (sm_90a) attention kernels: TMA tile copies
-// into shared memory with mbarrier completion, wgmma matrix descriptors and
-// products, the quad reductions of wgmma's accumulator layout, and the
-// epilogue that writes a warpgroup's accumulator rows as bf16.
+// Building blocks of the Hopper (sm_90a) kernels: TMA tile copies into
+// shared memory with mbarrier completion, cp.async and the proxy fence,
+// wgmma matrix descriptors and products, the quad reductions of wgmma's
+// accumulator layout, and the epilogue that writes a warpgroup's
+// accumulator rows as bf16.
 //
 // wgmma's f32 accumulator for a 64 x N tile: warp w of the warpgroup holds
 // rows 16w..16w+15; lane = 4g + t holds rows r0 = 16w + g and r1 = r0 + 8,
@@ -72,6 +73,22 @@ inline bool make_map(CUtensorMap* map, const void* data, int chunks, int rows, i
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A map over a `rank`-dimensional array (innermost dimension first; strides
+// in bytes for dimensions 1.., each a multiple of 16) whose boxes are `box`,
+// unswizzled: a box lands in shared memory as a dense array, innermost
+// dimension fastest. Box elements outside the array (negative coordinates
+// included) come in as zeros. False if the driver refuses it.
+inline bool make_map_plain(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                           const void* data, const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return fn != nullptr &&
+         fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(data), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ------------------------------------------------ device: barriers and TMA
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -130,6 +147,42 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for a 2-D map at (c0, c1) and a 4-D map at (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 16 bytes global -> shared, asynchronous; zeros where src_bytes is 0.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Make this thread's shared-memory writes of the generic proxy (stores,
+// cp.async) visible to the async proxy (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------------ wgmma
 
 // Descriptor of a tile of rows of ROW_BYTES (64 or 128) bytes, swizzled to
@@ -170,12 +223,22 @@ __device__ __forceinline__ void wgmma_wait() {
 // wgmma_rs_tb (A in registers, B in shared memory MN-major), one overload a
 // width N, picked by the accumulator's N/2 registers a thread.
 
-// Keep the compiler from touching accumulators across an asynchronous
-// product: reads after wgmma_wait() depend on this.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+// A K-major tile in shared memory without swizzle: 8-row core matrices of
+// 16-byte rows (128 contiguous bytes), `lbo` bytes between the two 16-byte
+// K columns of a 32-byte K step, `sbo` bytes between 8-row groups.
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// Keep the compiler from touching accumulators (f32 or s32) across an
+// asynchronous product: reads after wgmma_wait() depend on this.
+__device__ __forceinline__ void fence_reg(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+__device__ __forceinline__ void fence_reg(int32_t& v) { asm volatile("" : "+r"(v)::"memory"); }
+template <typename V, int N>
+__device__ __forceinline__ void fence_regs(V (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) fence_reg(d[i]);
 }
 
 // D(64 x 80) (+)= A(64 x 16) . B(16 x 80): A and B in shared memory, both K-major

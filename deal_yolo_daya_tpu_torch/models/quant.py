@@ -17,10 +17,11 @@ The port's copy of ``deal_yolo_daya_tpu/models/quant.py``:
 
 A qtree is ``{name: {"w_int8": (O, I, kh, kw) int8, "w_scale": (O,) f32,
 "a_scale": () f32}}``. ``quantized_model`` makes a copy of the BN-folded
-model in which each quantized conv is an ``Int8Conv2d`` (the s8 conv of
-``ops/kernels/int8_conv.py``, then the folded bias) and which divides its
-raw 0..255 input by 255 first, so it stands where the fused predict model
-stands (``api.infer_fused``, the Engine's graphs, ``val(int8=True)``).
+model in which each quantized conv's ConvBN is an ``Int8ConvBN`` (the s8
+conv of ``ops/kernels/int8_conv.py`` with the folded bias and the SiLU in
+its epilogue) and which divides its raw 0..255 input by 255 first, so it
+stands where the fused predict model stands (``api.infer_fused``, the
+Engine's graphs, ``val(int8=True)``).
 """
 
 from __future__ import annotations
@@ -95,19 +96,23 @@ def quantize_int8(fused: nn.Module, batches: Iterable[torch.Tensor],
     return qtree
 
 
-class Int8Conv2d(nn.Module):
-    """A ConvBN's folded conv in w8a8: the s8 conv (packed weights and the f32
-    scales stored once, on the model's device) and then the folded bias in
-    the activations' dtype."""
+class Int8ConvBN(nn.Module):
+    """A BN-folded ConvBN in w8a8, one kernel launch on the card: the s8
+    conv (packed weights and the f32 scales stored once, on the model's
+    device), the folded bias and the SiLU when the ConvBN has one, rounded
+    in the activations' dtype as the unfused ConvBN rounds them."""
 
-    def __init__(self, conv: nn.Conv2d, q: Dict[str, torch.Tensor]):
+    def __init__(self, convbn: ConvBN, q: Dict[str, torch.Tensor]):
         super().__init__()
+        conv = convbn.conv
         k, s = conv.kernel_size, conv.stride
         if conv.groups != 1 or k[0] != k[1] or s[0] != s[1] or conv.padding != (k[0] // 2,) * 2:
-            raise ValueError(f"Int8Conv2d: groups 1, square kernel and stride, padding k // 2 "
+            raise ValueError(f"Int8ConvBN: groups 1, square kernel and stride, padding k // 2 "
                              f"(got {conv})")
+        if not isinstance(convbn.bn, nn.Identity) or conv.bias is None:
+            raise ValueError("Int8ConvBN: the ConvBN must be BN-folded (fuse_conv_bn)")
         a_scale = np.float32(q["a_scale"])
-        self.k, self.stride = k[0], s[0]
+        self.k, self.stride, self.act = k[0], s[0], bool(convbn.act)
         self.inv_a = float(np.float32(1.0) / a_scale)  # f32, as JAX's 1.0 / a_scale
         self.register_buffer("weight", s8.pack_weight(q["w_int8"].to(torch.int8)))
         self.register_buffer("scale", (q["w_scale"].to(torch.float32) *
@@ -115,8 +120,8 @@ class Int8Conv2d(nn.Module):
         self.register_buffer("bias", conv.bias.detach().clone())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = s8.int8_conv(x, self.weight, self.scale, self.inv_a, self.k, self.stride)
-        return y + self.bias.view(1, -1, 1, 1)
+        return s8.int8_conv_bn(x, self.weight, self.scale, self.bias, self.inv_a, self.k,
+                               self.stride, self.act)
 
 
 class Int8Detector(nn.Module):
@@ -137,11 +142,15 @@ def quantized_model(fused: nn.Module, qtree: Dict[str, Dict[str, torch.Tensor]],
                     dtype: torch.dtype, device) -> Int8Detector:
     """A copy of the BN-folded ``fused`` model (no 1/255 stem fold) in
     ``dtype`` and channels_last on ``device``, each conv of ``qtree`` an
-    ``Int8Conv2d``."""
+    ``Int8ConvBN`` in place of the ``ConvBN`` that holds it (the qtree
+    keys name the conv, "<ConvBN>.conv", as the JAX module paths do)."""
     net = copy.deepcopy(fused).to(device=device, dtype=dtype,
                                   memory_format=torch.channels_last).eval()
     for name, q in qtree.items():
-        parent, leaf = name.rsplit(".", 1)
+        convbn, leaf = name.rsplit(".", 1)
+        parent, _, child = convbn.rpartition(".")
         owner = net.get_submodule(parent)
-        setattr(owner, leaf, Int8Conv2d(getattr(owner, leaf), q).to(device))
+        if leaf != "conv" or not isinstance(getattr(owner, child), ConvBN):
+            raise ValueError(f"quantized_model: {name} is no ConvBN's conv")
+        setattr(owner, child, Int8ConvBN(getattr(owner, child), q).to(device))
     return Int8Detector(net).eval()

@@ -103,16 +103,16 @@ def test_int8_conv_plain_equals_jax(shape):
 
 
 def test_the_kernel_path_takes_only_cuda_tensors():
-    """On the CPU ``int8_conv`` takes the plain version; the kernel's
+    """On the CPU ``int8_conv_bn`` takes the plain version; the kernel's
     launch refuses a CPU tensor instead of falling back."""
     x = torch.from_numpy(np.random.default_rng(0).normal(0, 1, (1, 8, 5, 5)).astype(np.float32))
     w = torch.from_numpy(np.random.default_rng(1).integers(-127, 128, (16, 8, 3, 3)).astype(
         np.int8))
-    packed, scale = pack_weight(w), torch.full((16,), 1e-3)
-    assert torch.equal(s8.int8_conv(x, packed, scale, 20.0, 3, 1),
+    packed, scale, bias = pack_weight(w), torch.full((16,), 1e-3), torch.zeros(16)
+    assert torch.equal(s8.int8_conv_bn(x, packed, scale, bias, 20.0, 3, 1, False),
                        int8_conv_plain(x, packed, scale, 20.0, 3, 1)[0])
     with pytest.raises(ValueError, match="no kernel for device cpu"):
-        s8.launch(x, packed, scale, 20.0, 3, 1)
+        s8.launch(x, packed, scale, bias, 20.0, 3, 1, False)
 
 
 # ---------------------------------------------------------------- which convs
