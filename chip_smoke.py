@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's yolo11n and yolo12n predict, train step (eager
 and as a CUDA graph) and Trainer, yolov8n predict, the serving Engine of all
-three, int8 (w8a8) predict, serving, bundles and validation, and ultralytics
-checkpoints in, on one NVIDIA card and hold its CUDA kernels against their
-plain PyTorch versions.
+three, int8 (w8a8) predict, serving, bundles and validation, ultralytics
+checkpoints in, and data-parallel training, on one NVIDIA card and hold its
+CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -192,7 +192,23 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    report naming the class head;
 34. the yardstick in int8: phase 28's model, ``val()`` in bf16, then
    ``quantize_int8`` on 64 of its train images and ``val(int8=True)``: int8
-   mAP50-95 must reach INT8_MAP_SHARE of bf16's.
+   mAP50-95 must reach INT8_MAP_SHARE of bf16's;
+35. data parallelism on the one card (``parallel/``): a 1-rank NCCL group
+   runs DP_GRAPH_STEPS yolo11n b32/640 bf16 steps through the distributed
+   ``TrainState`` as a step program (the raw-batch all_gather, BatchNorm's
+   moments, the loss normaliser and the gradient all-reduce captured in the
+   graph), bit for bit as the same steps run eagerly in the group, with the
+   attention forward and backward counted once each a replay; the graphed
+   step's ms with the collectives against the one-card graph's; an f32 step
+   (TF32 off) of the group against the one-card step at the data-parallel
+   tests' bar (tests/test_torch_dp_step.py). Then two gloo ranks on the card
+   (b16 each, spawned) take DP_STEPS bf16 steps from one state against one
+   process on the b32 batch: loss sums and BN statistics within the
+   DP_BF16 tolerances, each rank's attention launches 1 + 1 a step and its
+   kernels held to their plain versions on its recorded inputs. Last, a
+   1-epoch ``Trainer(device="1")`` on phase 12's data writes the same
+   results.csv as ``device="0"``, and ``device="2"`` raises the JAX
+   ValueError.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
@@ -201,8 +217,8 @@ its global-memory mapping's time at K = 4096, the (32, 32) attention builds
 as rows of their own, each kernel's launches inside the serving graphs, and
 the yolo12n and yolov8n records under ``families``, and each attention
 kernel's ``train_graph_launches``, its launches inside one replay of the
-graphed step; the s8 conv's row last) and the last line the device
-record; the ``serving``, ``train_graph`` and ``int8`` records and the
+graphed step; the s8 conv's row last; phase 35's record under ``dp``) and
+the last line the device record; the ``serving``, ``train_graph`` and ``int8`` records and the
 card's name come before them.
 """
 
@@ -210,6 +226,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import dataclasses
 import importlib.util
 import json
@@ -283,6 +300,30 @@ GRAPH_MAX_BOXES = 32
 # bit equal on an H100; the tolerance leaves room for a cuDNN algorithm
 # that accumulates in another order
 GRAPH_TOL = 1e-4
+# phase 35: eager steps of the two gloo ranks; steps_per_dispatch of the
+# 1-rank NCCL group; replays timed a round (three rounds each way)
+DP_STEPS = 4
+DP_GRAPH_STEPS = 8
+DP_TIMED_REPLAYS = 10
+# the f32 step of the 1-rank group against the one-card step (TF32 off):
+# loss parts at the data-parallel tests' 1e-5 (tests/test_torch_dp_step.py);
+# gradients and state per tensor within twice what a one-ulp change of the
+# stem kernel moves the one-card step, plus that bar: in f32 the step's own
+# sensitivity is above the bar (on an H100 the one-ulp change alone moved 59
+# of 255 gradient tensors outside it), which the tests meet in float64
+DP_F32_LOSS_RTOL = 1e-5
+DP_F32_GRAD_TOL = (1e-4, 1e-5)   # rtol, atol
+DP_F32_STATE_ATOL = 1e-6
+# ... and the state (parameters, BN running statistics up to ~20, where one
+# f32 ulp is 2e-6) also within two ulps of each tensor's largest value
+DP_F32_STATE_ULPS = 2
+# two gloo ranks (b16 each) against one process (b32), 4 bf16 steps: cuDNN
+# picks its algorithms for b16 and b32 apart and the two halves' BatchNorm
+# moments combine in another order, each a bf16 rounding (2^-8) apart in the
+# activations; over 4 steps that moves the loss sums by up to a few bf16
+# steps and the running statistics by a few bf16 steps of their move
+DP_BF16_LOSS_RTOL = 2e-2
+DP_BF16_STATS_TOL = 5e-2
 AUTOBATCH_REPEATS = 8        # phase 26: 8 x 256 train images, two batches at the cap of 1024
 # w8a8 (phases 29-34): the H100's dense int8 tensor-core peak (NVIDIA data
 # sheet), operations/s
@@ -323,6 +364,53 @@ def patched(module, name, value):
         yield orig
     finally:
         setattr(module, name, orig)
+
+
+def within_tol(got, ref, atol, rtol):
+    """(max |got - ref|, max of |got - ref| / (atol + rtol * |ref|))."""
+    diff = (got.float() - ref.float()).abs()
+    return diff.max().item(), (diff / (atol + rtol * ref.float().abs())).max().item()
+
+
+def attention_parity(label, qkv, a) -> float:
+    """The attention forward kernel against its plain version on one call's
+    inputs (ATTN_TOL; ``v`` exact) -> max |kernel - plain|."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+
+    out, v = aa.area_attention(qkv, *a)
+    ref_out, ref_v = aa.area_attention_plain(qkv, *a)
+    torch.cuda.synchronize()
+    atol, rtol = ATTN_TOL[str(qkv.dtype).split(".")[-1]]
+    err, worst = within_tol(out, ref_out, atol, rtol)
+    log(f"[attention] {label} {tuple(qkv.shape)} {qkv.dtype}: max_abs_err {err:.3e} "
+        f"(|plain| max {ref_out.float().abs().max().item():.2f}), {worst:.3f} of the "
+        f"tolerance atol {atol} + rtol {rtol} * |plain|, v exact {torch.equal(v, ref_v)}")
+    check(worst <= 1.0, f"attention {label} {qkv.dtype} off by {err}")
+    check(torch.equal(v, ref_v), f"attention {label}: v passthrough differs")
+    return err
+
+
+def backward_parity(label, qkv, d_out, d_v, a) -> float:
+    """The attention backward kernel against its plain version on one call's
+    inputs (BWD_TOL) -> max |kernel - plain|."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+
+    got = aa.area_attention_bwd(qkv, d_out, d_v, *a)
+    ref = aa.area_attention_bwd_plain(qkv, d_out, d_v, *a)
+    torch.cuda.synchronize()
+    atol, rtol = BWD_TOL[str(qkv.dtype).split(".")[-1]]
+    scale = ref.float().abs().max().item()
+    err, worst = within_tol(got, ref, atol * scale, rtol)
+    log(f"[attention bwd] {label} {tuple(qkv.shape)} {qkv.dtype}: max_abs_err {err:.3e} "
+        f"(|plain| max {scale:.3e}), {worst:.3f} of the tolerance "
+        f"{atol} * max |plain| + {rtol} * |plain|")
+    check(torch.isfinite(got).all().item(), f"attention bwd {label}: non-finite d_qkv")
+    check(worst <= 1.0, f"attention bwd {label} {qkv.dtype} off by {err}")
+    return err
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1450,6 +1538,9 @@ def s8_conv_checks(q11, batch, recorded, seed: int):
     heavy = max(range(len(ones)), key=lambda j: macs(ones[j][1]))
     int_mm = {"convs": len(ones), "device_ms": sum(mm_ms),
               "kernel_device_ms": sum(per_conv[i] for i, _ in ones),
+              "bound_ms": sum(bounds[i] for i, _ in ones), "bound_by": "bytes"
+              if all(s8_bound(tuple(r[0].shape), r[1].shape[0], 1, 1, r[0].element_size())[1]
+                     == "bytes" for _, r in ones) else "mixed",
               "heaviest": [list(ones[heavy][1][0].shape), ones[heavy][1][1].shape[0]],
               "heaviest_device_ms": mm_ms[heavy],
               "heaviest_kernel_device_ms": per_conv[ones[heavy][0]]}
@@ -1727,6 +1818,298 @@ def int8_yardstick_phase(save_dir: Path, synth_yaml: Path, root: Path):
             "calibration_images": len(train)}
 
 
+# ---------------------------------------------------------------- phase 35
+
+
+def dp_gloo_rank(dp, cfg, state_dict, raw, seeds):
+    """Phase 35, one of the two gloo ranks on the card: ``len(seeds)`` eager
+    steps of ``dp_steps`` on this rank's rows of the raw batch (the on-card
+    augmentation with the global draws), the attention kernels' inputs
+    recorded and their launches counted from 0; then every recorded call
+    held to the plain version -> this rank's record."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.parallel.dryrun import dp_steps
+    from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig
+
+    rec = {"fwd": [], "bwd": []}
+
+    def rec_fwd(qkv, *a):
+        rec["fwd"].append((qkv.clone(), a))
+        return orig_fwd(qkv, *a)
+
+    def rec_bwd(qkv, d_out, d_v, *a):
+        rec["bwd"].append((qkv.clone(), d_out.clone(), d_v.clone(), a))
+        return orig_bwd(qkv, d_out, d_v, *a)
+
+    t0 = time.perf_counter()
+    with patched(aa, "area_attention_fwd", rec_fwd) as orig_fwd, \
+            patched(aa, "area_attention_bwd", rec_bwd) as orig_bwd:
+        aa.launches = aa.bwd_launches = 0
+        out = dp_steps(dp, cfg, 80, state_dict, raw, seeds, DeviceAugConfig())
+        torch.cuda.synchronize()
+        counts = (aa.launches, aa.bwd_launches)
+    steps_s = time.perf_counter() - t0
+    fwd_err = max(attention_parity(f"rank {dp.rank} train call {i}", q, a)
+                  for i, (q, a) in enumerate(rec["fwd"]))
+    bwd_err = max(backward_parity(f"rank {dp.rank} train call {i}", q, do, dv, a)
+                  for i, (q, do, dv, a) in enumerate(rec["bwd"]))
+    log(f"[dp gloo] rank {dp.rank} of {dp.world} on {dp.device}: {len(seeds)} steps in "
+        f"{steps_s:.1f} s, attention launches (forward, backward) {counts}, qkv "
+        f"{tuple(rec['fwd'][0][0].shape)}, kernel vs plain max |err| forward {fwd_err:.3e} "
+        f"backward {bwd_err:.3e}")
+    return {"rank": dp.rank, "launches": counts, "loss": out["loss"], "steps_s": steps_s,
+            "stats": {k: v for k, v in out["state"].items() if "running_" in k},
+            "qkv_shape": list(rec["fwd"][0][0].shape), "fwd_err": fwd_err, "bwd_err": bwd_err}
+
+
+def replay_ms(prog, replays: int = DP_TIMED_REPLAYS) -> float:
+    """CUDA events around ``replays`` back-to-back replays of a step
+    program's update graph -> ms a replay."""
+    import torch
+
+    graph = prog.graphs[True]
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / replays
+
+
+def dp_phase(seed: int, data_yaml: Path, root: Path, card: str, cfg_cls):
+    """Phase 35: data parallelism on the one card (see the module docstring)
+    -> its record."""
+    import numpy as np
+    import torch
+
+    from deal_yolo_daya_tpu_torch.models.yolo11 import YOLO11, init_weights
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.parallel import launch
+    from deal_yolo_daya_tpu_torch.parallel.dryrun import dp_steps
+    from deal_yolo_daya_tpu_torch.train import TrainConfig, TrainState
+    from deal_yolo_daya_tpu_torch.train.device_augment import (DeviceAugConfig, augment_batch,
+                                                                step_seed)
+    from deal_yolo_daya_tpu_torch.train.step_graph import StepProgram
+    from deal_yolo_daya_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    imgsz, batch, k = 640, 32, DP_GRAPH_STEPS
+    n_cache = 2 * batch
+    images, boxes, classes, mask = make_train_batch(seed + 7, n_cache, imgsz)
+    raw = (images, np.full((n_cache, 2), imgsz, np.float32), boxes, classes.astype(np.int32),
+           mask)
+    cache = tuple(torch.from_numpy(a).to(dev) for a in raw)
+    rng = np.random.default_rng(seed + 9)
+    idx = np.stack([rng.permutation(n_cache)[:batch] for _ in range(k)])
+    seeds = [step_seed(seed, 0, j) for j in range(k)]
+    aug = DeviceAugConfig()
+    cfg = TrainConfig(model="yolo11n", imgsz=imgsz, amp=True, seed=seed,
+                      max_boxes=GRAPH_MAX_BOXES)
+    record = {"card": card}
+
+    # 35.1 a one-rank NCCL group: the graphed distributed step against its
+    # eager run, its time with and without the collectives, and an f32 step
+    # against the one-card step
+    t0 = time.perf_counter()
+    ranks = launch.start_local(1, [dev])
+    dp = ranks.dp
+    log(f"[dp nccl] a 1-rank {dp.backend} group on {dp.device} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        def fresh(with_dp: bool):
+            st = TrainState(cfg, nc=80, steps_per_epoch=100, device=dev)
+            if with_dp:
+                st.attach(dp)
+            return st
+
+        start = fresh(False).state()
+        eager = fresh(True)
+        for j in range(k):
+            t = torch.from_numpy(idx[j]).to(dev)
+            eager.step(*augment_batch(*(c[t] for c in cache), seeds[j], imgsz, aug,
+                                      GRAPH_MAX_BOXES, dp=dp))
+        graphed = fresh(True)
+        prog = StepProgram(graphed, cache, aug, imgsz, GRAPH_MAX_BOXES, batch)
+        aa.launches = aa.bwd_launches = 0
+        prog.run(idx, seeds)
+        torch.cuda.synchronize()
+        first = (aa.launches, aa.bwd_launches)
+        diffs = state_diffs(graphed, eager, start)
+        same_loss = all(torch.equal(graphed.loss_acc[n], eager.loss_acc[n])
+                        for n in graphed.loss_acc)
+        log(f"[dp nccl] {k} steps b{batch} {imgsz} bf16, graphed (K = {k}, the collectives "
+            f"captured) vs eager in the group: max |diff| "
+            f"{ {kind: d['max_abs_diff'] for kind, d in diffs.items()} }, loss sums equal "
+            f"{same_loss}; capture {prog.capture_s:.2f} s")
+        check(same_loss and all(d["max_abs_diff"] == 0.0 for d in diffs.values()),
+              "the graphed distributed steps differ from their eager run")
+        check(first == (k, k), f"the first dispatch counted {first} attention launches, "
+              f"not {(k, k)}")
+        aa.launches = aa.bwd_launches = 0
+        prog.run(idx, seeds)  # replays only
+        torch.cuda.synchronize()
+        replays = (aa.launches, aa.bwd_launches)
+        check(replays == (k, k), f"{k} replays counted {replays} attention launches")
+        # the same step without the collectives: the one-card program
+        plain = StepProgram(fresh(False), cache, aug, imgsz, GRAPH_MAX_BOXES, batch)
+        plain.run(idx, seeds)
+        with_c, without_c = [], []
+        for _ in range(3):
+            with_c.append(replay_ms(prog))
+            without_c.append(replay_ms(plain))
+        step_ms, plain_ms = float(np.median(with_c)), float(np.median(without_c))
+        log(f"[dp nccl] graphed step b{batch} {imgsz}: {step_ms:.3f} ms with the collectives "
+            f"(1-rank NCCL), {plain_ms:.3f} ms on one card without them: overhead "
+            f"{step_ms - plain_ms:.3f} ms; rounds {[round(v, 3) for v in with_c]} vs "
+            f"{[round(v, 3) for v in without_c]} ({card})")
+        del prog, plain, graphed, eager
+        torch.cuda.empty_cache()
+
+        # f32, TF32 off: one step of the 1-rank group against the one-card
+        # step, from the same weights on phase 9's kind of batch
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg32 = TrainConfig(model="yolo11n", imgsz=imgsz, amp=False, seed=seed)
+        weights = small_box_head(init_weights(YOLO11(nc=80, scale="n"), seed).state_dict())
+        imgs4, *gt4 = small_gt_batch(make_train_batch(seed, 4, imgsz)[0].copy(), seed)
+        x4, gt4 = torch.from_numpy(imgs4).to(dev), [torch.from_numpy(a).to(dev) for a in gt4]
+
+        def f32_step(with_dp: bool, stem_ulps: float = 0.0):
+            st = TrainState(cfg32, nc=80, steps_per_epoch=100, device=dev, state_dict=weights)
+            if stem_ulps:
+                with torch.no_grad():
+                    w = st.model.get_parameter("0.conv.weight")
+                    w.mul_(1 + stem_ulps * np.finfo(np.float32).eps)
+            if with_dp:
+                st.attach(dp)
+            st.step(x4, *gt4)
+            torch.cuda.synchronize()
+            out = {"loss": {n: v.item() for n, v in st.loss_acc.items()},
+                   "grads": {n: p.grad.detach().cpu() for n, p in st.model.named_parameters()},
+                   "state": {n: v.detach().cpu() for n, v in st.model.state_dict().items()}}
+            st.detach()
+            return out
+
+        def outside(a, b):
+            """The tensors whose gradients lie outside rtol / atol of DP_F32_GRAD_TOL."""
+            return [n for n in b["grads"] if not torch.allclose(
+                a["grads"][n], b["grads"][n], rtol=DP_F32_GRAD_TOL[0], atol=DP_F32_GRAD_TOL[1])]
+
+        def worst_of_floor(part, floor):
+            """max over tensors of |group - one card| / (2 x |nudged - one
+            card| + floor(tensor)): above 1, the group moved a tensor farther
+            than twice the one-card step's own sensitivity and the bar."""
+            return max(((two[part][n] - one[part][n]).abs().max()
+                        / (2 * (nudged[part][n] - one[part][n]).abs().max() + floor(one[part][n])))
+                       .item() for n in one[part])
+
+        one, two, nudged = f32_step(False), f32_step(True), f32_step(False, 1.0)
+        loss_rel = max(abs(two["loss"][n] - one["loss"][n]) / max(abs(one["loss"][n]), 1e-30)
+                       for n in one["loss"])
+        grad_rel = max(((two["grads"][n] - one["grads"][n]).abs().max()
+                        / one["grads"][n].abs().max().clamp(min=1e-30)).item()
+                       for n in one["grads"])
+        state_abs = max((two["state"][n] - one["state"][n]).abs().max().item()
+                        for n in one["state"])
+        grad_worst = worst_of_floor("grads", lambda t: DP_F32_GRAD_TOL[1]
+                                    + DP_F32_GRAD_TOL[0] * t.abs().max())
+        state_worst = worst_of_floor("state", lambda t: DP_F32_STATE_ATOL + DP_F32_STATE_ULPS
+                                     * np.finfo(np.float32).eps * t.abs().max())
+        out_dp, out_nudge = outside(two, one), outside(nudged, one)
+        log(f"[dp nccl] f32 b4 {imgsz}, TF32 off, one step: 1-rank group vs one card: loss "
+            f"parts max rel {loss_rel:.3e}, gradients max |diff| / max |grad| {grad_rel:.3e}, "
+            f"{len(out_dp)} of {len(one['grads'])} tensors outside rtol "
+            f"{DP_F32_GRAD_TOL[0]} / atol {DP_F32_GRAD_TOL[1]}; parameters and BN statistics "
+            f"max |diff| {state_abs:.3e}. The one-card step with the stem kernel moved by one "
+            f"ulp: {len(out_nudge)} tensors outside the same bar. The group's largest move "
+            f"against twice the nudge's plus the bar: gradients {grad_worst:.3f}, state "
+            f"{state_worst:.3f}")
+        check(loss_rel <= DP_F32_LOSS_RTOL, f"f32 loss parts of the group off by {loss_rel}")
+        check(grad_worst <= 1.0, f"f32 gradients of the group off: {grad_worst:.3f} of the floor")
+        check(state_worst <= 1.0, f"f32 state of the group off: {state_worst:.3f} of the floor")
+        record["nccl_1rank"] = {
+            "graphed_vs_eager": diffs, "loss_sums_equal": same_loss,
+            "launches_first_dispatch": first, "launches_replays": replays,
+            "graphed_step_ms_with_collectives": step_ms,
+            "graphed_step_ms_without": plain_ms, "collective_overhead_ms": step_ms - plain_ms,
+            "rounds_ms": {"with": with_c, "without": without_c},
+            "f32_vs_one_card": {"loss_max_rel": loss_rel, "grad_max_rel_of_max": grad_rel,
+                                "grads_outside": len(out_dp), "state_max_abs": state_abs,
+                                "one_ulp_stem_outside": len(out_nudge),
+                                "grad_worst_of_floor": grad_worst,
+                                "state_worst_of_floor": state_worst}}
+    finally:
+        ranks.close()
+
+    # 35.2 two gloo ranks on the one card (b16 each) against one process on
+    # the b32 batch, DP_STEPS eager steps from one state, bf16
+    sd = {n: v.cpu() for n, v in TrainState(cfg, nc=80, steps_per_epoch=100, device=dev)
+          .state()["model"].items()}
+    sub = tuple(a[:batch] for a in raw)
+    dp_seeds = [step_seed(seed, 1, j) for j in range(DP_STEPS)]
+    t0 = time.perf_counter()
+    one = dp_steps(None, cfg, 80, sd, sub, dp_seeds, aug, device=dev)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gloo = launch.run(dp_gloo_rank, 2, [dev, dev], args=(cfg, sd, sub, dp_seeds),
+                      backend="gloo", timeout_s=600.0)
+    gloo_s = time.perf_counter() - t0
+    loss_rel = {n: abs(gloo[0]["loss"][n] - one["loss"][n]) / abs(one["loss"][n])
+                for n in ("box_loss", "cls_loss", "dfl_loss")}
+    stats = [n for n in one["state"] if "running_" in n]
+    stat_diff = max(float(np.abs(gloo[0]["stats"][n] - one["state"][n]).max()) for n in stats)
+    stat_move = max(float(np.abs(one["state"][n] - sd[n].numpy()).max()) for n in stats)
+    log(f"[dp gloo] 2 ranks x b{batch // 2} vs one process b{batch}, {DP_STEPS} bf16 steps "
+        f"({one_s:.1f} s one process, {gloo_s:.1f} s the two ranks with the spawn): loss "
+        f"parts rel diff {loss_rel} (num_fg {gloo[0]['loss']['num_fg']} vs "
+        f"{one['loss']['num_fg']}), BN statistics max |diff| {stat_diff:.3e} of the largest "
+        f"move {stat_move:.3e}; launches per rank {[r['launches'] for r in gloo]}")
+    check(max(loss_rel.values()) <= DP_BF16_LOSS_RTOL, f"gloo ranks' loss parts off: {loss_rel}")
+    check(stat_diff <= DP_BF16_STATS_TOL * stat_move, "gloo ranks' BN statistics off by "
+          f"{stat_diff} of a move {stat_move}")
+    check(all(tuple(r["launches"]) == (DP_STEPS, DP_STEPS) for r in gloo),
+          f"per-rank attention launches {[r['launches'] for r in gloo]}, not 1 + 1 a step")
+    check(all(np.array_equal(gloo[0]["stats"][n], gloo[1]["stats"][n]) for n in stats),
+          "the two ranks' BN statistics differ")
+    record["gloo_2ranks"] = {
+        "batch_per_rank": batch // 2, "steps": DP_STEPS, "loss_rel_diff": loss_rel,
+        "bn_stats_max_abs_diff": stat_diff, "bn_stats_max_move": stat_move,
+        "launches_per_rank": {str(r["rank"]): r["launches"] for r in gloo},
+        "kernel_vs_plain_per_rank": {str(r["rank"]): {"forward": r["fwd_err"],
+                                                      "backward": r["bwd_err"]} for r in gloo},
+        "qkv_shape": gloo[0]["qkv_shape"], "one_process_s": one_s, "two_ranks_s": gloo_s}
+
+    # 35.3 the Trainer with device="1" against device="0" on phase 12's data,
+    # one epoch; "2" on one card raises the JAX ValueError
+    base = cfg_cls(model="yolo11n", data=str(data_yaml), imgsz=640, batch=TRAINER_BATCH,
+                   epochs=1, close_mosaic=0, seed=seed, project=str(root / "runs"))
+    rows = {}
+    for spec in ("0", "1"):
+        res = Trainer(dataclasses.replace(base, name=f"dp_device{spec}", device=spec)).train()
+        with open(Path(res["save_dir"]) / "results.csv") as f:
+            rows[spec] = [{c: v for c, v in r.items() if c != "time"} for r in csv.DictReader(f)]
+        torch.cuda.empty_cache()
+    check(rows["0"] == rows["1"], f"device='1' gave {rows['1']}, device='0' {rows['0']}")
+    try:
+        Trainer(dataclasses.replace(base, name="dp_device2", device="2"))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised == "mesh 2x1 needs 2 devices, only 1 available",
+          f"device='2' on one card: {raised!r}")
+    log(f"[dp trainer] device='1' and device='0' wrote the same results.csv row "
+        f"{rows['1'][0]}; device='2' raised {raised!r}")
+    record["trainer"] = {"rows_equal": True, "row": rows["1"][0], "device2_error": raised}
+    record["wall_s"] = time.perf_counter() - t_phase
+    log(f"[dp] phase 35 in {record['wall_s']:.1f} s")
+    return record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1789,24 +2172,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references are true f32
     torch.backends.cudnn.allow_tf32 = False
 
-    def within_tol(got, ref, atol, rtol):
-        """(max |got - ref|, max of |got - ref| / (atol + rtol * |ref|))."""
-        diff = (got.float() - ref.float()).abs()
-        return diff.max().item(), (diff / (atol + rtol * ref.float().abs())).max().item()
-
-    def attention_parity(label, qkv, a) -> float:
-        out, v = aa.area_attention(qkv, *a)
-        ref_out, ref_v = aa.area_attention_plain(qkv, *a)
-        torch.cuda.synchronize()
-        atol, rtol = ATTN_TOL[str(qkv.dtype).split(".")[-1]]
-        err, worst = within_tol(out, ref_out, atol, rtol)
-        log(f"[attention] {label} {tuple(qkv.shape)} {qkv.dtype}: max_abs_err {err:.3e} "
-            f"(|plain| max {ref_out.float().abs().max().item():.2f}), {worst:.3f} of the "
-            f"tolerance atol {atol} + rtol {rtol} * |plain|, v exact {torch.equal(v, ref_v)}")
-        check(worst <= 1.0, f"attention {label} {qkv.dtype} off by {err}")
-        check(torch.equal(v, ref_v), f"attention {label}: v passthrough differs")
-        return err
-
     def nms_parity(label, boxes, valid, thr) -> int:
         keep = ns.nms_suppress(boxes, valid, thr)
         ref = ns.nms_suppress_plain(boxes, valid, thr)
@@ -1834,20 +2199,6 @@ def main() -> int:
         for dt in (torch.bfloat16, torch.float32):
             qkv = torch.randn((32, n, 256), generator=gen, device=dev).to(dt)
             attention_parity(f"random n={n}", qkv, (2, 64, 32))
-
-    def backward_parity(label, qkv, d_out, d_v, a) -> float:
-        got = aa.area_attention_bwd(qkv, d_out, d_v, *a)
-        ref = aa.area_attention_bwd_plain(qkv, d_out, d_v, *a)
-        torch.cuda.synchronize()
-        atol, rtol = BWD_TOL[str(qkv.dtype).split(".")[-1]]
-        scale = ref.float().abs().max().item()
-        err, worst = within_tol(got, ref, atol * scale, rtol)
-        log(f"[attention bwd] {label} {tuple(qkv.shape)} {qkv.dtype}: max_abs_err {err:.3e} "
-            f"(|plain| max {scale:.3e}), {worst:.3f} of the tolerance "
-            f"{atol} * max |plain| + {rtol} * |plain|")
-        check(torch.isfinite(got).all().item(), f"attention bwd {label}: non-finite d_qkv")
-        check(worst <= 1.0, f"attention bwd {label} {qkv.dtype} off by {err}")
-        return err
 
     # 3b. attention backward kernel vs its plain version, the same shapes
     for n in (400, 35, 1600):
@@ -3439,8 +3790,13 @@ def main() -> int:
     int8_record["ultralytics"] = ultralytics_phase(save_dir / "weights" / "best.pt", data_yaml,
                                                    root, images, args.seed, FullConfig)
     int8_record["yardstick"] = int8_yardstick_phase(yardstick["save_dir"], synth_yaml, root)
-    tmp.cleanup()
     int8_record["wall_s"] = time.perf_counter() - t_int8
+
+    # 35. data parallelism on the one card: a 1-rank NCCL group (the graphed
+    # step with its collectives captured), two gloo ranks, the Trainer's
+    # device grammar
+    dp_record = dp_phase(args.seed, data_yaml, root, card, FullConfig)
+    tmp.cleanup()
     int8_record["card"] = card
     s8_row["launches_by_path"] = {
         "int8 predict": int8_record["launches"]["int8_conv"],
@@ -3464,6 +3820,11 @@ def main() -> int:
                      (kernels[2], "area_attention_bwd")):
         row.setdefault("launches_by_path", {})["yolo11n graphed Trainer"] = \
             graphed_run["launches"][key]
+    for row, i in ((kernels[0], 0), (kernels[2], 1)):
+        row["launches_by_path"][f"yolo11n DP 1-rank NCCL, {DP_GRAPH_STEPS} graph replays"] = \
+            dp_record["nccl_1rank"]["launches_replays"][i]
+        row["launches_by_path"][f"yolo11n DP 2 gloo ranks, {DP_STEPS} steps, per rank"] = \
+            {r: n[i] for r, n in dp_record["gloo_2ranks"]["launches_per_rank"].items()}
     train_graph_record = {
         "graph_vs_eager": graph_record, "trainer_graphed": graphed_run,
         "trainer_k1": eager_run, "host_augment": host_aug, "remat": remat_record,
@@ -3493,7 +3854,7 @@ def main() -> int:
         "imgs_per_s_e2e": len(images) / wall, "host_letterbox_ms_per_img": host_ms,
         "device_ms_per_b32": device_ms, "profiled_device_busy_ms": busy_ms,
         "profiled_wall_ms": prof_wall_ms, "card": card}, "train": train_record,
-        "trainer": trainer_record, "families": family_record}), flush=True)
+        "trainer": trainer_record, "families": family_record, "dp": dp_record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -64,6 +64,20 @@ def infer_fused(net, batch: torch.Tensor, dtype: torch.dtype, conf: float, iou: 
                        pre_topk=1000, max_det=max_det, class_agnostic=agnostic)
 
 
+def label_font(size: int = 48):
+    """The label font of the JAX package's ``datakit.visualize._get_font``:
+    simhei.ttf, then Arial Unicode.ttf (both draw Chinese class names), else
+    PIL's default font."""
+    from PIL import ImageFont
+
+    for name in ("simhei.ttf", "Arial Unicode.ttf"):
+        try:
+            return ImageFont.truetype(name, size)
+        except Exception:
+            continue
+    return ImageFont.load_default()
+
+
 class Detections:
     """Per-image prediction result: xyxy boxes in original-image pixels."""
 
@@ -101,16 +115,19 @@ class Detections:
         return pd.DataFrame(self.to_records())
 
     def plot(self) -> np.ndarray:
-        """Annotated copy of the image (boxes and class/confidence labels)."""
+        """Annotated copy of the image (boxes and class/confidence labels in
+        ``label_font(14)``, CJK-capable where such a font is installed)."""
         from PIL import Image, ImageDraw
 
         img = Image.fromarray(self.image)
         draw = ImageDraw.Draw(img)
+        font = label_font(size=14)
         for (x1, y1, x2, y2), s, c in zip(self.boxes, self.scores, self.classes):
             c = int(c)
             name = self.names[c] if 0 <= c < len(self.names) else str(c)
             draw.rectangle([x1, y1, x2, y2], outline=(255, 64, 64), width=2)
-            draw.text((x1 + 2, max(y1 - 12, 0)), f"{name} {s:.2f}", fill=(255, 255, 0))
+            draw.text((x1 + 2, max(y1 - 12, 0)), f"{name} {s:.2f}", fill=(255, 255, 0),
+                      font=font)
         return np.asarray(img)
 
     def save(self, path):
@@ -212,17 +229,17 @@ class YOLO:
         handle._import_ultralytics(sd, meta)
         return handle
 
-    def load(self, path) -> "YOLO":
+    def load(self, ckpt_path) -> "YOLO":
         """Load a checkpoint of the port's Trainer into this handle: the
         architecture, nc and names from the checkpoint (the JAX ``load``
         takes them from the tree), the handle's imgsz kept. An ultralytics
         .pt raises ValueError (``from_ultralytics`` reads those)."""
         from .train.trainer import ForeignCheckpoint, load_checkpoint
 
-        if not Path(path).exists():
-            raise FileNotFoundError(f"model weights not found: {path}")
+        if not Path(ckpt_path).exists():
+            raise FileNotFoundError(f"model weights not found: {ckpt_path}")
         try:
-            ckpt = load_checkpoint(path)
+            ckpt = load_checkpoint(ckpt_path)
         except ForeignCheckpoint as err:
             raise ValueError(f"{err}; an ultralytics .pt loads with "
                              "YOLO.from_ultralytics") from None
@@ -286,7 +303,10 @@ class YOLO:
         (``TrainConfig`` fields by name, other keys into ``cfg.extra``),
         from the loaded weights when there are any (a checkpoint or an
         earlier train()), else from the seed's random init. Afterwards the
-        handle predicts with the trained EMA weights, nc, names and imgsz."""
+        handle predicts with the trained EMA weights, nc, names and imgsz.
+        ``device`` takes the JAX mesh grammar (``"4"``: four cards, data
+        parallel, this process rank 0); the default is every card, or the
+        CPU for a CPU handle."""
         from .train.trainer import Trainer, inference_state_dict, make_config
 
         kwargs.setdefault("device", "cpu" if self.device.type == "cpu" else "")
@@ -367,7 +387,8 @@ class YOLO:
                 raise ValueError("call quantize_int8() before val(int8=True)")
             net, dtype = self._fused_model(), self.dtype
             eval_apply = lambda images: net(images.permute(0, 3, 1, 2).to(dtype))  # noqa: E731
-        kwargs.setdefault("device", "cpu" if self.device.type == "cpu" else "")
+        # one device: validation is one rank's (rank 0's in a data-parallel run)
+        kwargs.setdefault("device", "cpu" if self.device.type == "cpu" else "0")
         cfg = make_config(f"{self.family}{self.scale}", data, **kwargs)
         cfg.val = True
         trainer = Trainer(cfg, init_state_dict=self._ensure_built().state_dict(),

@@ -28,6 +28,74 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of a data-parallel group
+    (``dp``), so that the output and the input gradient are the
+    one-process module's on the whole batch. Every rank holds as many rows.
+    Returns (y, mean, biased variance); the weight and bias gradients are
+    this rank's sums (the gradient all-reduce adds them).
+
+    On the card it runs PyTorch's own batch-norm kernels, the ones
+    ``torch.nn.SyncBatchNorm`` uses: each rank's (mean, 1/std) gathered and
+    combined by count, the normalisation, and in the backward the sums of
+    dy and dy * (x - mean) all-reduced. On the CPU, where those kernels do
+    not exist, the same arithmetic in plain ops, in f32 or the input's wider
+    dtype: (mean, variance) pairs gathered and combined, and the sums of dy
+    and dy * x_hat all-reduced."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, dp):
+        count = x.numel() // x.shape[1]
+        ctx.dp, ctx.count = dp, count
+        if x.is_cuda:
+            mean_l, invstd_l = torch.batch_norm_stats(x, BN_EPS)
+            both = dp.all_gather(torch.stack([mean_l, invstd_l])[None])  # (world, 2, C)
+            # equal counts combine as counts of 1, which the input's dtype
+            # (the kernel's) holds exactly
+            counts = torch.ones((dp.world,), dtype=x.dtype, device=x.device)
+            mean, invstd = torch.batch_norm_gather_stats_with_counts(
+                x, both[:, 0], both[:, 1], None, None, 0.0, BN_EPS, counts)
+            y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, BN_EPS)
+            var = invstd.pow(-2) - BN_EPS
+        else:
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))  # f32 at least
+            var_l, mean_l = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            both = dp.all_gather(torch.stack([mean_l, var_l])[None])  # (world, 2, C)
+            mean = both[:, 0].mean(0)
+            var = (both[:, 1] + (both[:, 0] - mean) ** 2).mean(0)
+            invstd = torch.rsqrt(var + BN_EPS)
+            y = (xf - mean[:, None, None]) * (invstd * weight)[:, None, None] \
+                + bias[:, None, None]
+            y = y.to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        dp, total = ctx.dp, ctx.count * ctx.dp.world
+        if x.is_cuda:
+            fmt = torch.channels_last if x.is_contiguous(memory_format=torch.channels_last) \
+                else torch.contiguous_format
+            dy = dy.contiguous(memory_format=fmt)
+            sum_dy, sum_dy_xmu, d_weight, d_bias = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, weight, True, True, True)
+            sums = dp.all_reduce_(torch.stack([sum_dy, sum_dy_xmu]))
+            counts = torch.full((dp.world,), ctx.count, dtype=torch.int32, device=x.device)
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight, sums[0], sums[1],
+                                                 counts)
+            return dx, d_weight, d_bias, None
+        dyf = dy.to(mean.dtype)
+        x_hat = (x.to(mean.dtype) - mean[:, None, None]) * invstd[:, None, None]
+        sum_dy, sum_dy_xhat = dyf.sum((0, 2, 3)), (dyf * x_hat).sum((0, 2, 3))
+        sums = dp.all_reduce_(torch.stack([sum_dy, sum_dy_xhat]))
+        mean_dy, mean_dy_xhat = sums[0] / total, sums[1] / total
+        dx = (weight * invstd)[:, None, None] * (
+            dyf - mean_dy[:, None, None] - x_hat * mean_dy_xhat[:, None, None])
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with eps 1e-3 and the ultralytics state-dict names (weight,
     bias, running_mean, running_var; no ``num_batches_tracked``, which the
@@ -38,7 +106,11 @@ class BatchNorm(nn.Module):
     with the batch mean and the biased batch variance, and moves the running
     statistics toward those same two (PyTorch's own training-mode
     ``batch_norm`` would move ``running_var`` toward the unbiased variance).
-    The statistics are reduced in f32 whatever the input dtype."""
+    The statistics are reduced in f32 whatever the input dtype.
+
+    With ``dp`` set (a ``parallel.DataParallel``, by ``TrainState.attach``)
+    the batch is the global batch of the data-parallel ranks, as the JAX
+    package's BatchNorm under a sharded mesh: ``_SyncBatchNorm``."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -47,21 +119,27 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.update_stats = True  # off while a checkpointed block recomputes
+        self.dp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=BN_EPS)
-        # no running statistics passed: the op leaves them alone and returns
-        # the batch mean and 1/sqrt(biased var + eps) it normalised with
-        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
-                                                  True, 0.0, BN_EPS)
+        if self.dp is not None:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.dp)
+        else:
+            # no running statistics passed: the op leaves them alone and
+            # returns the batch mean and 1/sqrt(biased var + eps) it used
+            y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                      True, 0.0, BN_EPS)
+            var = None
         if not self.update_stats:
             return y
         with torch.no_grad():
+            if var is None:
+                var = invstd.pow(-2) - BN_EPS
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(invstd.pow(-2) - BN_EPS,
-                                                    alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
         return y
 
 

@@ -41,6 +41,14 @@ class RunDir:
         self.path = run
         self._rows: List[Dict] = []
 
+    @classmethod
+    def at(cls, path) -> "RunDir":
+        """The run directory at ``path``, made already (by rank 0 of a
+        data-parallel run): nothing is created."""
+        run = cls.__new__(cls)
+        run.path, run._rows = Path(path), []
+        return run
+
     def write_args(self, args: Dict):
         clean = {k: (str(v) if isinstance(v, Path) else v) for k, v in args.items()}
         (self.path / "args.yaml").write_text(

@@ -19,6 +19,10 @@ batch under 80% of the limit, capped at 1024.
 
 The CPU reports no device memory: there the choice is the JAX package's
 for a backend without a memory analysis, batch 16, with its message.
+
+On D cards (data parallelism) the Trainer probes rank 0's card alone, one
+device's path, and takes D times its pick, the same on every rank (the JAX
+Trainer's ``n_data * suggest_batch(...)``).
 """
 
 from __future__ import annotations

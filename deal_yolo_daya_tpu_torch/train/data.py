@@ -195,6 +195,23 @@ class DataLoader:
                 idxs = np.concatenate([idxs, order[:self.batch_size - len(idxs)]])
             yield idxs
 
+    def sharded_epoch_indices(self, epoch_idx: int, n_data: int) -> Iterator[np.ndarray]:
+        """The epoch's batches over a train set split by rows into
+        ``n_data`` shards, as the JAX Trainer's ``_sharded_epoch_indices``:
+        shard d (rows d * ceil(n / n_data) on) draws its rows from its own
+        permutation, ``default_rng(seed + 1000 * epoch + 7919 * d)``, and
+        each (B,) batch lays the shards' B / n_data indices side by side,
+        each LOCAL to its shard (rank d takes ``batch[rows(B)]``)."""
+        n = len(self.ds)
+        shard_n = -(-n // n_data)
+        per_dev = self.batch_size // n_data
+        orders = [np.random.default_rng(self.seed + 1000 * epoch_idx + 7919 * d)
+                  .permutation(min(shard_n, n - d * shard_n)) for d in range(n_data)]
+        for b in range(len(self)):
+            yield np.concatenate([
+                orders[d][np.arange(b * per_dev, (b + 1) * per_dev) % len(orders[d])]
+                for d in range(n_data)])
+
     def _mosaic_sample(self, idx: int, rng: np.random.Generator):
         others = rng.integers(0, len(self.ds), 3)
         imgs, bxs, cls = [], [], []
@@ -234,10 +251,13 @@ class DataLoader:
             img, boxes = flips(img, boxes, rng, self.cfg)
         return img, boxes, classes, meta
 
-    def epoch(self, epoch_idx: int = 0, n_workers: int = 8) -> Iterator[Batch]:
+    def epoch(self, epoch_idx: int = 0, n_workers: int = 8,
+              rows: Optional[slice] = None) -> Iterator[Batch]:
         """The epoch's batches: host-augmented with ``augment`` (a
         ``default_rng((seed, epoch, slot))`` a sample), else letterboxed.
-        The samples of a batch are built in worker threads."""
+        The samples of a batch are built in worker threads. ``rows``: only
+        those rows of each batch (a data-parallel rank's), the same samples
+        as the whole batch's rows."""
         def build_one(args):
             slot, i = args
             rng = np.random.default_rng((self.seed, epoch_idx, int(slot)) if self.augment
@@ -249,6 +269,7 @@ class DataLoader:
         with cf.ThreadPoolExecutor(max_workers=n_workers) as pool:
             for b, idxs in enumerate(self.epoch_indices(epoch_idx)):
                 slots = [(b * self.batch_size + j, i) for j, i in enumerate(idxs)]
+                slots = slots[rows] if rows is not None else slots
                 images, gtb, gtc, gtm, metas = zip(*pool.map(build_one, slots))
                 yield Batch(images=np.stack(images), gt_boxes=np.stack(gtb),
                             gt_classes=np.stack(gtc), gt_mask=np.stack(gtm),
@@ -270,19 +291,24 @@ class DataLoader:
         pb, pc, pm = _pad_labels(boxes, classes, self.max_boxes)
         return buf, np.float32((h, w)), pb, pc, pm
 
-    def raw_chunks(self, chunk_size: int = 256, n_workers: int = 8):
-        """The whole dataset in order, in stacked chunks: the feed of the
-        trainer's device cache."""
-        n = len(self.ds)
+    def raw_chunks(self, chunk_size: int = 256, n_workers: int = 8,
+                   first: int = 0, stop: Optional[int] = None):
+        """The dataset's samples ``first`` .. ``stop`` - 1 (all by default) in
+        order, in stacked chunks: the feed of the trainer's device cache (a
+        data-parallel rank's shard of it)."""
+        stop = len(self.ds) if stop is None else stop
         with cf.ThreadPoolExecutor(max_workers=n_workers) as pool:
-            for start in range(0, n, chunk_size):
-                rows = list(pool.map(self.load_raw, range(start, min(start + chunk_size, n))))
+            for start in range(first, stop, chunk_size):
+                rows = list(pool.map(self.load_raw, range(start, min(start + chunk_size, stop))))
                 yield tuple(np.stack(col) for col in zip(*rows))
 
-    def epoch_raw(self, epoch_idx: int = 0, n_workers: int = 8) -> Iterator[RawBatch]:
-        """Decode-and-resize epoch for the on-card augmentation."""
+    def epoch_raw(self, epoch_idx: int = 0, n_workers: int = 8,
+                  rows: Optional[slice] = None) -> Iterator[RawBatch]:
+        """Decode-and-resize epoch for the on-card augmentation; ``rows``:
+        only those rows of each batch (a data-parallel rank's)."""
         with cf.ThreadPoolExecutor(max_workers=n_workers) as pool:
             for idxs in self.epoch_indices(epoch_idx):
+                idxs = idxs[rows] if rows is not None else idxs
                 images, hw, gtb, gtc, gtm = zip(*pool.map(self.load_raw, idxs))
                 yield RawBatch(images=np.stack(images), hw=np.stack(hw),
                                gt_boxes=np.stack(gtb), gt_classes=np.stack(gtc),

@@ -30,7 +30,7 @@ the JAX package's draws to ``apply``.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -210,9 +210,11 @@ def _mosaic(images, hw, boxes, classes, mask, idx4, u, imgsz: int, cfg: DeviceAu
     """The mosaic and affine of every sample: (images (B, S, S, 3) f32,
     boxes (B, 4M, 4), classes (B, 4M), keep (B, 4M)). A sample whose gate
     u[:, 5] >= cfg.mosaic takes the single-image path: its own source
-    centred on the canvas, the partners parked off the canvas."""
+    centred on the canvas, the partners parked off the canvas. ``idx4``
+    (n, 4) and ``u`` (n, 10) give the n samples made, their four sources
+    indexing the raw batch."""
     s = imgsz
-    bsz = images.shape[0]
+    bsz = idx4.shape[0]
     dev = images.device
     use_mosaic = u[:, 5] < cfg.mosaic                         # (B,)
     yc = s // 2 + u[:, 0] * s                                 # in [s/2, 3s/2)
@@ -328,7 +330,7 @@ def _warp(images, idx4, origin_x, origin_y, tx, ty, inv, s: int) -> torch.Tensor
     vertical pass y = i11*y' + i10*x'' + wB over the columns, in bf16.
     -> (B, 4, S, S, 3) f32."""
     i00, i01, i10, i11 = inv
-    bsz = images.shape[0]
+    bsz = idx4.shape[0]
     bf = torch.bfloat16
     cxc = cyc = float(s)
     pos = torch.arange(s, dtype=torch.float32, device=images.device)
@@ -362,7 +364,8 @@ def _warp(images, idx4, origin_x, origin_y, tx, ty, inv, s: int) -> torch.Tensor
 
 def apply(images: torch.Tensor, hw: torch.Tensor, boxes: torch.Tensor, classes: torch.Tensor,
           mask: torch.Tensor, draws: AugDraws, imgsz: int,
-          cfg: DeviceAugConfig = DeviceAugConfig(), max_boxes: int = 128
+          cfg: DeviceAugConfig = DeviceAugConfig(), max_boxes: int = 128,
+          rows: Optional[slice] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Augment a batch with the given draws.
 
@@ -370,23 +373,43 @@ def apply(images: torch.Tensor, hw: torch.Tensor, boxes: torch.Tensor, classes: 
     (h, w); boxes (B, M, 4) xyxy in canvas pixels, classes (B, M) int,
     mask (B, M) bool -> (images (B, S, S, 3) u8, boxes (B, K, 4), classes
     (B, K), mask (B, K)) with K = min(max_boxes, 4M, or 8M with mixup),
-    kept boxes first."""
+    kept boxes first.
+
+    ``rows`` makes only those samples of the batch (a data-parallel rank's
+    rows, ``parallel.DataParallel.rows``): the same values as the whole
+    batch's rows, since mosaic partners index the whole raw batch and a
+    mixup partner's sample is made beside them."""
     b = images.shape[0]
-    idx4 = torch.cat([torch.arange(b, device=images.device)[:, None], draws.partners], 1)
+    sel = rows if rows is not None else slice(None)   # views of the draws
+    own = torch.arange(b, device=images.device)[sel]
+    u, partners = draws.uniforms[sel], draws.partners[sel]
+    made = own
+    if cfg.mixup > 0 and rows is not None:  # the mixup partners' samples too
+        made = torch.cat([own, draws.mix_j[own]])
+        u, partners = draws.uniforms[made], draws.partners[made]
+    idx4 = torch.cat([made[:, None], partners], 1)
     out_imgs, out_boxes, out_cls, out_keep = _mosaic(
-        images, hw, boxes, classes, mask, idx4, draws.uniforms, imgsz, cfg)
+        images, hw, boxes, classes, mask, idx4, u, imgsz, cfg)
+    n = own.shape[0]
 
     if cfg.mixup > 0:
         # Beta(32, 32) blend with another augmented sample of the batch,
         # labels unioned; before HSV and flips, as on the host
-        j = draws.mix_j
-        do = draws.mix_u < cfg.mixup
-        lam = torch.where(do, draws.mix_lam, 1.0)[:, None, None, None]
-        out_imgs = lam * out_imgs + (1.0 - lam) * out_imgs[j]
-        out_boxes = torch.cat([out_boxes, out_boxes[j]], 1)
-        out_cls = torch.cat([out_cls, out_cls[j]], 1)
-        out_keep = torch.cat([out_keep, out_keep[j] & do[:, None]], 1)
+        if rows is not None:
+            mixed = tuple(t[n:] for t in (out_imgs, out_boxes, out_cls, out_keep))
+            out_imgs, out_boxes, out_cls, out_keep = (
+                t[:n] for t in (out_imgs, out_boxes, out_cls, out_keep))
+        else:
+            j = draws.mix_j
+            mixed = (out_imgs[j], out_boxes[j], out_cls[j], out_keep[j])
+        do = draws.mix_u[sel] < cfg.mixup
+        lam = torch.where(do, draws.mix_lam[sel], 1.0)[:, None, None, None]
+        out_imgs = lam * out_imgs + (1.0 - lam) * mixed[0]
+        out_boxes = torch.cat([out_boxes, mixed[1]], 1)
+        out_cls = torch.cat([out_cls, mixed[2]], 1)
+        out_keep = torch.cat([out_keep, mixed[3] & do[:, None]], 1)
 
+    draws = AugDraws(*(t[sel] for t in draws))
     out_imgs = hsv_jitter(out_imgs, draws.gains)
 
     u = draws.flips
@@ -414,9 +437,16 @@ def apply(images: torch.Tensor, hw: torch.Tensor, boxes: torch.Tensor, classes: 
 
 
 def augment_batch(images, hw, boxes, classes, mask, seed: int, imgsz: int,
-                  cfg: DeviceAugConfig = DeviceAugConfig(), max_boxes: int = 128):
+                  cfg: DeviceAugConfig = DeviceAugConfig(), max_boxes: int = 128, dp=None):
     """Draw from a generator on the batch's device seeded with ``seed``,
-    then ``apply``."""
+    then ``apply``. With ``dp`` (a ``parallel.DataParallel``) the arrays
+    are this rank's rows of the global raw batch: the ranks' rows are
+    gathered, the draws are the global batch's, and this rank's rows come
+    out."""
+    rows = None
+    if dp is not None:
+        images, hw, boxes, classes, mask = dp.gather_rows((images, hw, boxes, classes, mask))
+        rows = dp.rows(images.shape[0])
     gen = torch.Generator(device=images.device).manual_seed(int(seed))
     return apply(images, hw, boxes, classes, mask, draw(images.shape[0], gen, cfg, images.device),
-                 imgsz, cfg, max_boxes)
+                 imgsz, cfg, max_boxes, rows)

@@ -149,9 +149,16 @@ def detection_loss(
     gt_mask: torch.Tensor,     # (B, N) bool
     imgsz: Tuple[int, int],
     config: LossConfig = LossConfig(),
+    dp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total detection loss and its parts (box/cls/dfl and the foreground
-    count), all 0-d tensors on the head's device."""
+    count), all 0-d tensors on the head's device.
+
+    With ``dp`` (a ``parallel.DataParallel``) the batch is this rank's rows
+    of the global batch: the target-score sum is all-reduced before its
+    clamp, so that each part is this rank's sum over the global normaliser
+    and the parts summed over the ranks are the one-process loss of the
+    global batch; ``batch_scale`` multiplies by the global batch."""
     pd_dist, pd_scores = flatten_levels(box_levels, cls_levels)  # (B,A,64), (B,A,nc)
     pd_dist = pd_dist.float()
     # pd_scores stays in the model dtype (bf16 under amp) for the BCE
@@ -168,7 +175,10 @@ def detection_loss(
         anchor_xy_px, gt_labels, gt_bboxes, gt_mask,
         nc=config.nc, topk=config.tal_topk, alpha=config.tal_alpha, beta=config.tal_beta,
     )
-    target_scores_sum = target_scores.sum().clamp(min=1.0)
+    target_scores_sum = target_scores.sum()
+    if dp is not None:
+        dp.all_reduce_(target_scores_sum)
+    target_scores_sum = target_scores_sum.clamp(min=1.0)
 
     cls_loss = _bce_logits(pd_scores, target_scores).sum(dtype=torch.float32) / target_scores_sum
 
@@ -183,7 +193,7 @@ def detection_loss(
 
     total = config.box_gain * box_loss + config.cls_gain * cls_loss + config.dfl_gain * dfl_loss
     if config.batch_scale:
-        total = total * pd_scores.shape[0]
+        total = total * (pd_scores.shape[0] * (dp.world if dp is not None else 1))
     return total, {
         "box_loss": box_loss,
         "cls_loss": cls_loss,

@@ -161,6 +161,29 @@ class Optimizer:
     def grads(self) -> List[torch.Tensor]:
         return [t for g in self.groups for t in g.grads]
 
+    @torch.no_grad()
+    def flatten_grads(self) -> torch.Tensor:
+        """Move every gradient into one flat buffer and return it: each
+        ``.grad`` becomes a view of it with its parameter's strides, so that
+        the backward adds into the buffer and one all-reduce of it carries
+        every gradient (data parallelism). Idempotent."""
+        params = [p for g in self.groups for p in g.params]
+        flat = getattr(self, "flat_grad", None)
+        if flat is not None or not params:
+            return flat
+        if len({p.dtype for p in params}) != 1:
+            raise TypeError("the flat gradient buffer holds parameters of one dtype")
+        flat = torch.zeros(sum(p.numel() for p in params), dtype=params[0].dtype,
+                           device=params[0].device)
+        offset = 0
+        for p in params:
+            view = torch.as_strided(flat, p.shape, p.stride(), offset)
+            view.copy_(p.grad)
+            p.grad = view
+            offset += p.numel()
+        self.flat_grad = flat
+        return flat
+
     def hyper_row(self, update_index: int) -> Dict[int, float]:
         """The optimizer's columns of ``hyper`` for update ``update_index``
         (0-based): Adam's step size folds in 1 / (1 - beta1 ** t)."""

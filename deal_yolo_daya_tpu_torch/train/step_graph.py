@@ -26,6 +26,14 @@ hold against the JAX package's chunked dispatch.
 
 The random draws stay outside the graph: each step's ``torch.Generator``
 is seeded anew (``step_seed``), which a replayed generator would not do.
+
+Under data parallelism (``state.dp``) the cache is this rank's shard and the
+indices are local to it; the iteration gathers the ranks' rows into the
+global raw batch, augments this rank's rows with the global draws and runs
+the distributed iteration, so the graph holds every collective of the step
+(the raw-batch all_gather, the BatchNorm moments, the loss normaliser, the
+gradient all-reduce). NCCL's collectives can be captured; gloo's cannot, and
+a program over a gloo group on the card raises.
 """
 
 from __future__ import annotations
@@ -42,12 +50,16 @@ from .device_augment import DeviceAugConfig, apply, draw
 WARMUP_RUNS = 3
 
 
-def auto_steps_per_dispatch(k: Optional[int], n_batches: int) -> int:
-    """``steps_per_dispatch`` resolved as the JAX Trainer resolves it on one
-    device: the given value (at least 1), or for None the largest K in
-    [4, 16] that divides the epoch's batch count, else 8."""
+def auto_steps_per_dispatch(k: Optional[int], n_batches: int,
+                            single_device: bool = True) -> int:
+    """``steps_per_dispatch`` resolved as the JAX Trainer resolves it: the
+    given value (at least 1), or for None 1 on several devices (per-step
+    dispatch) and on one the largest K in [4, 16] that divides the epoch's
+    batch count, else 8."""
     if k is not None:
         return max(1, int(k))
+    if not single_device:
+        return 1
     for cand in range(16, 3, -1):
         if n_batches and n_batches % cand == 0:
             return cand
@@ -63,9 +75,16 @@ class StepProgram:
     def __init__(self, state, cache: Sequence[torch.Tensor], aug_cfg: DeviceAugConfig,
                  imgsz: int, max_boxes: int, batch: int):
         dev = state.device
+        dp = state.dp
+        if dp is not None and dev.type == "cuda" and not dp.capturable:
+            raise RuntimeError(f"steps_per_dispatch > 1 captures the step's collectives into a "
+                               f"CUDA graph, which the {dp.backend} backend cannot; use NCCL or "
+                               "steps_per_dispatch=1")
         self.state, self.cache, self.aug_cfg = state, tuple(cache), aug_cfg
         self.imgsz, self.max_boxes, self.batch = imgsz, max_boxes, batch
-        self.idx = torch.zeros((batch,), dtype=torch.long, device=dev)
+        self.rows = dp.rows(batch) if dp is not None else None
+        local = batch // dp.world if dp is not None else batch
+        self.idx = torch.zeros((local,), dtype=torch.long, device=dev)
         self.draws = draw(batch, torch.Generator(device=dev).manual_seed(0), aug_cfg, dev)
         self.graphs: Dict[bool, torch.cuda.CUDAGraph] = {}
         self.launches: Dict[bool, GraphLaunches] = {}
@@ -77,12 +96,15 @@ class StepProgram:
     def iteration(self, update: bool) -> torch.Tensor:
         """One step from the static buffers: what the graph captures."""
         batch = tuple(t.index_select(0, self.idx) for t in self.cache)
-        aug = apply(*batch, self.draws, self.imgsz, self.aug_cfg, self.max_boxes)
+        if self.state.dp is not None:
+            batch = self.state.dp.gather_rows(batch)
+        aug = apply(*batch, self.draws, self.imgsz, self.aug_cfg, self.max_boxes, self.rows)
         return self.state.iteration(*aug, update)
 
     def stage(self, idx: np.ndarray, seed: int) -> bool:
-        """Copy one step's (B,) indices, its draws and its hyperparameter
-        row into the buffers, and count the step -> its ``update``."""
+        """Copy one step's indices (this rank's B / D under data
+        parallelism), the global batch's draws and its hyperparameter row
+        into the buffers, and count the step -> its ``update``."""
         dev = self.state.device
         pin = dev.type == "cuda"
         rows = torch.from_numpy(np.asarray(idx, np.int64))

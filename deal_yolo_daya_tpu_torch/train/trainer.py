@@ -32,9 +32,25 @@ resume, and the JAX Trainer's options on one device:
   1..N of the first epoch under ``<run>/profile``), ``async_ckpt``
   (``train/async_ckpt.py``) and ``batch=-1`` (``train/autobatch.py``).
 
-Several devices and the plots are not ported (ROADMAP.md). ``donate`` and
-``fold_div_barrier`` are accepted and have no counterpart: PyTorch frees
-buffers itself, and the barrier works around an XLA compiler fault.
+``device`` takes the JAX grammar (``parallel/mesh.py::mesh_from_spec``):
+"" every card, "N" the first N, "2x4@dcn" two hosts of four, plus "cpu"
+and "0" (the first card). With D > 1 cards on the data axis the Trainer is
+data parallel, one rank a card (``parallel/launch.py``), and computes what
+the JAX Trainer computes on a D-device mesh: ``batch`` is the global batch
+(rounded down to a multiple of D), each rank takes its B / D rows of it,
+and the step is the one-device step of the global batch
+(``TrainState.attach``). The device cache is split by rows over the ranks
+(``DataLoader.sharded_epoch_indices``); the streamed path loads each rank's
+rows; the on-card augmentation draws for the global batch. Rank 0 alone
+validates, writes the run directory, ``results.csv`` and the checkpoints,
+and decides the early stops for every rank. A Trainer made in a plain
+process starts the other ranks itself and is rank 0; in a process of a
+``torchrun`` or of ``init_distributed``'s cluster it is that rank. A model
+axis above 1 (tensor parallelism) is not ported yet (ROADMAP.md).
+
+The plots are not ported (ROADMAP.md). ``donate`` and ``fold_div_barrier``
+are accepted and have no counterpart: PyTorch frees buffers itself, and the
+barrier works around an XLA compiler fault.
 """
 
 from __future__ import annotations
@@ -54,6 +70,9 @@ import torch
 from torch.func import functional_call
 
 from ..device import resolve_device
+from ..parallel import launch
+from ..parallel.mesh import mesh_from_spec
+from ..parallel.sharding import tp_param_shardings
 from ..models.registry import FAMILIES, infer_arch, make_detector, parse_model_spec
 from ..models.torch_import import import_state_dict, read_torch_checkpoint
 from ..models.yolo11 import init_weights
@@ -85,7 +104,7 @@ class TrainConfig:
     imgsz: int = 640
     batch: int = 16             # -1: the largest that fits (train/autobatch.py)
     auto_batch_bytes: int = 0   # for batch=-1
-    device: str = ""            # "" or "0": the card; "cpu"; others raise
+    device: str = ""            # "" all cards, "N", "AxB", "2x4@dcn"; "0" the first; "cpu"
     amp: bool = True
     optimizer: str = "auto"
     lr0: float = 0.01
@@ -196,6 +215,13 @@ class TrainState:
     ``hyper``. The CUDA graph of ``train/step_graph.py`` captures
     ``iteration`` as it is.
 
+    ``attach(dp)`` makes it one rank of a data-parallel group
+    (``parallel.DataParallel``): a step then takes this rank's rows of the
+    global batch and computes the one-process step of the global batch, as
+    the JAX step under a sharded mesh: BatchNorm over the global batch, the
+    loss over the global target-score sum, and the gradients summed over the
+    ranks (one all-reduce of the flat gradient buffer an update).
+
     >>> state = TrainState(TrainConfig(), nc=80, steps_per_epoch=100)  # on the card
     >>> total = state.step(images_u8, gt_boxes, gt_classes, gt_mask)
     """
@@ -207,7 +233,9 @@ class TrainState:
                  scale: Optional[str] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dtype = torch.bfloat16 if cfg.amp else torch.float32
+        # without amp the parameters' dtype (f32 unless the default dtype is
+        # changed: the tests' float64 comparisons)
+        self.dtype = torch.bfloat16 if cfg.amp else torch.get_default_dtype()
         self.family, self.scale = parse_model_spec(cfg.model) if family is None \
             else (family, scale)
         model = init_weights(make_detector(self.family, self.scale, nc, remat=cfg.remat),
@@ -233,6 +261,30 @@ class TrainState:
         self.updates = 0  # micro-batch steps taken (the JAX state.step)
         self.loss_acc = {k: torch.zeros((), device=self.device) for k in LOSS_PARTS}
         self.hyper = torch.zeros(N_HYPER, device=self.device)
+        self.dp = None
+
+    def attach(self, dp) -> None:
+        """Join the data-parallel group ``dp``: every BatchNorm synchronises
+        over it, the gradients move into one flat buffer, and rank 0's
+        parameters, statistics, EMA and optimizer state are copied to every
+        rank."""
+        self.dp = dp
+        for mod in self.model.modules():
+            if hasattr(mod, "update_stats"):  # models.blocks.BatchNorm
+                mod.dp = dp
+        self.flat_grad = self.optimizer.inner.flatten_grads()
+        views = self.state_views()
+        tensors = [*views["model"].values(), *views["ema"].values(), *self.optimizer.inner.grads(),
+                   *[t for st in views["optimizer"]["optimizer"]["state"].values()
+                     for t in st.values()]]
+        dp.broadcast_(tensors)
+
+    def detach(self) -> None:
+        """Leave the data-parallel group: the one-device step again."""
+        self.dp = None
+        for mod in self.model.modules():
+            if hasattr(mod, "update_stats"):
+                mod.dp = None
 
     def zero_loss_acc(self) -> None:
         """Set the loss sums to 0, in place (a captured step adds into them)."""
@@ -277,7 +329,7 @@ class TrainState:
         box, cls = self.forward(images)
         # the loss runs outside autocast: its dtypes are its own
         return detection_loss(box, cls, gt_classes, gt_boxes, gt_mask,
-                              (self.cfg.imgsz, self.cfg.imgsz), self.loss_cfg)
+                              (self.cfg.imgsz, self.cfg.imgsz), self.loss_cfg, self.dp)
 
     def next_hyper(self) -> bool:
         """Copy the next micro-batch's row into ``hyper`` (a pinned copy on
@@ -308,6 +360,8 @@ class TrainState:
         total, parts = self.loss(images, gt_boxes, gt_classes, gt_mask)
         total.backward()
         if update:
+            if self.dp is not None:  # the global batch's gradient: SUM over the ranks
+                self.dp.all_reduce_(self.flat_grad)
             self.optimizer.apply(self.hyper)
             ema_update(self.ema, self.params, self.hyper[H_EMA_DECAY])
         with torch.no_grad():
@@ -382,14 +436,9 @@ def inference_state_dict(ckpt: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {**ckpt["model"], **ckpt["ema"]}
 
 
-def _device_of(spec) -> torch.device:
-    spec = str(spec or "")
-    if spec in ("", "0"):
-        return resolve_device("cuda")
-    if spec == "cpu":
-        return resolve_device("cpu")
-    raise NotImplementedError(f"device={spec!r}: several devices are not ported yet "
-                              "(ROADMAP.md section 1, 'Multi-GPU'); use '', '0' or 'cpu'")
+def _train_rank(dp, cfg: "TrainConfig") -> None:
+    """A spawned rank of a data-parallel Trainer (``parallel/launch.py``)."""
+    Trainer(cfg).train()
 
 
 class Trainer:
@@ -403,7 +452,12 @@ class Trainer:
     ``import_report``). ``model="<run>/weights/best.pt"`` does the same from
     a checkpoint of this Trainer, and ``model="<ultralytics>.pt"`` from an
     ultralytics checkpoint (``models/torch_import.py``), the architecture
-    taken from either; explicit ``init_state_dict`` wins over both."""
+    taken from either; explicit ``init_state_dict`` wins over both (on a
+    data-parallel run rank 0's weights reach every rank).
+
+    ``extra["dist_timeout_s"]`` bounds a wait in a collective of a
+    data-parallel run (default 1800 s): the other ranks wait there while
+    rank 0 validates."""
 
     def __init__(self, config: TrainConfig,
                  init_state_dict: Optional[Dict[str, torch.Tensor]] = None,
@@ -412,7 +466,17 @@ class Trainer:
         # validation's forward in place of the EMA model's: a u8 (B, S, S, 3)
         # batch -> per-level (box, cls), e.g. the int8 model (api.val)
         self._eval_apply = eval_apply
-        self.device = _device_of(cfg.device)
+        self._ranks = None
+        self.dp = self._join_ranks(dataclasses.replace(cfg, extra=dict(cfg.extra)))
+        self.rank = self.dp.rank if self.dp is not None else 0
+        try:
+            self._setup(init_state_dict)
+        except BaseException:
+            self.close(failed=True)
+            raise
+
+    def _setup(self, init_state_dict) -> None:
+        cfg = self.cfg
         self._dev_cache = None
         self._dev_cache_failed = False
         self._val_staged = None
@@ -455,21 +519,26 @@ class Trainer:
         self.nc = max(self.train_ds.nc, 1)
         self.names = self.train_ds.names or [str(i) for i in range(self.nc)]
 
+        n_data = self.n_data
+        if cfg.batch > 0 and cfg.batch % n_data:
+            cfg.batch = max(n_data, cfg.batch // n_data * n_data)
         if cfg.device_augment is None:  # the card (see the module docstring)
             cfg.device_augment = True
-        if cfg.cache is None:
-            cfg.cache = "device" if cfg.device_augment else False
+        if cfg.cache is None:  # the JAX rule: the device cache on one device only
+            cfg.cache = "device" if cfg.device_augment and n_data == 1 else False
         if cfg.batch < 0:
+            # the per-card batch, probed on rank 0's card, times D
             on_card = cfg.cache == "device" and cfg.device_augment
-            cached = self._device_cache_bytes() if on_card else 0
+            cached = self._device_cache_bytes() / n_data if on_card else 0  # a card's shard
             cached = 0 if cached > self._cache_budget() else cached
-            cfg.batch = suggest_batch(
+            per_card = self._decide(lambda: suggest_batch(
                 lambda: TrainState(cfg, self.nc, 100, device=self.device, family=self.family,
                                    scale=self.scale),
                 cfg.imgsz, self.device, max_boxes=cfg.max_boxes,
                 limit_bytes=cfg.auto_batch_bytes or None, reserve_bytes=cached,
-                graphed=bool(cached) and cfg.steps_per_dispatch != 1,
-                evaluate=lambda st, *batch: self.eval_step(*batch, state=st))
+                graphed=bool(cached) and self.steps_per_dispatch(1) != 1,
+                evaluate=lambda st, *batch: self.eval_step(*batch, state=st)))
+            cfg.batch = n_data * per_card
         self.aug_cfg = DeviceAugConfig(
             mosaic=cfg.mosaic, mixup=cfg.mixup, scale=cfg.scale, translate=cfg.translate,
             degrees=cfg.degrees, shear=cfg.shear, hsv_h=cfg.hsv_h, hsv_s=cfg.hsv_s,
@@ -506,8 +575,12 @@ class Trainer:
         self.lr_fn = lr_schedule(self.opt_cfg)
         self.lr_fn_bias = lr_schedule(self.opt_cfg, warmup_start=self.opt_cfg.warmup_bias_lr)
 
-        self.run = RunDir(cfg.project, cfg.name, cfg.exist_ok)
-        self.run.write_args({**dataclasses.asdict(cfg), "family": self.family})
+        # rank 0 makes the run directory (the auto-increment) and writes
+        # args.yaml; the other ranks take its path
+        path = self._decide(lambda: str(RunDir(cfg.project, cfg.name, cfg.exist_ok).path))
+        self.run = RunDir.at(path)
+        if self.rank == 0:
+            self.run.write_args({**dataclasses.asdict(cfg), "family": self.family})
 
         self.frozen = frozen_modules(cfg.freeze, self.family)
         self.state = TrainState(
@@ -517,7 +590,53 @@ class Trainer:
             family=self.family, scale=self.scale)
         self.start_epoch = 0
         if cfg.resume:
-            self._try_resume()
+            self._try_resume()  # every rank reads the same file
+        if self.dp is not None:
+            self.state.attach(self.dp)  # rank 0's state on every rank
+
+    # ------------------------------------------------------------------ ranks
+
+    def _join_ranks(self, cfg: TrainConfig):
+        """The mesh of ``cfg.device`` -> this process's ``DataParallel``, or
+        None on one device (``self.device`` set either way). A plain process
+        asked for D > 1 devices starts the other ranks of its host here, each
+        running ``Trainer(cfg).train()`` on the config as given."""
+        spec = str(cfg.device or "")
+        self.mesh = mesh = mesh_from_spec(spec or None)
+        tp_param_shardings(None, mesh)  # a model axis above 1 raises: not ported
+        self.n_data = mesh.shape["data"]
+        if mesh.size == 0:  # no card: never the CPU unless asked for
+            self.device = resolve_device("cuda")
+        if self.n_data <= 1:  # the first device: "cuda" (the current card) or the CPU
+            self.device = resolve_device(mesh.devices.reshape(-1)[0].torch_device.type)
+            return None
+        dp = launch.current()
+        if dp is None:
+            self._ranks = launch.start(mesh, _train_rank, (cfg,), timeout_s=float(
+                cfg.extra.get("dist_timeout_s", launch.DEFAULT_TIMEOUT_S)))
+            dp = self._ranks.dp
+        if dp.world != self.n_data:
+            raise ValueError(f"device={spec!r} asks for {self.n_data} ranks; this process's "
+                             f"group has {dp.world}")
+        self.device = dp.device
+        return dp
+
+    def _decide(self, fn: Callable[[], Any]) -> Any:
+        """``fn()`` on rank 0, its value on every rank."""
+        if self.dp is None:
+            return fn()
+        return self.dp.decide(fn() if self.rank == 0 else None)
+
+    def close(self, failed: bool = False) -> None:
+        """End the data-parallel run this Trainer started (leave the group,
+        wait for the other ranks; a rank that failed raises ``WorkerError``).
+        ``train()`` calls it; nothing to do on one device."""
+        state = getattr(self, "state", None)
+        if state is not None:
+            state.detach()
+        ranks, self._ranks = self._ranks, None
+        if ranks is not None:
+            ranks.close(failed)
 
     def _overlay(self, init: Dict[str, Any], source: str) -> Dict[str, torch.Tensor]:
         """``init`` (ultralytics keys: the given weights, a checkpoint's or an
@@ -537,31 +656,44 @@ class Trainer:
     def _ensure_device_cache(self):
         """The whole train set on the device once: canvases, (h, w) and
         padded GT. Every epoch then gathers its batches there; the only
-        upload a step is the (B,) index. None when over budget."""
+        upload a step is the (B,) index. None when over budget.
+
+        Under data parallelism the rows are split over the ranks, as the
+        JAX Trainer shards them over its data axis: rank d holds rows
+        d * ceil(n / D) on (the budget is a card's), and each epoch's
+        indices are local to that shard (``sharded_epoch_indices``)."""
         if self._dev_cache is not None or self._dev_cache_failed:
             return self._dev_cache
         dl = self.train_loader
-        n = len(dl.ds)
+        n, n_data = len(dl.ds), self.n_data
         need, budget = self._device_cache_bytes(), self._cache_budget()
-        if n == 0 or need > budget or n < self.cfg.batch:
-            print(f"cache=device needs about {need / 1e9:.1f} GB (budget {budget / 1e9:.1f} "
-                  "GB) or a set of at least one batch; streaming instead")
+        shard_n = -(-n // n_data)
+        # every shard must be able to supply its rank's rows of a batch
+        feasible = min(shard_n, n - (n_data - 1) * shard_n) >= self.cfg.batch // n_data
+        if n == 0 or need / n_data > budget or not feasible:
+            print(f"cache=device needs about {need / n_data / 1e9:.1f} GB a card (budget "
+                  f"{budget / 1e9:.1f} GB)" + ("" if feasible else ", and a shard smaller "
+                                              "than a rank's rows of a batch")
+                  + "; streaming instead")
             self._dev_cache_failed = True
             return None
         t0 = time.time()
+        first = self.rank * shard_n
+        stop = min(first + shard_n, n)
         parts, offset = None, 0
-        for chunk in dl.raw_chunks():
+        for chunk in dl.raw_chunks(first=first, stop=stop):
             if parts is None:
-                parts = tuple(torch.empty((n,) + a.shape[1:], dtype=torch.from_numpy(a).dtype,
-                                          device=self.device) for a in chunk)
+                parts = tuple(torch.empty((stop - first,) + a.shape[1:],
+                                          dtype=torch.from_numpy(a).dtype, device=self.device)
+                              for a in chunk)
             for buf, a in zip(parts, chunk):
                 buf[offset:offset + len(a)].copy_(torch.from_numpy(a))
             offset += len(chunk[0])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.cache_build_s = time.time() - t0
-        print(f"train set on the device: {n} images (~{need / 1e9:.2f} GB, "
-              f"{self.cache_build_s:.1f} s)")
+        print(f"train set on the device: {stop - first} of {n} images (~"
+              f"{need / n_data / 1e9:.2f} GB, {self.cache_build_s:.1f} s)")
         self._dev_cache = parts
         return parts
 
@@ -647,17 +779,27 @@ class Trainer:
         return self.aug_cfg
 
     def augment(self, batch, seed: int):
-        """The on-card augmentation of one raw batch (on the device)."""
+        """The on-card augmentation of one raw batch (on the device); under
+        data parallelism this rank's rows of the global batch's."""
         return augment_batch(*batch, seed, self.cfg.imgsz, self._aug_now(),
-                             max_boxes=self.cfg.max_boxes)
+                             max_boxes=self.cfg.max_boxes, dp=self.dp)
 
     def _uses_device_cache(self) -> bool:
         return (self.cfg.cache == "device" and bool(self.cfg.device_augment)
                 and self._ensure_device_cache() is not None)
 
     def steps_per_dispatch(self, n_batches: int = 0) -> int:
-        """The resolved K (``auto_steps_per_dispatch``)."""
-        return auto_steps_per_dispatch(self.cfg.steps_per_dispatch, n_batches)
+        """The resolved K (``auto_steps_per_dispatch``; 1 on several
+        devices unless given)."""
+        return auto_steps_per_dispatch(self.cfg.steps_per_dispatch, n_batches, self.n_data == 1)
+
+    def _epoch_indices(self, epoch: int):
+        """The epoch's batches of the device cache: dataset indices, or this
+        rank's indices local to its shard."""
+        if self.dp is None:
+            return list(self.train_loader.epoch_indices(epoch))
+        rows = self.dp.rows(self.cfg.batch)
+        return [idxs[rows] for idxs in self.train_loader.sharded_epoch_indices(epoch, self.n_data)]
 
     def step_program(self) -> StepProgram:
         """The step program of the current augmentation; a close_mosaic
@@ -678,15 +820,16 @@ class Trainer:
         cfg = self.cfg
         if self._uses_device_cache():
             cache = self._dev_cache
-            for idxs in list(self.train_loader.epoch_indices(epoch))[first:]:
+            for idxs in self._epoch_indices(epoch)[first:]:
                 idx = torch.from_numpy(idxs).to(self.device)
                 yield tuple(t[idx] for t in cache)
             return
         if first:
             raise ValueError("a streamed epoch starts at its first batch")
+        rows = self.dp.rows(cfg.batch) if self.dp is not None else None
         if cfg.device_augment:
             yield from Prefetcher(
-                self.train_loader.epoch_raw(epoch), depth=cfg.workers,
+                self.train_loader.epoch_raw(epoch, rows=rows), depth=cfg.workers,
                 transfer=lambda b: self._to_device((b.images, b.hw, b.gt_boxes, b.gt_classes,
                                                     b.gt_mask)))
             return
@@ -695,7 +838,7 @@ class Trainer:
             return self._to_device((b.images, *bucket_gt(b.gt_boxes, b.gt_classes, b.gt_mask,
                                                          cfg.max_boxes)))
 
-        yield from Prefetcher(self.train_loader.epoch(epoch), depth=cfg.workers,
+        yield from Prefetcher(self.train_loader.epoch(epoch, rows=rows), depth=cfg.workers,
                               transfer=transfer)
 
     def _profile(self, prof=None):
@@ -724,9 +867,10 @@ class Trainer:
         program, the remainder eagerly, as the JAX Trainer does."""
         cfg = self.cfg
         n_steps = 0
-        profiled = cfg.profile_steps > 0 and epoch == self.start_epoch
-        if self._uses_device_cache() and not profiled:
-            all_idx = list(self.train_loader.epoch_indices(epoch))
+        # rank 0 alone traces
+        profiled = cfg.profile_steps > 0 and epoch == self.start_epoch and self.rank == 0
+        if self._uses_device_cache() and not (cfg.profile_steps > 0 and epoch == self.start_epoch):
+            all_idx = self._epoch_indices(epoch)
             k = self.steps_per_dispatch(len(all_idx))
             if k > 1:
                 prog = self.step_program()
@@ -749,11 +893,27 @@ class Trainer:
         return n_steps
 
     def train(self) -> Dict[str, Any]:
+        """Train ``cfg.epochs`` epochs -> {"save_dir", "best_fitness",
+        "metrics"} (on rank 0; the other ranks of a data-parallel run return
+        the same keys and no metrics). The data-parallel run this Trainer
+        started ends with it."""
+        try:
+            result = self._train()
+        except BaseException:
+            self.close(failed=True)
+            raise
+        self.close()
+        return result
+
+    def _train(self) -> Dict[str, Any]:
         cfg = self.cfg
+        lead = self.rank == 0  # validates, writes, decides
         best_fit, best_epoch = -1.0, -1
         t0 = time.time()
-        print(f"training {self.family}{self.scale} nc={self.nc} imgsz={cfg.imgsz} batch={cfg.batch} "
-              f"device={self.device} epochs={cfg.epochs}")
+        if lead:
+            print(f"training {self.family}{self.scale} nc={self.nc} imgsz={cfg.imgsz} "
+                  f"batch={cfg.batch} device={self.device} ranks={self.n_data} "
+                  f"epochs={cfg.epochs}")
         for epoch in range(self.start_epoch, cfg.epochs):
             if cfg.close_mosaic and cfg.epochs - epoch <= cfg.close_mosaic:
                 self.train_loader.mosaic_off = True
@@ -762,60 +922,72 @@ class Trainer:
             n_steps = self._train_epoch(epoch)
             t_dispatch = time.time()
             losses = {"box_loss": 0.0, "cls_loss": 0.0, "dfl_loss": 0.0}
-            if n_steps:  # one read of the device sums an epoch
-                sums = torch.stack([self.state.loss_acc[k] for k in losses]).tolist()
-                losses = {k: v / n_steps for k, v in zip(losses, sums)}
+            if n_steps:  # one read of the device sums an epoch (and one all-reduce)
+                sums = torch.stack([self.state.loss_acc[k] for k in losses])
+                if self.dp is not None:  # each rank's parts are its share of the global loss
+                    self.dp.all_reduce_(sums)
+                losses = {k: v / n_steps for k, v in zip(losses, sums.tolist())}
             lr_step = self.state.updates // self.accumulate  # in optimizer steps
             t_stepsync = time.time()
 
             metrics = {"precision": 0.0, "recall": 0.0, "map50": 0.0, "map": 0.0}
             val_losses = {"box_loss": 0.0, "cls_loss": 0.0, "dfl_loss": 0.0}
-            if cfg.val and ((epoch + 1) % max(1, cfg.val_period) == 0
-                            or epoch == cfg.epochs - 1):
+            if lead and cfg.val and ((epoch + 1) % max(1, cfg.val_period) == 0
+                                     or epoch == cfg.epochs - 1):
                 metrics, val_losses = self.validate()
             t_val = time.time()
 
-            epoch_time = time.time() - epoch_t0
-            print(f"Epoch {epoch + 1}/{cfg.epochs}  box {losses['box_loss']:.4f} "
-                  f"cls {losses['cls_loss']:.4f} dfl {losses['dfl_loss']:.4f}  "
-                  f"mAP50 {metrics['map50']:.4f} mAP50-95 {metrics['map']:.4f}  "
-                  f"{n_steps * cfg.batch / max(epoch_time, 1e-9):.1f} img/s")
-            lr_now = float(self.lr_fn(lr_step))
-            self.run.append_results_row({
-                "epoch": epoch + 1, "time": round(time.time() - t0, 2),
-                "train/box_loss": losses["box_loss"], "train/cls_loss": losses["cls_loss"],
-                "train/dfl_loss": losses["dfl_loss"],
-                "metrics/precision(B)": metrics["precision"],
-                "metrics/recall(B)": metrics["recall"],
-                "metrics/mAP50(B)": metrics["map50"], "metrics/mAP50-95(B)": metrics["map"],
-                "val/box_loss": val_losses["box_loss"], "val/cls_loss": val_losses["cls_loss"],
-                "val/dfl_loss": val_losses["dfl_loss"],
-                # pg0/pg1: weights and BN (one schedule), pg2: biases
-                "lr/pg0": lr_now, "lr/pg1": lr_now, "lr/pg2": float(self.lr_fn_bias(lr_step)),
-            })
-
             fit = fitness(metrics)
-            self.save_checkpoint("last", epoch, fit)
-            if fit > best_fit:
-                best_fit, best_epoch = fit, epoch
-                self.save_checkpoint("best", epoch, fit)
-            if cfg.save_period > 0 and (epoch + 1) % cfg.save_period == 0:
-                self.save_checkpoint(f"epoch{epoch + 1}", epoch, fit)
-            if cfg.time_phases:
-                print(f"  phases: dispatch {t_dispatch - epoch_t0:.2f}s  "
-                      f"step-sync {t_stepsync - t_dispatch:.2f}s  val {t_val - t_stepsync:.2f}s  "
-                      f"tail {time.time() - t_val:.2f}s")
-            if cfg.patience and epoch - best_epoch >= cfg.patience:
-                print(f"EarlyStopping: no improvement in {cfg.patience} epochs")
-                break
-            if cfg.time and (time.time() - t0) > cfg.time * 3600:
-                print(f"training time limit of {cfg.time} h reached")
+            stop = None
+            if lead:
+                epoch_time = time.time() - epoch_t0
+                print(f"Epoch {epoch + 1}/{cfg.epochs}  box {losses['box_loss']:.4f} "
+                      f"cls {losses['cls_loss']:.4f} dfl {losses['dfl_loss']:.4f}  "
+                      f"mAP50 {metrics['map50']:.4f} mAP50-95 {metrics['map']:.4f}  "
+                      f"{n_steps * cfg.batch / max(epoch_time, 1e-9):.1f} img/s")
+                lr_now = float(self.lr_fn(lr_step))
+                self.run.append_results_row({
+                    "epoch": epoch + 1, "time": round(time.time() - t0, 2),
+                    "train/box_loss": losses["box_loss"], "train/cls_loss": losses["cls_loss"],
+                    "train/dfl_loss": losses["dfl_loss"],
+                    "metrics/precision(B)": metrics["precision"],
+                    "metrics/recall(B)": metrics["recall"],
+                    "metrics/mAP50(B)": metrics["map50"], "metrics/mAP50-95(B)": metrics["map"],
+                    "val/box_loss": val_losses["box_loss"],
+                    "val/cls_loss": val_losses["cls_loss"],
+                    "val/dfl_loss": val_losses["dfl_loss"],
+                    # pg0/pg1: weights and BN (one schedule), pg2: biases
+                    "lr/pg0": lr_now, "lr/pg1": lr_now,
+                    "lr/pg2": float(self.lr_fn_bias(lr_step)),
+                })
+                self.save_checkpoint("last", epoch, fit)
+                if fit > best_fit:
+                    self.save_checkpoint("best", epoch, fit)
+                if cfg.save_period > 0 and (epoch + 1) % cfg.save_period == 0:
+                    self.save_checkpoint(f"epoch{epoch + 1}", epoch, fit)
+                if cfg.time_phases:
+                    print(f"  phases: dispatch {t_dispatch - epoch_t0:.2f}s  "
+                          f"step-sync {t_stepsync - t_dispatch:.2f}s  "
+                          f"val {t_val - t_stepsync:.2f}s  tail {time.time() - t_val:.2f}s")
+                if fit > best_fit:
+                    best_fit, best_epoch = fit, epoch
+                if cfg.patience and epoch - best_epoch >= cfg.patience:
+                    stop = f"EarlyStopping: no improvement in {cfg.patience} epochs"
+                elif cfg.time and (time.time() - t0) > cfg.time * 3600:
+                    stop = f"training time limit of {cfg.time} h reached"
+            # rank 0's fitness, best epoch and stop hold on every rank
+            fit, best_fit, best_epoch, stop = self._decide(
+                lambda: (fit, best_fit, best_epoch, stop))
+            if stop:
+                if lead:
+                    print(stop)
                 break
 
         self._program = None  # its graphs' memory pool goes with it
         self._writer.close()
-        final_metrics = self.validate()[0] if cfg.val else {}
-        print(f"training done in {time.time() - t0:.1f} s; results in {self.run.path}")
+        final_metrics = self.validate()[0] if cfg.val and lead else {}
+        if lead:
+            print(f"training done in {time.time() - t0:.1f} s; results in {self.run.path}")
         return {"save_dir": self.run.path, "best_fitness": best_fit, "metrics": final_metrics}
 
     # ------------------------------------------------------------------ val

@@ -260,8 +260,10 @@ def test_yolo_train_adopts_the_ema_weights(tmp_path):
         assert torch.equal(start[name], again[name]), name
 
 
-@pytest.mark.parametrize("option", [dict(device="0,1")])
-def test_options_not_ported_raise(tmp_path, option):
+@pytest.mark.parametrize("option", [dict(device="1x2")])
+def test_options_not_ported_raise(tmp_path, monkeypatch, option):
+    """A model axis (tensor parallelism) over two visible (CPU) devices."""
+    monkeypatch.setenv("DYD_CPU_DEVICES", "2")
     with pytest.raises(NotImplementedError, match="not ported"):
         _small(tmp_path, "x", **option)
 

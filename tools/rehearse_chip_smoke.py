@@ -86,6 +86,10 @@ REPLACEMENTS = [
     ("if seen == tuple(per_forward):", "if True:"),
     # the graphed train step (phases 22-28): on the CPU the step program runs
     # its iteration eagerly, so there is no graph to replay or profile
+    # phase 35 needs NCCL and ranks spawned on the card: a stand-in record
+    ("    dp_record = dp_phase(args.seed, data_yaml, root, card, FullConfig)",
+     '    dp_record = {"nccl_1rank": {"launches_replays": (0, 0)},'
+     ' "gloo_2ranks": {"launches_per_rank": {}}}'),
     ("GRAPH_STEPS = 8", "GRAPH_STEPS = 2"),
     ("imgsz, n_cache, k = 640,", "imgsz, n_cache, k = 128,"),
     ('"yolo11n", 32, (1, 1), card)', '"yolo11n", 2, (1, 1), card)'),
