@@ -2,8 +2,9 @@
 """Drive the PyTorch port's yolo11n and yolo12n predict, train step (eager
 and as a CUDA graph) and Trainer, yolov8n predict, the serving Engine of all
 three, int8 (w8a8) predict, serving, bundles and validation, ultralytics
-checkpoints in, and data-parallel training, on one NVIDIA card and hold its
-CUDA kernels against their plain PyTorch versions.
+checkpoints in, data-parallel training, and the data pipeline and the
+app's training call path, on one NVIDIA card and hold its CUDA kernels
+against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -208,7 +209,25 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    kernels held to their plain versions on its recorded inputs. Last, a
    1-epoch ``Trainer(device="1")`` on phase 12's data writes the same
    results.csv as ``device="0"``, and ``device="2"`` raises the JAX
-   ValueError.
+   ValueError;
+36. the app (the data pipeline and the Streamlit pages' call paths, with
+   ``tools/synth_annotations_torch.py``): the pages' probes (no missing
+   module, the device summary names the card) and the native label scanner
+   built with g++ into ``_build/`` and loaded; steps 4-7 at 300 rows
+   writing the bytes of ``tests/golden/datakit_chain_hashes.json``, and
+   their wall at 50,000 rows; the nine steps through ``core.processor`` as
+   the processing page calls them, on two raw CSVs (duplicate sources,
+   corrupt JSON, null rows), a reference CSV and polygons on 256 local PNG
+   sources of 240-1080 px, every row count as the inputs imply, step 8's
+   datasets read back by ``train/data.py`` and step 9's drawings; the IoU
+   filter on the card (1,000,000 x 16 and 20,000 x 64 packed boxes with
+   planted ties at 0.98 in f32, pairs one f32 step either side, identical,
+   zero-area and masked pairs) flag for flag against numpy, both timed;
+   last the training page's call path, ``run_yolo_training_stream`` in a
+   thread with the page's kwargs (yolo11n, 640, b16, 2 epochs, every
+   visible card) on step 8's dataset, drained to ``LOG_DONE``: both epoch
+   lines, no error, the run's files, and the attention and NMS launches
+   that its steps and validation batches predict.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
@@ -217,7 +236,8 @@ its global-memory mapping's time at K = 4096, the (32, 32) attention builds
 as rows of their own, each kernel's launches inside the serving graphs, and
 the yolo12n and yolov8n records under ``families``, and each attention
 kernel's ``train_graph_launches``, its launches inside one replay of the
-graphed step; the s8 conv's row last; phase 35's record under ``dp``) and
+graphed step; the s8 conv's row last; phase 35's record under ``dp``,
+phase 36's under ``app``) and
 the last line the device record; the ``serving``, ``train_graph`` and ``int8`` records and the
 card's name come before them.
 """
@@ -325,6 +345,17 @@ DP_F32_STATE_ULPS = 2
 DP_BF16_LOSS_RTOL = 2e-2
 DP_BF16_STATS_TOL = 5e-2
 AUTOBATCH_REPEATS = 8        # phase 26: 8 x 256 train images, two batches at the cap of 1024
+# phase 36: steps 4-7 timed on APP_CHAIN_ROWS synthetic rows; the nine steps
+# on APP_IMAGES local PNG sources; the IoU filter's packed tables (rows,
+# boxes a row; 64 is step 5's cap); the training page's run
+APP_CHAIN_ROWS = 50_000
+APP_IMAGES = 256
+APP_IOU_TABLES = ((1_000_000, 16), (20_000, 64))
+APP_EPOCHS = 2
+APP_IMGSZ = 640
+APP_BATCH = 16
+APP_DEVICE = ""              # the page's default: every visible card, here one
+APP_LINE_TIMEOUT_S = 600
 # w8a8 (phases 29-34): the H100's dense int8 tensor-core peak (NVIDIA data
 # sheet), operations/s
 INT8_OPS = 1979e12
@@ -2110,6 +2141,176 @@ def dp_phase(seed: int, data_yaml: Path, root: Path, card: str, cfg_cls):
     return record
 
 
+# ---------------------------------------------------------------- phase 36
+
+
+def page_launches(n_train: int, n_val: int, batch: int, epochs: int):
+    """The launches the training page's yolo11n run makes: one attention
+    forward and backward a train step (whole batches), one forward and one
+    NMS a validation batch, validating after each epoch and once at the
+    end."""
+    steps = epochs * max(n_train // batch, 1)
+    val_batches = (epochs + 1) * -(-n_val // batch)
+    return {"area_attention": steps + val_batches, "area_attention_bwd": steps,
+            "nms_suppress": val_batches}
+
+
+def app_phase(seed: int, root: Path, card: str):
+    """Phase 36: the data pipeline and the app's call paths (see the module
+    docstring) -> its record."""
+    import queue
+    import threading
+
+    import torch
+
+    from deal_yolo_daya_tpu_torch import runtime
+    from deal_yolo_daya_tpu_torch.core import processor
+    from deal_yolo_daya_tpu_torch.core import training as core_training
+    from deal_yolo_daya_tpu_torch.core import utils as core_utils
+    from deal_yolo_daya_tpu_torch.datakit import boxes as box_ops
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
+    from deal_yolo_daya_tpu_torch.train.data import YoloDataset
+
+    here = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "synth_annotations_torch", here / "tools" / "synth_annotations_torch.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    t_phase = time.perf_counter()
+    record = {"card": card}
+
+    # 36a. the probes the pages make, and the native scanner
+    missing, missing_train = core_utils.check_requirements(), core_training.check_train_dependencies()
+    summary = core_utils.get_cuda_summary()
+    lib = runtime.get_lib()
+    log(f"[app] check_requirements {missing}, check_train_dependencies {missing_train}; "
+        f"device summary {summary}; native scanner {lib._name if lib else None}")
+    check(missing == [] and missing_train == [], f"missing modules {missing} {missing_train}")
+    check(summary.get("available") is True and summary.get("platform") == "gpu",
+          f"the device summary names no card: {summary}")
+    check(lib is not None and Path(lib._name).parent == runtime.BUILD,
+          "the native label scanner did not build into _build/ or load")
+    record["probes"] = {"summary": summary, "library": Path(lib._name).name}
+
+    # 36b. the golden chain at 300 rows, then its wall at APP_CHAIN_ROWS
+    golden = json.loads((here / "tests" / "golden" / "datakit_chain_hashes.json").read_text())
+    chain = root / "app_chain"
+    chain.mkdir()
+    synth.run_chain(chain, 300)
+    hashes = synth.artifact_hashes(chain)
+    differ = sorted(k for k in set(golden) | set(hashes) if golden.get(k) != hashes.get(k))
+    log(f"[app] golden chain at 300 rows: {len(golden) - len(differ)} of {len(golden)} "
+        f"artifacts equal the golden hashes; differing {differ}")
+    check(not differ, f"the chain's artifacts differ from the golden hashes: {differ}")
+    big = root / "app_chain_big"
+    big.mkdir()
+    chain_s = synth.run_chain(big, APP_CHAIN_ROWS)
+    log(f"[app] steps 4-7 on {APP_CHAIN_ROWS} rows (host): {sum(chain_s.values()):.3f} s "
+        f"({', '.join(f'{k} {v:.3f}' for k, v in chain_s.items())}); {card}")
+    record["golden"] = {"artifacts": len(golden), "differ": differ}
+    record["chain"] = {"rows": APP_CHAIN_ROWS, "seconds": chain_s,
+                       "total_s": sum(chain_s.values())}
+
+    # 36c. the nine steps through core.processor, as the processing page calls them
+    t0 = time.perf_counter()
+    fx = synth.pipeline_inputs(root / "app_pipeline", n_images=APP_IMAGES, seed=seed)
+    inputs_s = time.perf_counter() - t0
+    run = synth.run_pipeline(processor, fx, root / "app_pipeline" / "run")
+    log(f"[app] nine steps on {fx['counts']['merged']} raw rows of {APP_IMAGES} local PNG "
+        f"sources (written in {inputs_s:.1f} s): {run['counts']}; seconds "
+        f"{ {k: round(v, 3) for k, v in run['seconds'].items()} }")
+    check(run["counts"] == fx["counts"], f"row counts {run['counts']}, not {fx['counts']}")
+    for name, ds_dir in run["datasets"].items():
+        for split, n in fx["counts"]["yolo_images"][name].items():
+            ds = YoloDataset.from_yaml(str(ds_dir / "data.yaml"), split)
+            check(len(ds) == n and all(len(lab) for lab in ds.labels),
+                  f"{name}/{split}: train/data.py read {len(ds)} images, not {n} with labels")
+    drawn = sorted((root / "app_pipeline" / "run" / "annotated_images").iterdir())
+    check(len(drawn) == synth.MAX_DRAWN, f"step 9 drew {len(drawn)} images")
+    data_yaml = run["datasets"]["animals"] / "data.yaml"
+    record["pipeline"] = {"counts": run["counts"], "seconds": run["seconds"],
+                          "inputs_s": inputs_s}
+
+    # 36d. the IoU filter on the card against numpy, whole calls timed by
+    # CUDA events (the host-to-device copy included)
+    record["iou"] = []
+    for n_rows, width in APP_IOU_TABLES:
+        b, m, planted = synth.planted_iou_table(n_rows, width, seed=seed)
+        t0 = time.perf_counter()
+        ref = box_ops._high_iou_hits_numpy(b, m, 2, 0.98)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        times = []
+        with patched(box_ops, "JAX_MIN_ROWS", 0):
+            for _ in range(2):  # the first call, then a warm one
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                got = box_ops.high_iou_hits(b, m)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+                bad = int((got != ref).sum())
+                check(bad == 0, f"IoU filter {n_rows} x {width}: {bad} flags differ from numpy")
+        kinds = {k: int(v.size) for k, v in planted.items()}
+        for kind, rows in planted.items():
+            check(bool((ref[rows] == synth.PLANTED_HIT[kind]).all()),
+                  f"IoU filter {n_rows} x {width}: planted {kind} rows flagged wrongly")
+        log(f"[app iou] {n_rows} x {width} ({b.nbytes / 2**20:.0f} MiB of boxes): "
+            f"{int(ref.sum())} hits, flag for flag equal to numpy; planted {kinds}; card "
+            f"{times[0]:.2f} ms first, {times[1]:.2f} ms warm; numpy {host_ms:.1f} ms; {card}")
+        record["iou"].append({"rows": n_rows, "width": width, "hits": int(ref.sum()),
+                              "planted": kinds, "card_ms": times, "numpy_ms": host_ms})
+        del b, m, ref, got
+
+    # 36e. the training page's call path: run_yolo_training_stream in a
+    # thread with the page's kwargs, its queue drained to LOG_DONE
+    project = root / "app_runs"
+    kwargs = synth.page_train_kwargs(str(project), "page", epochs=APP_EPOCHS,
+                                     imgsz=APP_IMGSZ, batch=APP_BATCH, device=APP_DEVICE)
+    counts = fx["counts"]["yolo_images"]["animals"]
+    want = page_launches(counts["train"], counts["val"], APP_BATCH, APP_EPOCHS)
+    log_queue, holder, lines = queue.Queue(), {}, []
+    aa.launches = aa.bwd_launches = ns.launches = 0
+    thread = threading.Thread(target=core_training.run_yolo_training_stream, daemon=True, args=(
+        "yolo11n", str(data_yaml), kwargs, {}, log_queue, holder))
+    t0 = time.perf_counter()
+    thread.start()
+    while True:  # nothing is printed here: the thread redirects this process's stdout
+        item = log_queue.get(timeout=APP_LINE_TIMEOUT_S)
+        if item is core_training.LOG_DONE:
+            break
+        lines.append((time.perf_counter() - t0, item))
+    thread.join(timeout=60)
+    wall = time.perf_counter() - t0
+    launches = {"area_attention": aa.launches, "area_attention_bwd": aa.bwd_launches,
+                "nms_suppress": ns.launches}
+    for t, line in lines:
+        log(f"[app log {t:7.2f} s] {line}")
+    epochs = [(t, core_training._extract_epoch_info(line), line) for t, line in lines
+              if core_training._extract_epoch_info(line)]
+    check("error" not in holder, f"the page's run failed: {holder.get('error')!r}")
+    check([e for _, e, _ in epochs] == [(i + 1, APP_EPOCHS) for i in range(APP_EPOCHS)],
+          f"epoch lines {[e for _, e, _ in epochs]}")
+    save_dir = Path(holder["save_dir"])
+    for name in ("results.csv", "args.yaml", "weights/last.pt", "weights/best.pt"):
+        check((save_dir / name).exists(), f"the page's run wrote no {name}")
+    found = core_training.collect_run_dirs(str(project))
+    check(found == [save_dir.resolve()], f"collect_run_dirs found {found}")
+    check(launches == want, f"the page's run launched {launches}, not {want}")
+    img_s = [float(line.rsplit(" ", 2)[-2]) for _, _, line in epochs]
+    ends = [t for t, _, _ in epochs]
+    log(f"[app train] yolo11n {APP_IMGSZ} b{APP_BATCH}, {APP_EPOCHS} epochs on step 8's "
+        f"{counts['train']} + {counts['val']} images in a thread: {wall:.1f} s; epoch lines "
+        f"at {[round(t, 2) for t in ends]} s, img/s {img_s}; launches {launches} as "
+        f"predicted; {card}")
+    record["train"] = {"wall_s": wall, "epoch_line_s": ends, "epoch_img_s": img_s,
+                       "launches": launches, "images": counts, "batch": APP_BATCH,
+                       "save_dir_files": sorted(p.name for p in save_dir.iterdir())}
+    record["wall_s"] = time.perf_counter() - t_phase
+    log(f"[app] phase 36 in {record['wall_s']:.1f} s")
+    return record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3796,6 +3997,10 @@ def main() -> int:
     # step with its collectives captured), two gloo ranks, the Trainer's
     # device grammar
     dp_record = dp_phase(args.seed, data_yaml, root, card, FullConfig)
+
+    # 36. the app: the probes, the golden chain, the nine steps, the IoU
+    # filter on the card and the training page's call path
+    app_record = app_phase(args.seed, root, card)
     tmp.cleanup()
     int8_record["card"] = card
     s8_row["launches_by_path"] = {
@@ -3825,6 +4030,10 @@ def main() -> int:
             dp_record["nccl_1rank"]["launches_replays"][i]
         row["launches_by_path"][f"yolo11n DP 2 gloo ranks, {DP_STEPS} steps, per rank"] = \
             {r: n[i] for r, n in dp_record["gloo_2ranks"]["launches_per_rank"].items()}
+    for row, key in ((kernels[0], "area_attention"), (kernels[1], "nms_suppress"),
+                     (kernels[2], "area_attention_bwd")):
+        row["launches_by_path"][f"yolo11n training page (thread), {APP_IMGSZ} b{APP_BATCH}, "
+                                f"{APP_EPOCHS} epochs"] = app_record["train"]["launches"][key]
     train_graph_record = {
         "graph_vs_eager": graph_record, "trainer_graphed": graphed_run,
         "trainer_k1": eager_run, "host_augment": host_aug, "remat": remat_record,
@@ -3854,7 +4063,8 @@ def main() -> int:
         "imgs_per_s_e2e": len(images) / wall, "host_letterbox_ms_per_img": host_ms,
         "device_ms_per_b32": device_ms, "profiled_device_busy_ms": busy_ms,
         "profiled_wall_ms": prof_wall_ms, "card": card}, "train": train_record,
-        "trainer": trainer_record, "families": family_record, "dp": dp_record}), flush=True)
+        "trainer": trainer_record, "families": family_record, "dp": dp_record,
+        "app": app_record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

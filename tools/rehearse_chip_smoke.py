@@ -124,6 +124,16 @@ REPLACEMENTS = [
      "def graph_time_ms(fn, calls: int = 20, replays: int = 5) -> float:\n"
      "    return cuda_time_ms(fn, 2)\n\n\ndef _graph_time_ms(fn, calls=20, replays=5):\n"),
     ('check(int8["map"] >= INT8_MAP_SHARE * bf16["map"],', "check(True,"),
+    # phase 36 (the app): the IoU filter on the CPU at 20,000 x 16, the
+    # training page's run on the CPU at 64 px for one epoch
+    ("APP_CHAIN_ROWS = 50_000", "APP_CHAIN_ROWS = 2_000"),
+    ("APP_IMAGES = 256", "APP_IMAGES = 64"),
+    ("APP_IOU_TABLES = ((1_000_000, 16), (20_000, 64))",
+     "APP_IOU_TABLES = ((20_000, 16), (2_000, 64))"),
+    ("got = box_ops.high_iou_hits(b, m)", 'got = box_ops.high_iou_hits(b, m, device="cpu")'),
+    ("APP_EPOCHS = 2", "APP_EPOCHS = 1"),
+    ("APP_IMGSZ = 640", "APP_IMGSZ = 64"),
+    ('APP_DEVICE = ""', 'APP_DEVICE = "cpu"'),
 ]
 
 
