@@ -2,9 +2,10 @@
 """Drive the PyTorch port's yolo11n and yolo12n predict, train step (eager
 and as a CUDA graph) and Trainer, yolov8n predict, the serving Engine of all
 three, int8 (w8a8) predict, serving, bundles and validation, ultralytics
-checkpoints in, data-parallel training, and the data pipeline and the
-app's training call path, on one NVIDIA card and hold its CUDA kernels
-against their plain PyTorch versions.
+checkpoints in, data-parallel training, the data pipeline and the app's
+training call path, exported programs and predict's video and URL sources,
+on one NVIDIA card and hold its CUDA kernels against their plain PyTorch
+versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -228,6 +229,27 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    visible card) on step 8's dataset, drained to ``LOG_DONE``: both epoch
    lines, no error, the run's files, and the attention and NMS launches
    that its steps and validation batches predict.
+37. export (``export_stablehlo``/``load_stablehlo``, ``torch.export``
+   programs): phase 5's yolo11n handle writes the portable artifact
+   (symbolic batch, aten ops and the ``while_loop`` suppression) and the
+   kernels artifact (b32, ``dyd::area_attention_fwd`` and
+   ``dyd::nms_suppress`` as custom ops); each runs in a fresh process (the
+   portable one importing nothing of either package) and equals the loaded
+   artifact here; the kernels artifact equals ``ServeProgram`` run eagerly
+   bit for bit and launches 1 + 1 kernels a b32 call, the portable one on
+   the card equals the eager program with the plain attention and
+   suppression bit for bit and launches none; conf x iou swept through one
+   artifact, and one CUDA graph of it replayed at two iou values held in
+   its input tensor, each equal to eager at its iou; b32 ms of both
+   artifacts, the eager program and ``YOLO.infer``; yolo12n's kernels
+   artifact at b8 (8 attention launches a call) bit for bit; the NMS
+   kernel bit for bit with the threshold as a tensor in device memory at
+   (32, 1000) and (32, 4096);
+38. predict's sources: a 48-frame 640x360 mp4v video of phase 5's images
+   streamed and saved at b16, every frame bit for bit as the same decoded
+   frames as arrays, the ``_pred.mp4`` reopening with 48 frames,
+   frames/s; an http URL from a local ``http.server`` (downloaded once,
+   the second call a cache hit); ``runs/predict`` auto-incremented.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
@@ -238,8 +260,8 @@ the yolo12n and yolov8n records under ``families``, and each attention
 kernel's ``train_graph_launches``, its launches inside one replay of the
 graphed step; the s8 conv's row last; phase 35's record under ``dp``,
 phase 36's under ``app``) and
-the last line the device record; the ``serving``, ``train_graph`` and ``int8`` records and the
-card's name come before them.
+the last line the device record; the ``serving``, ``train_graph`` and ``int8`` records, phases
+37-38's ``export`` and ``sources`` records and the card's name come before them.
 """
 
 from __future__ import annotations
@@ -375,6 +397,16 @@ S8_ROUTES = ("tma", "direct", "narrow")
 # the synth yardstick (phase 28): a floor that catches a broken step; the
 # JAX package reached 0.988 on its own data
 YARDSTICK_MAP50 = 0.90
+# phase 37: the exported programs' batches, the thresholds swept through one
+# artifact; phase 38: the video predict reads
+EXPORT_BATCH = 32
+EXPORT12_BATCH = 8
+EXPORT_CONFS = (0.001, 0.25, 0.9)
+EXPORT_IOUS = (0.45, 0.7)
+VIDEO_FRAMES = 48
+VIDEO_SIZE = (640, 360)
+VIDEO_FPS = 24.0
+VIDEO_BATCH = 16
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2311,6 +2343,447 @@ def app_phase(seed: int, root: Path, card: str):
     return record
 
 
+# ---------------------------------------------------------------- phases 37-38
+
+# a child process that loads an exported program and runs it on one batch:
+# argv = artifact, batch file, output file, device, repository root (or "")
+EXPORT_CHILD = """
+import json, sys, time
+import torch
+from torch.export.passes import move_to_device_pass
+artifact, batch_file, out_file, device, repo = sys.argv[1:6]
+counts = None
+if repo:  # a kernels artifact: register the custom ops, import no model class
+    sys.path.insert(0, repo)
+    from deal_yolo_daya_tpu_torch.ops.kernels import register_ops
+    register_ops()
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa, nms_suppress as ns
+t0 = time.perf_counter()
+fn = move_to_device_pass(torch.export.load(artifact), device).module()
+load_s = time.perf_counter() - t0
+x = torch.load(batch_file).to(device)
+if repo:
+    aa.launches = ns.launches = 0
+out = fn(x, torch.tensor(0.001, device=device), torch.tensor(0.7, device=device))
+torch.save([t.cpu() for t in out], out_file)
+if repo:
+    counts = [aa.launches, ns.launches]
+print(json.dumps({"modules": sorted(m for m in sys.modules if m.startswith("deal_yolo")),
+                  "launches": counts, "load_s": load_s}))
+"""
+
+
+def run_export_children(jobs, batch, out_dir: Path, device):
+    """Run each (artifact, repository root or "") of ``jobs`` on ``batch`` in
+    a fresh process of its own (EXPORT_CHILD), all at once -> [(its outputs
+    on the CPU, its report)]."""
+    import torch
+
+    batch_file = out_dir / "batch.pt"
+    torch.save(batch.cpu(), batch_file)
+    t0 = time.perf_counter()
+    procs = []
+    for i, (artifact, repo) in enumerate(jobs):
+        out_file = out_dir / f"child{i}_out.pt"
+        procs.append((artifact, out_file, subprocess.Popen(
+            [sys.executable, "-c", EXPORT_CHILD, str(artifact), str(batch_file), str(out_file),
+             str(device), repo], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=out_dir)))
+    results = []
+    for artifact, out_file, proc in procs:
+        stdout, stderr = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"the child running {artifact} failed:\n{stderr[-3000:]}")
+        report = json.loads(stdout.strip().splitlines()[-1])
+        report["wall_s"] = time.perf_counter() - t0
+        results.append((torch.load(out_file), report))
+    return results
+
+
+def capture_program(module, args):
+    """One CUDA graph of ``module(*args)`` (after 3 runs on a side stream),
+    its kernel launches recorded by ``GraphLaunches`` -> (replay, outputs):
+    ``replay()`` replays it and adds its launches to the counters; the
+    static ``outputs`` hold each replay's result."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels._build import GraphLaunches
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            module(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph, recorded = torch.cuda.CUDAGraph(), GraphLaunches()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"), recorded.capture():
+        outputs = module(*args)
+
+    def replay():
+        graph.replay()
+        recorded.replayed()
+
+    return replay, outputs
+
+
+def export_phase(yolo, yolo12, batch, nms_inputs, nms_times, root: Path, card: str):
+    """Phase 37: ``export_stablehlo``/``load_stablehlo`` on the card, yolo11n
+    (phase 5's handle, class biases 0) at 640 in bf16 on phase 5's first 32
+    canvases: (a) the portable artifact (symbolic batch, traced on the CPU)
+    and the kernels artifact (``batch_size`` 32, ``use_pallas=True``)
+    written, each run in a fresh process (the portable one with nothing of
+    either package imported, the kernels one with ``ops.kernels`` and no
+    model class) and equal there to the loaded artifact here; (b) the
+    kernels artifact bit for bit as ``ServeProgram`` run eagerly (the same
+    kernels), the portable one on the card bit for bit as the eager program
+    with the plain attention and suppression, and the two against each other
+    (largest difference, images whose NMS order flips); (c) conf x iou
+    swept through the loaded kernels artifact, each as the eager program at
+    it, the detections falling as conf rises; one CUDA graph of its module
+    replayed with iou refilled in the input tensor, each replay as eager at
+    its iou; (d) the launches of a b32 call (kernels: 1 + 1; portable: 0 +
+    0); (e) CUDA-event ms of a b32 call of both loaded artifacts, the eager
+    program and ``YOLO.infer``; (f) yolo12n's kernels artifact at b8 (8
+    attention launches a call) bit for bit as its eager program; (g) the NMS
+    kernel with the threshold as a 0-dim tensor in device memory, bit for bit
+    against plain at phase 5's (32, 1000) inputs and phase 4's K = 4096,
+    iou 0.45 and 0.7, beside phase 6's times, which now read the threshold
+    there as well."""
+    import numpy as np
+    import torch
+
+    from deal_yolo_daya_tpu_torch.api import ServeProgram, YOLO
+    from deal_yolo_daya_tpu_torch.models import blocks
+    from deal_yolo_daya_tpu_torch.models.yolo11 import fuse_conv_bn
+    from deal_yolo_daya_tpu_torch.ops import nms as nms_ops
+    from deal_yolo_daya_tpu_torch.ops.decode import decode_predictions
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
+
+    t_phase = time.perf_counter()
+    dev = batch.device
+    out_dir = root / "export"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    record = {"card": card}
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def eager_program(handle, max_det=300):
+        net = fuse_conv_bn(handle._ensure_built()).to(dtype=handle.dtype).eval()
+        return ServeProgram(net.requires_grad_(False), handle.imgsz, handle.dtype, max_det)
+
+    def plain_kernels():
+        stack = contextlib.ExitStack()
+        stack.enter_context(patched(blocks, "area_attention", aa.area_attention_plain))
+        stack.enter_context(patched(nms_ops, "nms_suppress", ns.nms_suppress_plain))
+        return stack
+
+    def counted(fn):
+        aa.launches = ns.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (aa.launches, ns.launches)
+
+    # (a) both artifacts written and loaded, each run in a fresh process
+    t0 = time.perf_counter()
+    portable_dir = yolo.export_stablehlo(out_dir / "portable")
+    portable_export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels_dir = yolo.export_stablehlo(out_dir / "kernels", batch_size=EXPORT_BATCH,
+                                        use_pallas=True)
+    kernels_export_s = time.perf_counter() - t0
+    fp, meta_p = YOLO.load_stablehlo(portable_dir, device=dev)
+    fk, meta_k = YOLO.load_stablehlo(kernels_dir, device=dev)
+    check(meta_p["platforms"] == ["cpu", "cuda"] and meta_p["batch_size"] is None
+          and meta_k["platforms"] == ["cuda"] and meta_k["batch_size"] == EXPORT_BATCH,
+          f"export meta: {meta_p}, {meta_k}")
+    graph_ops = {name: sorted({str(n.target) for n in torch.export.load(
+        str(d / "model.pt2")).graph.nodes if n.op == "call_function" and "aten" not in
+        str(n.target)}) for name, d in (("portable", portable_dir), ("kernels", kernels_dir))}
+    check("dyd.area_attention_fwd.default" in graph_ops["kernels"]
+          and "dyd.nms_suppress.default" in graph_ops["kernels"]
+          and not any("dyd" in op for op in graph_ops["portable"]),
+          f"the artifacts' non-aten ops: {graph_ops}")
+    conf, iou = torch.tensor(0.001, **f32), torch.tensor(0.7, **f32)
+    x = batch[:EXPORT_BATCH]
+    out_k, launches_k = counted(lambda: fk(x, conf, iou))
+    out_p, launches_p = counted(lambda: fp(x, conf, iou))
+    children = {}
+    repo = str(Path(__file__).resolve().parent)
+    ran = run_export_children([(portable_dir / "model.pt2", ""), (kernels_dir / "model.pt2", repo)],
+                              x, out_dir, dev)
+    for name, out, (got, report) in zip(("portable", "kernels"), (out_p, out_k), ran):
+        same = all(same_bits(g, w.cpu()) for g, w in zip(got, out))
+        children[name] = {**report, "equal_to_parent": same}
+        log(f"[export] {name} artifact in a fresh process: load {report['load_s']:.2f} s, "
+            f"{report['wall_s']:.1f} s in all, launches {report['launches']}, modules of the "
+            f"repository imported {report['modules']}; outputs bit for bit as here {same}")
+        check(same, f"the {name} artifact's child differs from this process")
+    check(children["portable"]["modules"] == [], "the portable child imported the repository")
+    check(not any(m.startswith(("deal_yolo_daya_tpu_torch.models", "deal_yolo_daya_tpu_torch.api"))
+                  or m == "deal_yolo_daya_tpu" or m.startswith("deal_yolo_daya_tpu.")
+                  for m in children["kernels"]["modules"]),
+          f"the kernels child imported {children['kernels']['modules']}")
+    check(children["kernels"]["launches"] == [1, 1], "the kernels child's launches")
+
+    # (b) each artifact against the eager program it was exported from
+    program = eager_program(yolo)
+    with torch.no_grad():
+        eager_k, launches_e = counted(lambda: program(x, conf, iou))
+        with plain_kernels():
+            eager_p = program(x, conf, iou)
+            xb = (x.permute(0, 3, 1, 2).to(torch.bfloat16) / 255).to(program.compute_dtype)
+            pb, ps = decode_predictions(*program.net(xb), (yolo.imgsz, yolo.imgsz))
+        kb, ks = decode_predictions(*program.net(xb), (yolo.imgsz, yolo.imgsz))
+    torch.cuda.synchronize()
+    check(all(same_bits(a, b) for a, b in zip(out_k, eager_k)),
+          "the kernels artifact differs from the eager program")
+    check(all(same_bits(a, b) for a, b in zip(out_p, eager_p)),
+          "the portable artifact on the card differs from the eager program with the plain "
+          "attention and suppression")
+    # the two attentions' outputs differ by bf16 steps (ATTN_TOL), so the
+    # decoded boxes and scores differ a little, and greedy NMS keeps other
+    # boxes wherever two overlapping candidates swap order
+    flips = nms_order_flips(kb.float(), ks.float(), ps.float(), 0.001, 0.7)
+    slots = (out_k[0] == out_p[0]).all(-1) & (out_k[1] == out_p[1]) & (out_k[2] == out_p[2])
+    record["kernels_vs_portable"] = {
+        "images": int(x.shape[0]), "images_equal_n_det": int((out_k[3] == out_p[3]).sum()),
+        "max_n_det_diff": int((out_k[3] - out_p[3]).abs().max()),
+        "identical_output_slots_share": float(slots.float().mean()),
+        "pre_nms_max_box_diff_px": (kb.float() - pb.float()).abs().max().item(),
+        "pre_nms_max_score_diff": (ks.float() - ps.float()).abs().max().item(),
+        "images_with_nms_order_flips": int(sum(flips))}
+    vs = record["kernels_vs_portable"]
+    log(f"[export] kernels artifact == eager program (kernels) bit for bit; portable artifact "
+        f"on the card == eager program (plain attention and suppression) bit for bit; kernels "
+        f"vs portable: before NMS boxes {vs['pre_nms_max_box_diff_px']:.3e} px and scores "
+        f"{vs['pre_nms_max_score_diff']:.3e} apart, NMS order flips in "
+        f"{vs['images_with_nms_order_flips']} of {vs['images']} images; after it n_det equal "
+        f"in {vs['images_equal_n_det']} (at most {vs['max_n_det_diff']} apart), "
+        f"{100 * vs['identical_output_slots_share']:.1f}% of the output slots identical")
+
+    # (c) conf x iou through one loaded artifact; a CUDA graph of it
+    # replayed at two thresholds held in the input tensor
+    sweep = {}
+    for iou_v in EXPORT_IOUS:
+        counts = []
+        for conf_v in EXPORT_CONFS:
+            ct, it = torch.tensor(conf_v, **f32), torch.tensor(iou_v, **f32)
+            got = fk(x, ct, it)
+            with torch.no_grad():
+                want = program(x, ct, it)
+            check(all(same_bits(a, b) for a, b in zip(got, want)),
+                  f"the kernels artifact at conf {conf_v} iou {iou_v} differs from eager")
+            counts.append(int(got[3].sum()))
+        check(all(a >= b for a, b in zip(counts, counts[1:])),
+              f"detections do not fall as conf rises at iou {iou_v}: {counts}")
+        sweep[str(iou_v)] = dict(zip(map(str, EXPORT_CONFS), counts))
+    conf_s, iou_s = torch.tensor(0.001, **f32), torch.tensor(0.7, **f32)
+    replay, static = capture_program(fk.module, (x, conf_s, iou_s))
+    replays = {}
+    for iou_v in EXPORT_IOUS:
+        iou_s.fill_(iou_v)
+        _, moved = counted(replay)
+        with torch.no_grad():
+            want = program(x, conf_s, torch.tensor(iou_v, **f32))
+        same = all(same_bits(a, b) for a, b in zip(static, want))
+        replays[str(iou_v)] = {"n_det": int(static[3].sum()), "equal_to_eager": same,
+                               "launches": list(moved)}
+        check(same, f"the graph replayed at iou {iou_v} differs from eager at it")
+        check(moved == (1, 1), f"a replay launched {moved}")
+    n_at = [replays[str(v)]["n_det"] for v in EXPORT_IOUS]
+    check(n_at[0] != n_at[1], f"the replays at iou {EXPORT_IOUS} kept as many boxes: the "
+          "threshold did not reach the kernel")
+    record.update(sweep_n_det=sweep, graph_replays=replays)
+    log(f"[export] conf x iou through one artifact, n_det summed over {x.shape[0]} images: "
+        f"{sweep}; one CUDA graph replayed at iou {EXPORT_IOUS}: {replays}")
+
+    # (d) launches of a b32 call
+    check(launches_k == (1, 1) and launches_p == (0, 0) and launches_e == (1, 1),
+          f"launches a b32 call: kernels {launches_k}, portable {launches_p}, eager "
+          f"{launches_e}")
+    record["launches_b32"] = {"kernels": list(launches_k), "portable": list(launches_p),
+                              "eager": list(launches_e)}
+
+    # (e) ms of a b32 call, CUDA events around the call, host included
+    with torch.no_grad():
+        times = {"kernels artifact": cuda_time_ms(lambda: fk(x, conf, iou), 20),
+                 "portable artifact": cuda_time_ms(lambda: fp(x, conf, iou), 5),
+                 "eager program": cuda_time_ms(lambda: program(x, conf, iou), 20),
+                 "YOLO.infer": cuda_time_ms(lambda: yolo.infer(x, conf=0.001), 20),
+                 "kernels artifact graph replay": cuda_time_ms(replay, 20)}
+        # the device's busy ms in one call under the profiler (every kernel's
+        # self time, summed)
+        busy = {name: sum(ms for _, _, ms in profile_rows(fn)[0]) for name, fn in (
+            ("kernels artifact", lambda: fk(x, conf, iou)),
+            ("portable artifact", lambda: fp(x, conf, iou)),
+            ("YOLO.infer", lambda: yolo.infer(x, conf=0.001)))}
+    record.update(ms_b32=times, device_busy_ms_b32=busy,
+                  export_s={"portable": portable_export_s, "kernels": kernels_export_s},
+                  children=children, non_aten_ops=graph_ops)
+    log(f"[export] {card}: a b{x.shape[0]} call at {yolo.imgsz} {yolo.dtype}, ms (CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + "; device busy ms in one profiled call: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in busy.items())
+        + f"; export {portable_export_s:.1f} s portable, {kernels_export_s:.1f} s kernels")
+
+    # (f) yolo12n's kernels artifact at b8
+    x8 = batch[:EXPORT12_BATCH]
+    d12 = yolo12.export_stablehlo(out_dir / "kernels12", batch_size=EXPORT12_BATCH,
+                                  use_pallas=True)
+    f12, _ = YOLO.load_stablehlo(d12, device=dev)
+    got12, launches12 = counted(lambda: f12(x8, conf, iou))
+    with torch.no_grad():
+        want12 = eager_program(yolo12)(x8, conf, iou)
+    same12 = all(same_bits(a, b) for a, b in zip(got12, want12))
+    log(f"[export] yolo12n kernels artifact b{EXPORT12_BATCH}: launches {launches12}, n_det "
+        f"{got12[3].tolist()}, bit for bit as its eager program {same12}")
+    check(launches12 == (8, 1) and same12, "the yolo12n kernels artifact")
+    record["yolo12n_b8"] = {"launches": list(launches12), "equal_to_eager": same12,
+                            "n_det_sum": int(got12[3].sum())}
+
+    # (g) the NMS kernel with the threshold in device memory
+    parity = {}
+    for label, (boxes, valid) in nms_inputs.items():
+        for thr in (0.45, 0.7):
+            t = torch.tensor(thr, **f32)
+            keep = ns.nms_suppress(boxes, valid, t)
+            ref = ns.nms_suppress_plain(boxes, valid, t)
+            torch.cuda.synchronize()
+            bad = int((keep != ref).sum())
+            parity[f"{label} iou {thr}"] = bad
+            check(bad == 0, f"nms {label} with a device threshold differs in {bad} places")
+    record["nms_device_threshold"] = {"mismatched_bits": parity, "times": nms_times}
+    log(f"[export] nms_suppress with the threshold a 0-dim tensor on the card, bits off plain: "
+        f"{parity}; times (phase 6, the same threshold tensors): "
+        + ", ".join(f"{k} device {v['device_ms']:.4f} ms, a call {v['ms']:.4f} ms"
+                    for k, v in nms_times.items()))
+    record["wall_s"] = time.perf_counter() - t_phase
+    log(f"[export] phase 37 in {record['wall_s']:.1f} s")
+    return record
+
+
+def write_video(path: Path, images, frames: int, size, fps: float):
+    """``frames`` frames of ``size`` (w, h) from ``images`` in turn, mp4v."""
+    import cv2
+
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps, size)
+    check(writer.isOpened(), f"cv2 cannot write {path}")
+    for i in range(frames):
+        writer.write(cv2.cvtColor(cv2.resize(images[i % len(images)], size), cv2.COLOR_RGB2BGR))
+    writer.release()
+
+
+def sources_phase(yolo, images, root: Path, card: str):
+    """Phase 38: predict's other sources on the card, yolo11n at 640 bf16
+    (phase 5's handle). A VIDEO_FRAMES-frame VIDEO_SIZE mp4v video of phase
+    5's images, ``predict(video, stream=True, save=True, batch_size=16)``:
+    every frame's detections bit for bit as ``predict`` on the same decoded
+    frames as arrays, the saved ``_pred.mp4`` reopening with every frame,
+    frames/s with and without ``save``; an http URL served by a local
+    ``http.server`` in a thread (no network), downloaded once and the second
+    call a cache hit, bit for bit as the file itself; ``runs/predict``
+    auto-incremented in a scratch working directory."""
+    import functools
+    import http.server
+    import threading
+    import types
+
+    import cv2
+    import numpy as np
+
+    from deal_yolo_daya_tpu_torch.ops.png import write_png
+
+    t_phase = time.perf_counter()
+    work = root / "sources"
+    work.mkdir(parents=True, exist_ok=True)
+    record = {"card": card}
+    video = work / "clip.mp4"
+    write_video(video, images, VIDEO_FRAMES, VIDEO_SIZE, VIDEO_FPS)
+
+    # the video, streamed and saved, against its frames as arrays
+    t0 = time.perf_counter()
+    gen = yolo.predict(video, conf=0.001, batch_size=VIDEO_BATCH, stream=True, save=True,
+                       save_dir=work / "pred")
+    check(isinstance(gen, types.GeneratorType), "predict(stream=True) is not a generator")
+    streamed = list(gen)
+    saved_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = yolo.predict(video, conf=0.001, batch_size=VIDEO_BATCH)
+    unsaved_s = time.perf_counter() - t0
+    cap = cv2.VideoCapture(str(video))
+    frames = []
+    while True:
+        ok, bgr = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+    cap.release()
+    check(len(streamed) == len(frames) == VIDEO_FRAMES,
+          f"{len(streamed)} detections, {len(frames)} decoded frames of {VIDEO_FRAMES}")
+    check([d.path for d in streamed] == [f"{video}#frame{i}" for i in range(VIDEO_FRAMES)],
+          "the frames' labels")
+    same_detections(streamed, yolo.predict(frames, conf=0.001, batch_size=VIDEO_BATCH),
+                    "video frames vs the same frames as arrays")
+    same_detections(plain, streamed, "predict(video) vs predict(video, stream, save)")
+    out = work / "pred" / "clip_pred.mp4"
+    cap = cv2.VideoCapture(str(out))
+    n_out = int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) if cap.isOpened() else -1
+    fps_out = cap.get(cv2.CAP_PROP_FPS) if cap.isOpened() else -1.0
+    cap.release()
+    check(all(d.save_path == out for d in streamed) and n_out == VIDEO_FRAMES,
+          f"the saved video {out}: {n_out} frames")
+    record["video"] = {
+        "frames": VIDEO_FRAMES, "size": list(VIDEO_SIZE), "batch_size": VIDEO_BATCH,
+        "frames_per_s_saved": VIDEO_FRAMES / saved_s, "frames_per_s": VIDEO_FRAMES / unsaved_s,
+        "saved_frames": n_out, "saved_fps": fps_out,
+        "n_det_mean": float(np.mean([len(d) for d in streamed]))}
+    log(f"[sources] {card}: video {VIDEO_FRAMES} frames {VIDEO_SIZE[0]}x{VIDEO_SIZE[1]} at "
+        f"b{VIDEO_BATCH}: {VIDEO_FRAMES / unsaved_s:.1f} frames/s, "
+        f"{VIDEO_FRAMES / saved_s:.1f} frames/s streamed with save (annotate and encode); "
+        f"every frame bit for bit as the decoded frames as arrays; {out.name} reopens with "
+        f"{n_out} frames at {fps_out:.1f} fps")
+
+    # an http URL from a local server in a thread
+    served = work / "served"
+    served.mkdir(exist_ok=True)
+    name = f"remote_{int(time.time() * 1e6)}.png"  # a name no earlier call cached
+    write_png(served / name, images[0])
+    hits = []
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *a):
+            hits.append(self.path)
+
+    server = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(Handler, directory=str(served)))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/{name}"
+        first = yolo.predict(url, conf=0.001)
+        second = yolo.predict([url, images[1]], conf=0.001)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    same_detections(first, yolo.predict(served / name, conf=0.001), "the URL vs the file")
+    same_detections(second[:1], first, "the URL's cache hit")
+    check(len(hits) == 1 and len(second) == 2 and not thread.is_alive(),
+          f"the URL was fetched {len(hits)} times")
+    record["url"] = {"requests": len(hits), "cached_path": str(first[0].path)}
+
+    # runs/predict, runs/predict2, ... in a scratch working directory
+    with contextlib.chdir(work):
+        dirs = [yolo.predict([images[2]], conf=0.001, save=True)[0].save_path.parent.name
+                for _ in range(3)]
+    check(dirs == ["predict", "predict2", "predict3"], f"save_dir auto-increment: {dirs}")
+    record["save_dirs"] = dirs
+    record["wall_s"] = time.perf_counter() - t_phase
+    log(f"[sources] URL fetched {len(hits)} time for two calls, detections as the file's; "
+        f"save dirs {dirs}; phase 38 in {record['wall_s']:.1f} s")
+    return record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2593,8 +3066,11 @@ def main() -> int:
         f"{t_bytes:.4f}, ops {t_ops:.4f})")
 
     boxes, valid, thr = recorded["nms"][0]
+    # the threshold in device memory, made once: each timed call is the
+    # kernel alone (a float threshold is one fill kernel more a call)
+    thr_dev = ns.threshold_tensor(thr, dev)
     ms, dev_ms, kernel_text, by_kernel = call_and_device_ms(
-        lambda: ns.nms_suppress(boxes, valid, thr), "nms_suppress")
+        lambda: ns.nms_suppress(boxes, valid, thr_dev), "nms_suppress")
     # the walking CTAs' SM clocks split the device time: the mask phase (until
     # the bitmask's last row tile is in) and the walk's tail after it; the
     # walk overlaps the mask phase, waiting for each row tile
@@ -2631,8 +3107,9 @@ def main() -> int:
 
     # the global-memory mapping at B=32, K=4096 (a dense scene of phase 4)
     big_boxes, big_valid = large_k[NMS_LARGE_K[-1]]
+    big_thr = ns.threshold_tensor(0.7, dev)
     big_ms, big_dev_ms, big_text, big_by_kernel = call_and_device_ms(
-        lambda: ns.nms_suppress(big_boxes, big_valid, 0.7), "nms_suppress large K")
+        lambda: ns.nms_suppress(big_boxes, big_valid, big_thr), "nms_suppress large K")
     big_plain_ms = cuda_time_ms(lambda: ns.nms_suppress_plain(big_boxes, big_valid, 0.7), 3)
     nv = big_valid.sum(1).double()
     big_pairs = float((nv * (nv - 1) / 2).sum())
@@ -2647,6 +3124,13 @@ def main() -> int:
     log(f"[time] nms_suppress {tuple(big_boxes.shape)} (global-memory mapping): kernel "
         f"{big_text}; plain {big_plain_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
         f"({big_pairs:.0f} valid pairs)")
+    # phase 37 holds the kernel to plain with device thresholds on these inputs
+    nms_inputs = {f"{tuple(boxes.shape)} cluster mapping": (boxes, valid),
+                  f"{tuple(big_boxes.shape)} global-memory mapping": (big_boxes, big_valid)}
+    nms_times = {f"{tuple(boxes.shape)} cluster mapping": {"ms": kernels[1]["ms"],
+                                                             "device_ms": kernels[1]["device_ms"]},
+                 f"{tuple(big_boxes.shape)} global-memory mapping": {"ms": big_ms,
+                                                                       "device_ms": big_dev_ms}}
 
     # the host letterbox alone, warm, median of 3 passes; each canvas is
     # dropped at once, as predict drops it after copying it into the batch
@@ -4001,6 +4485,20 @@ def main() -> int:
     # 36. the app: the probes, the golden chain, the nine steps, the IoU
     # filter on the card and the training page's call path
     app_record = app_phase(args.seed, root, card)
+
+    # 37. export_stablehlo/load_stablehlo: the portable and the kernels
+    # artifacts of yolo11n, yolo12n's kernels artifact, NMS with the
+    # threshold in device memory
+    export_record = export_phase(yolo, yolo12, batch, nms_inputs, nms_times, root, card)
+    kernels[0].setdefault("launches_by_path", {})["yolo11n kernels artifact, a b32 call"] = \
+        export_record["launches_b32"]["kernels"][0]
+    kernels[1].setdefault("launches_by_path", {})["yolo11n kernels artifact, a b32 call"] = \
+        export_record["launches_b32"]["kernels"][1]
+    kernels[4]["launches_by_path"][f"yolo12n kernels artifact, a b{EXPORT12_BATCH} call"] = \
+        export_record["yolo12n_b8"]["launches"][0]
+
+    # 38. predict's video, URL and save sources
+    sources_record = sources_phase(yolo, images, root, card)
     tmp.cleanup()
     int8_record["card"] = card
     s8_row["launches_by_path"] = {
@@ -4058,6 +4556,7 @@ def main() -> int:
     print(json.dumps({"serving": serve_record}), flush=True)
     print(json.dumps({"train_graph": train_graph_record}), flush=True)
     print(json.dumps({"int8": int8_record}), flush=True)
+    print(json.dumps({"export": export_record, "sources": sources_record}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "predict": {
         "imgs_per_s_e2e": len(images) / wall, "host_letterbox_ms_per_img": host_ms,

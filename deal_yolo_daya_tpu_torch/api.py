@@ -14,8 +14,11 @@ ultralytics, ``models/torch_import.py``); ``load`` puts a Trainer checkpoint
 into a handle; ``quantize_int8`` switches predict, the Engine and
 ``val(int8=True)`` to the w8a8 model (``models/quant.py``, the s8 conv
 kernel); ``export``/``from_export`` write and load a serving bundle, int8
-included (``serve.Engine`` serves a handle). The model runs on the card
-unless the caller passes ``device="cpu"``.
+included (``serve.Engine`` serves a handle); ``export_stablehlo``/
+``load_stablehlo`` write and load the whole inference program as one
+``torch.export`` artifact. ``predict`` also takes video files and http(s)
+URLs, streams (``stream=True``) and saves annotated outputs (``save=True``).
+The model runs on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ from .ops.letterbox import letterbox_numpy, load_image
 from .ops.nms import batched_nms
 
 IMAGE_SUFFIXES = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
+# video containers predict() plays through cv2
+VIDEO_SUFFIXES = frozenset({".mp4", ".avi", ".mov", ".mkv", ".m4v", ".webm", ".wmv", ".mpg",
+                            ".mpeg"})
+URL_PREFIXES = ("http://", "https://")
 
 
 def list_sources(source) -> list:
@@ -64,6 +71,43 @@ def infer_fused(net, batch: torch.Tensor, dtype: torch.dtype, conf: float, iou: 
                        pre_topk=1000, max_det=max_det, class_agnostic=agnostic)
 
 
+class ServeProgram(torch.nn.Module):
+    """The inference program ``export_stablehlo`` writes, the JAX ``serve``:
+    (B, S, S, 3) uint8 letterboxed images, conf and iou (0-dim f32 tensors)
+    -> (boxes (B, max_det, 4) f32, scores (B, max_det) f32, classes
+    (B, max_det) i32, num_det (B,) i32). The images become bf16 / 255 as in
+    JAX (not the stem fold of ``_fused_model``), then ``net`` (a
+    ``fuse_conv_bn`` model) runs in ``dtype``, then decode and
+    ``batched_nms(pre_topk=1000)`` with the runtime thresholds."""
+
+    def __init__(self, net: torch.nn.Module, imgsz: int, dtype: torch.dtype, max_det: int):
+        super().__init__()
+        self.net, self.imgsz, self.compute_dtype, self.max_det = net, imgsz, dtype, max_det
+
+    def forward(self, images: torch.Tensor, conf: torch.Tensor, iou: torch.Tensor):
+        x = images.permute(0, 3, 1, 2).to(torch.bfloat16) / 255  # NCHW, channels_last strides
+        box, cls = self.net(x.to(self.compute_dtype))
+        boxes, scores = decode_predictions(box, cls, (self.imgsz, self.imgsz))
+        return batched_nms(boxes, scores, conf_thres=conf, iou_thres=iou, pre_topk=1000,
+                           max_det=self.max_det)
+
+
+class LoadedProgram:
+    """What ``load_stablehlo`` returns beside the meta: the exported program
+    on one device (``module``, a ``torch.fx.GraphModule`` taking tensors
+    there, which a CUDA graph can capture), called as (images, conf, iou)
+    with arrays, tensors or floats, which it puts on that device first."""
+
+    def __init__(self, module: torch.nn.Module, device: torch.device):
+        self.module, self.device = module, device
+
+    def __call__(self, images, conf, iou):
+        images = torch.as_tensor(images, device=self.device)
+        conf, iou = (torch.as_tensor(t, dtype=torch.float32, device=self.device)
+                     for t in (conf, iou))
+        return self.module(images, conf, iou)
+
+
 def label_font(size: int = 48):
     """The label font of the JAX package's ``datakit.visualize._get_font``:
     simhei.ttf, then Arial Unicode.ttf (both draw Chinese class names), else
@@ -88,6 +132,7 @@ class Detections:
         self.scores = scores          # (n,)
         self.classes = classes        # (n,) int
         self.names = names
+        self.save_path = None         # set by predict(save=True)
 
     def __len__(self):
         return len(self.boxes)
@@ -372,6 +417,88 @@ class YOLO:
                                        weights_only=True)
         return handle
 
+    def export_stablehlo(self, out_dir, batch_size: Optional[int] = None, max_det: int = 300,
+                         use_pallas: bool = False) -> Path:
+        """Write the whole inference program (``ServeProgram``: a uint8 NHWC
+        letterboxed batch -> NMS'd detections padded to ``max_det``) as one
+        artifact: a ``torch.export`` program saved by ``torch.export.save``
+        to ``model.pt2`` (not StableHLO: the name is the JAX package's), the
+        BN-folded weights inside, beside ``meta.json`` with the JAX keys.
+        conf and iou stay runtime inputs, so a server sweeps thresholds
+        without a new export. ``batch_size=None`` exports a symbolic batch
+        dimension: one artifact serves every batch size.
+
+        The default (``use_pallas=False``) is portable: traced on the CPU, it
+        holds only aten ops (the plain attention and the ``while_loop``
+        suppression), runs on the CPU or the card, and a process with torch
+        alone loads it (``torch.export.load``). ``use_pallas=True`` traces on
+        the card and holds the hand-written kernels as the custom ops
+        ``dyd::area_attention_fwd`` and ``dyd::nms_suppress``: it runs only
+        on a card, in a process that has registered them
+        (``ops.kernels.register_ops``, which ``load_stablehlo`` calls), and
+        needs a concrete ``batch_size``. The program computes in the
+        handle's dtype."""
+        from torch.export import Dim, export
+
+        if use_pallas and not torch.cuda.is_available():
+            raise ValueError(
+                "use_pallas=True requires exporting from a process with a CUDA card (none "
+                "is available); the portable default (use_pallas=False) works everywhere")
+        if use_pallas and batch_size is None:
+            raise ValueError(
+                "use_pallas=True requires a concrete batch_size (the NMS kernel's launch "
+                "geometry is chosen for a concrete batch)")
+        device = torch.device("cpu")
+        if use_pallas:
+            device = self.device if self.device.type == "cuda" \
+                else torch.device("cuda", torch.cuda.current_device())
+        # contiguous weights (the images' permute gives the convs channels_last
+        # activations): torch.export.save stores each weight whole
+        net = fuse_conv_bn(self._ensure_built()).to(device=device, dtype=self.dtype)
+        program = ServeProgram(net.eval().requires_grad_(False), self.imgsz, self.dtype, max_det)
+        rows = 2 if batch_size is None else batch_size  # a symbolic batch traces from 2
+        args = (torch.zeros((rows, self.imgsz, self.imgsz, 3), dtype=torch.uint8, device=device),
+                torch.zeros((), dtype=torch.float32, device=device),
+                torch.zeros((), dtype=torch.float32, device=device))
+        dynamic = None if batch_size is not None else ({0: Dim("b", min=1)}, None, None)
+        with torch.no_grad():
+            exported = export(program, args, dynamic_shapes=dynamic)
+        platforms = ["cuda"] if use_pallas else ["cpu", "cuda"]
+        out_dir = Path(out_dir).resolve()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        torch.export.save(exported, str(out_dir / "model.pt2"))
+        (out_dir / "meta.json").write_text(json.dumps({
+            "family": self.family, "scale": self.scale, "nc": self.nc,
+            "names": list(self.names), "imgsz": self.imgsz, "batch_size": batch_size,
+            "max_det": max_det, "outputs": ["boxes", "scores", "classes", "num_det"],
+            "inputs": ["images_u8_nhwc", "conf", "iou"], "platforms": platforms,
+        }, ensure_ascii=False))
+        return out_dir
+
+    @staticmethod
+    def load_stablehlo(bundle_dir, device=None):
+        """Load an ``export_stablehlo`` artifact -> (``LoadedProgram``, meta).
+        The callable maps (images_u8, conf, iou) -> (boxes, scores, classes,
+        num_det) on ``device``: the card unless ``device="cpu"``. A kernels
+        artifact (platforms ["cuda"]) registers the port's custom ops first
+        (``ops.kernels``, no model class) and runs only on a card; the
+        portable one runs anywhere (``torch.export.load`` and
+        ``torch.export.passes.move_to_device_pass`` alone load it too)."""
+        from torch.export.passes import move_to_device_pass
+
+        bundle_dir = Path(bundle_dir).resolve()
+        meta = json.loads((bundle_dir / "meta.json").read_text())
+        device = resolve_device(device)
+        if device.type not in meta["platforms"]:
+            raise ValueError(f"{bundle_dir}: the artifact runs on {meta['platforms']}, "
+                             f"not on {device.type}")
+        if "cpu" not in meta["platforms"]:  # the kernels are custom ops in the program
+            from .ops.kernels import register_ops
+
+            register_ops()
+        exported = move_to_device_pass(torch.export.load(str(bundle_dir / "model.pt2")), device)
+        return LoadedProgram(exported.module(), device), meta
+
     def val(self, data: str, int8: bool = False, **kwargs) -> Dict[str, float]:
         """Validate the handle's weights on a YOLO-layout ``data.yaml`` with
         the port's Trainer (``TrainConfig`` fields by name): its live model
@@ -402,6 +529,23 @@ class YOLO:
         (boxes, scores, classes, n_det) padded to max_det, on the device."""
         return infer_fused(self._fused_model(), batch, self.dtype, conf, iou, max_det, agnostic)
 
+    @staticmethod
+    def _fetch_url_source(url: str) -> Path:
+        """Download an http(s) predict source into the URL cache
+        (``<tmp>/dyd_predict_cache``, datakit's retrying downloader); a
+        repeat call on the same URL reuses the cached file. Raises
+        FileNotFoundError when it is unreachable."""
+        import tempfile
+
+        from .datakit.download import ensure_image_cached
+
+        cache = Path(tempfile.gettempdir()) / "dyd_predict_cache"
+        cache.mkdir(parents=True, exist_ok=True)
+        local = ensure_image_cached(url, cache)
+        if local is None:
+            raise FileNotFoundError(f"无法下载输入源：{url}")
+        return local
+
     def predict(
         self,
         source: Union[str, Path, np.ndarray, Sequence],
@@ -411,21 +555,49 @@ class YOLO:
         batch_size: int = 64,  # short batches are padded to this size
         classes: Optional[Sequence[int]] = None,  # keep only these class ids
         agnostic_nms: bool = False,
-    ) -> List[Detections]:
+        stream: bool = False,  # yield Detections lazily
+        save: bool = False,    # write annotated outputs
+        save_dir: Union[str, Path, None] = None,  # default runs/predict
+    ):
         """Detect over an image path, a directory of images, an (H, W, 3)
-        RGB uint8 array, or a list of those."""
+        RGB uint8 array, a ``(label, array)`` pair, an http(s) URL
+        (downloaded to a cache first, so a URL ending .mp4 plays as video),
+        a video file (decoded frame by frame with cv2, batched through the
+        same device path), or a list of those (videos only alone; a
+        directory gives its images). ``stream=True`` returns a generator
+        instead of a list: sources and frames load a batch at a time.
+        ``save=True`` writes annotated images, or for a video one annotated
+        ``<stem>_pred.mp4`` at the source fps, under ``save_dir`` (default
+        ``runs/predict``, then ``predict2``, ... when it exists), and sets
+        each ``Detections.save_path``; a streamed video's file is complete
+        when the generator is exhausted or closed."""
         imgsz = self.imgsz
-        sources = list_sources(source)
+        is_video = False
+        if isinstance(source, (str, Path)) and str(source).startswith(URL_PREFIXES):
+            source = self._fetch_url_source(str(source))
+        if isinstance(source, (str, Path)) and Path(source).suffix.lower() in VIDEO_SUFFIXES:
+            if not Path(source).is_file():
+                raise FileNotFoundError(f"视频文件不存在：{source}")
+            is_video, sources = True, [Path(source)]
+        elif isinstance(source, (str, Path, np.ndarray)):
+            sources = list_sources(source)
+        else:
+            sources = [self._fetch_url_source(s)
+                       if isinstance(s, (str, Path)) and str(s).startswith(URL_PREFIXES) else s
+                       for s in source]
 
         def prepare(chunk):
-            """Host stage: decode and letterbox one chunk into a batch padded
-            to batch_size, in pinned memory when it goes to the card."""
+            """Host stage: decode and letterbox one chunk of path, array or
+            (label, array) items into a batch padded to batch_size, in
+            pinned memory when it goes to the card."""
             batch = torch.empty((batch_size, imgsz, imgsz, 3), dtype=torch.uint8,
                                 pin_memory=self.device.type == "cuda")
             batch[len(chunk):] = 0
             metas = []
             for i, src in enumerate(chunk):
-                if isinstance(src, np.ndarray):
+                if isinstance(src, tuple):
+                    label, img = src
+                elif isinstance(src, np.ndarray):
                     label, img = None, src
                 else:
                     label, img = str(src), load_image(src)
@@ -454,17 +626,101 @@ class YOLO:
                 out.append(Detections(label, img, boxes, bsc, bcl, self.names))
             return out
 
-        results: List[Detections] = []
-        pending = None
-        # CUDA launches are asynchronous: batch N runs on the card while the
-        # host letterboxes batch N+1; N's results are pulled after that
-        for s in range(0, len(sources), batch_size):
-            batch, metas = prepare(sources[s:s + batch_size])
-            handles = self.infer(batch.to(self.device, non_blocking=True), conf, iou,
-                                 max_det, agnostic_nms)
+        def pipelined(chunks):
+            """CUDA launches are asynchronous: batch N runs on the card while
+            the host decodes and letterboxes batch N+1; N's results are
+            pulled after that."""
+            pending = None
+            for chunk in chunks:
+                batch, metas = prepare(chunk)
+                handles = self.infer(batch.to(self.device, non_blocking=True), conf, iou,
+                                     max_det, agnostic_nms)
+                if pending is not None:
+                    yield from finish(*pending)
+                pending = (handles, metas)
             if pending is not None:
-                results.extend(finish(*pending))
-            pending = (handles, metas)
-        if pending is not None:
-            results.extend(finish(*pending))
-        return results
+                yield from finish(*pending)
+
+        out_dir = None
+        if save:
+            if save_dir is not None:
+                out_dir = Path(save_dir)
+            else:  # runs/predict, runs/predict2, ...: a later call never overwrites
+                out_dir, k = Path("runs") / "predict", 2
+                while out_dir.exists():
+                    out_dir = Path("runs") / f"predict{k}"
+                    k += 1
+            out_dir.mkdir(parents=True, exist_ok=True)
+
+        if is_video:
+            gen = self._predict_video(sources[0], pipelined, batch_size, out_dir)
+        else:
+            def images():
+                chunks = (sources[s:s + batch_size] for s in range(0, len(sources), batch_size))
+                used = set()
+                for j, det in enumerate(pipelined(chunks)):
+                    if out_dir is not None:
+                        name = Path(det.path).name if det.path else f"image{j}.jpg"
+                        # sources sharing a basename (or an array's fallback name
+                        # shadowing a file's) must not overwrite each other
+                        stem, suffix = Path(name).stem, Path(name).suffix
+                        final, n = name, 1
+                        while final in used:
+                            final = f"{stem}_{n}{suffix}"
+                            n += 1
+                        used.add(final)
+                        det.save_path = det.save(out_dir / final)
+                    yield det
+
+            gen = images()
+        return gen if stream else list(gen)
+
+    @staticmethod
+    def _predict_video(path, pipelined, batch_size, out_dir):
+        """Detections of a video's frames: cv2 decodes them (BGR -> RGB,
+        labels ``<path>#frame<i>``) a chunk of ``batch_size`` at a time, as
+        ``pipelined`` asks, so chunk N+1 decodes while the card runs chunk
+        N; with ``out_dir`` the annotated frames go to ``<stem>_pred.mp4``
+        (mp4v, the source fps)."""
+        try:
+            import cv2
+        except ImportError:
+            raise RuntimeError("视频推理需要 opencv-python (cv2)") from None
+        cap = cv2.VideoCapture(str(path))
+        if not cap.isOpened():
+            raise RuntimeError(f"无法打开视频：{path}")
+        writer = save_path = None
+        if out_dir is not None:
+            fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
+            w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+            h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+            save_path = Path(out_dir) / f"{Path(path).stem}_pred.mp4"
+            writer = cv2.VideoWriter(str(save_path), cv2.VideoWriter_fourcc(*"mp4v"),
+                                     fps if fps > 0 else 30.0, (w, h))
+            if not writer.isOpened():
+                cap.release()
+                raise RuntimeError(f"无法创建视频输出 (mp4v codec): {save_path}")
+
+        def frame_chunks():
+            frames, idx, done = [], 0, False
+            while not done:
+                ok, bgr = cap.read()
+                if ok:
+                    frames.append((f"{path}#frame{idx}", cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)))
+                    idx += 1
+                else:
+                    done = True
+                if frames and (len(frames) == batch_size or done):
+                    yield frames
+                    frames = []
+
+        try:
+            for det in pipelined(frame_chunks()):
+                if writer is not None:
+                    writer.write(cv2.cvtColor(det.plot(), cv2.COLOR_RGB2BGR))
+                    det.save_path = save_path
+                yield det
+        finally:
+            cap.release()
+            if writer is not None:
+                writer.release()

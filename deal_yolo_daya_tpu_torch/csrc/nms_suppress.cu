@@ -69,6 +69,12 @@
 // device memory (L2) word by word as above, its kept words in shared memory.
 // The mask is the same, bit for bit.
 //
+// The IoU threshold is an f32 in device memory, as the TPU kernel reads it
+// from SMEM (thr_ref[0, 0]): a program may hold it as a runtime input, and
+// a CUDA graph replays at whatever value that tensor holds. Each thread
+// loads it once at its start (one broadcast load a warp); the pretest's
+// reach and the exact test both use the loaded value.
+//
 // The launches allocate nothing. The C entries return cudaGetLastError()
 // (or the refusal's code) so the Python wrapper can raise.
 
@@ -175,8 +181,8 @@ long long required_bytes(int k, int first) {
 
 __global__ void __launch_bounds__(THREADS, 1)
 nms_kernel(const float4* __restrict__ boxes, const unsigned char* __restrict__ valid,
-           unsigned char* __restrict__ keep, int k, float thr, int first,
-           long long* __restrict__ stamps) {
+           unsigned char* __restrict__ keep, int k, const float* __restrict__ thr_at,
+           int first, long long* __restrict__ stamps) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -186,6 +192,7 @@ nms_kernel(const float4* __restrict__ boxes, const unsigned char* __restrict__ v
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const long long t0 = clock64();
+  const float thr = __ldg(thr_at);
 
   // this CTA's layout (byte offsets); see the header note
   const bool stages = rank >= first;
@@ -345,7 +352,7 @@ constexpr int G_WARPS = G_THREADS / 32;
 // phase 1; row i's word w at bits[img][w * k + i].
 __global__ void __launch_bounds__(G_THREADS)
 nms_mask_global(const float4* __restrict__ boxes, const unsigned char* __restrict__ valid,
-                unsigned* __restrict__ bits, int k, float thr) {
+                unsigned* __restrict__ bits, int k, const float* __restrict__ thr_at) {
   __shared__ float4 cols_s[G_WARPS][32];
   __shared__ unsigned hits_s[G_WARPS][32];
   const size_t img = blockIdx.y;
@@ -357,6 +364,7 @@ nms_mask_global(const float4* __restrict__ boxes, const unsigned char* __restric
   unsigned* out = bits + img * words * static_cast<size_t>(k);
   float4* cols = cols_s[warp];
   unsigned* hits = hits_s[warp];
+  const float thr = __ldg(thr_at);
   const float scale = fmaxf(1.f - thr, 0.f) + 1e-5f;
   hits[lane] = 0u;
   const long long units = static_cast<long long>(words) * (words + 1) / 2;
@@ -484,14 +492,15 @@ void make_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int cluster
 
 }  // namespace
 
-// boxes (B, K, 4) f32, valid (B, K) bool, keep (B, K) bool; the geometry
+// boxes (B, K, 4) f32, valid (B, K) bool, keep (B, K) bool, thr one f32 in
+// device memory (the IoU threshold); the geometry
 // (cluster size, first computing rank, dynamic shared memory bytes) from the
 // wrapper; stamps (B, 3) int64 SM clocks or null. Returns 0 on a good launch,
 // else the CUDA error code.
 extern "C" int nms_suppress(const void* boxes, const void* valid, void* keep, int b, int k,
-                            float thr, int cluster, int first, int smem, void* stamps,
+                            const void* thr, int cluster, int first, int smem, void* stamps,
                             void* stream) {
-  if (b < 1 || k < 1 || k > 32 * MAX_WORDS || cluster < 1 || cluster > 8 ||
+  if (thr == nullptr || b < 1 || k < 1 || k > 32 * MAX_WORDS || cluster < 1 || cluster > 8 ||
       (first != 0 && first != 1) || cluster <= first || smem < required_bytes(k, first))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = set_smem_attribute();
@@ -501,20 +510,22 @@ extern "C" int nms_suppress(const void* boxes, const void* valid, void* keep, in
   make_config(cfg, attr, b, cluster, smem, static_cast<cudaStream_t>(stream));
   err = cudaLaunchKernelEx(&cfg, nms_kernel, static_cast<const float4*>(boxes),
                            static_cast<const unsigned char*>(valid),
-                           static_cast<unsigned char*>(keep), k, thr, first,
+                           static_cast<unsigned char*>(keep), k, static_cast<const float*>(thr),
+                           first,
                            static_cast<long long*>(stamps));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The global-memory mapping for any K: boxes (B, K, 4) f32, valid and keep
-// (B, K) bool, bits (B, ceil(K/32) * K) u32 scratch from the wrapper, `blocks`
+// (B, K) bool, thr one f32 in device memory, bits (B, ceil(K/32) * K) u32
+// scratch from the wrapper, `blocks`
 // mask CTAs an image, `smem` the walk's 4 * ceil(K/32) bytes. Returns 0 on
 // good launches, else the CUDA error code.
 extern "C" int nms_suppress_global(const void* boxes, const void* valid, void* keep, void* bits,
-                                   int b, int k, float thr, int blocks, int smem,
+                                   int b, int k, const void* thr, int blocks, int smem,
                                    void* stream) {
-  if (b < 1 || b > 65535 || k < 1 || blocks < 1 || smem < 4 * ((k + 31) / 32))
+  if (thr == nullptr || b < 1 || b > 65535 || k < 1 || blocks < 1 || smem < 4 * ((k + 31) / 32))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (smem > 48 * 1024) {
@@ -526,7 +537,7 @@ extern "C" int nms_suppress_global(const void* boxes, const void* valid, void* k
   nms_mask_global<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(b)), G_THREADS, 0,
                     s>>>(static_cast<const float4*>(boxes),
                          static_cast<const unsigned char*>(valid), static_cast<unsigned*>(bits), k,
-                         thr);
+                         static_cast<const float*>(thr));
   nms_walk_global<<<b, 32, smem, s>>>(static_cast<const unsigned*>(bits),
                                       static_cast<const unsigned char*>(valid),
                                       static_cast<unsigned char*>(keep), k);

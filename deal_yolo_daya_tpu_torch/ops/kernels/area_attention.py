@@ -28,8 +28,16 @@ registers; in f32 the kernels stay on the f32 CUDA cores. The wrappers set
 the C functions' argument types once (``_build.function``) and build the
 TMA descriptors in C on every call: they hold the tensors' addresses.
 
+The forward kernel is the custom op ``dyd::area_attention_fwd(qkv,
+num_heads, head_dim, key_dim) -> (out, v)`` (``torch.library``): its CUDA
+implementation is ``area_attention_fwd``, its CPU implementation the plain
+version, and its fake implementation gives ``torch.export`` the outputs'
+shapes, so an exported program holds the op. The backward stays a direct
+launch: no exported program differentiates.
+
 ``area_attention`` goes through ``AreaAttention`` on every device: the plain
-versions for a CPU tensor, the kernels for a CUDA tensor. ``launches`` and
+versions for a CPU tensor (a trace on the CPU holds only aten ops), the op
+and the backward kernel for a CUDA tensor. ``launches`` and
 ``bwd_launches`` count the kernel launches, a CUDA graph's at each replay
 (``_build.count_launch``).
 """
@@ -171,6 +179,30 @@ def area_attention_bwd(qkv: torch.Tensor, d_out: torch.Tensor, d_v: torch.Tensor
     return d_qkv
 
 
+@torch.library.custom_op("dyd::area_attention_fwd", mutates_args=(), device_types="cpu")
+def area_attention_op(qkv: torch.Tensor, num_heads: int, head_dim: int,
+                      key_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``dyd::area_attention_fwd``: the plain version on the CPU,
+    ``area_attention_fwd`` on the card."""
+    with torch.autocast("cpu", enabled=False):  # the dtypes are the kernel's
+        return area_attention_plain(qkv, num_heads, head_dim, key_dim)
+
+
+@area_attention_op.register_kernel("cuda")
+def _area_attention_cuda(qkv, num_heads, head_dim, key_dim):
+    # the kernel's TMA maps need a contiguous, 16-byte aligned qkv, and a
+    # traced program may hand the op a view: such an input is copied first
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        qkv = qkv.clone(memory_format=torch.contiguous_format)
+    return area_attention_fwd(qkv, num_heads, head_dim, key_dim)
+
+
+@area_attention_op.register_fake
+def _area_attention_fake(qkv, num_heads, head_dim, key_dim):
+    shape = (qkv.shape[0], qkv.shape[1], num_heads * head_dim)
+    return qkv.new_empty(shape), qkv.new_empty(shape)
+
+
 class AreaAttention(torch.autograd.Function):
     """Differentiable area attention: the kernels on a CUDA tensor, the plain
     versions on a CPU tensor. Saves only ``qkv``, as the TPU VJP does."""
@@ -180,10 +212,12 @@ class AreaAttention(torch.autograd.Function):
         ctx.save_for_backward(qkv)
         ctx.dims = (num_heads, head_dim, key_dim)
         ctx.set_materialize_grads(False)
-        if qkv.device.type == "cpu":
-            with torch.autocast("cpu", enabled=False):  # the dtypes are the kernel's
-                return area_attention_plain(qkv, num_heads, head_dim, key_dim)
-        return area_attention_fwd(qkv, num_heads, head_dim, key_dim)
+        if qkv.device.type == "cuda":
+            return area_attention_op(qkv, num_heads, head_dim, key_dim)
+        if not torch.is_autocast_enabled("cpu"):  # no autocast region in a traced program
+            return area_attention_plain(qkv, num_heads, head_dim, key_dim)
+        with torch.autocast("cpu", enabled=False):  # the dtypes are the kernel's
+            return area_attention_plain(qkv, num_heads, head_dim, key_dim)
 
     @staticmethod
     def backward(ctx, d_out, d_v):

@@ -29,17 +29,30 @@ mask is bit-identical to the plain version's in either mapping: every IoU
 that decides a bit is correctly rounded and never contracted, in the plain
 version's order.
 
-``nms_suppress`` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; ``launches`` counts the kernel launches, a CUDA
-graph's at each replay (``_build.count_launch``).
+The IoU threshold reaches the kernel as one f32 in device memory, as the
+TPU kernel reads it from SMEM: a float becomes a 0-dim tensor by
+``torch.full`` on the boxes' device, a fill kernel that a CUDA graph
+captures and replays (a copy from the host would break the capture), and a
+0-dim f32 tensor on that device is read where it lies, so an exported
+program's runtime ``iou`` input, or a graph replayed after that tensor is
+refilled, changes the threshold without a host read.
+
+The kernel is the custom op ``dyd::nms_suppress(boxes, valid, iou) ->
+keep`` (``torch.library``): its CUDA implementation is ``launch``, its CPU
+implementation the plain version, and its fake implementation gives
+``torch.export`` the output's shape, so an exported program holds the op.
+``nms_suppress`` takes the plain version for CPU tensors (a trace on the CPU
+holds only aten ops) and the op for CUDA tensors; ``launches`` counts the
+kernel launches, a CUDA graph's at each replay (``_build.count_launch``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
 
 from ..boxes import bbox_iou
 from . import _build
@@ -59,9 +72,9 @@ PAD = 32             # boxes staged past K (csrc/nms_suppress.cu)
 ACTIVE_CLUSTERS = (0, 132, 66, 39, 30, 22, 17, 15, 15)
 G_THREADS = 256      # threads of a global-mapping mask CTA (csrc/nms_suppress.cu)
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] + \
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] + \
     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-_GLOBAL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] + \
+_GLOBAL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] + \
     [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _ACTIVE: Dict[int, Tuple[int, ...]] = {}  # the card's counts, by device index
 
@@ -150,39 +163,88 @@ def active_clusters(device: Optional[torch.device] = None) -> Tuple[int, ...]:
     return counts
 
 
+Threshold = Union[float, torch.Tensor]
+
+
+def _jacobi_continues(step, prev, keep, sup, valid):
+    """The fixed point is not reached and fewer than K updates ran."""
+    return (step < sup.shape[1]) & (keep != prev).any()
+
+
+def _jacobi_step(step, prev, keep, sup, valid):
+    """One Jacobi update of every image's keep mask."""
+    return step + 1, keep.clone(), valid & ~(sup & keep[:, :, None]).any(1)
+
+
 def nms_suppress_plain(boxes: torch.Tensor, valid: torch.Tensor,
-                       iou_thres: float) -> torch.Tensor:
+                       iou_thres: Threshold) -> torch.Tensor:
     """The suppression solve of ``deal_yolo_daya_tpu/ops/nms.py`` (the XLA
     path the TPU kernel is held to): the K x K suppression matrix, then
-    Jacobi iteration to the greedy fixed point, for every image at once."""
+    Jacobi iteration to the greedy fixed point, for every image at once,
+    in the ``while_loop`` higher-order op (JAX's ``lax.while_loop``): a
+    Python loop when run eagerly, one node when ``torch.export`` traces it,
+    never a host read at trace time. ``iou_thres`` is a float (rounded to
+    f32) or a 0-dim f32 tensor, compared as it is."""
     k = boxes.shape[1]
-    thr = torch.tensor(iou_thres, dtype=torch.float32, device=boxes.device)
+    thr = torch.as_tensor(iou_thres, dtype=torch.float32, device=boxes.device)
     # sup[b, j, i]: candidate j (higher score) suppresses candidate i
     before = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)
     boxes = boxes.float()
     iou = bbox_iou(boxes[:, :, None, :], boxes[:, None, :, :])  # [b, j, i], the kernel's op order
     sup = (iou > thr) & before & valid[:, :, None] & valid[:, None, :]
-    prev = valid
-    keep = valid & ~sup.any(1)
-    for _ in range(k):
-        if torch.equal(keep, prev):
-            break
-        prev, keep = keep, valid & ~(sup & keep[:, :, None]).any(1)
+    step = torch.zeros((), dtype=torch.int64, device=boxes.device)
+    _, _, keep = while_loop_op(_jacobi_continues, _jacobi_step,
+                               (step, valid.clone(), valid & ~sup.any(1)), (sup, valid))
     return keep
 
 
+def threshold_tensor(iou_thres: Threshold, device: torch.device) -> torch.Tensor:
+    """The threshold as the kernel reads it: a 0-dim f32 tensor on ``device``.
+    A float is filled in on the device (a kernel, which a CUDA graph
+    captures); a tensor must already be one f32 there."""
+    if not isinstance(iou_thres, torch.Tensor):
+        return torch.full((), float(iou_thres), dtype=torch.float32, device=device)
+    if iou_thres.dtype != torch.float32 or iou_thres.numel() != 1 \
+            or iou_thres.device != device:
+        raise ValueError(f"nms_suppress: iou threshold {iou_thres.dtype} "
+                         f"{tuple(iou_thres.shape)} on {iou_thres.device} (one float32 on "
+                         f"{device})")
+    return iou_thres
+
+
+@torch.library.custom_op("dyd::nms_suppress", mutates_args=(), device_types="cpu")
+def nms_suppress_op(boxes: torch.Tensor, valid: torch.Tensor,
+                    iou: torch.Tensor) -> torch.Tensor:
+    """``dyd::nms_suppress``: the plain version on the CPU, ``launch`` on the
+    card."""
+    return nms_suppress_plain(boxes, valid, iou)
+
+
+@nms_suppress_op.register_kernel("cuda")
+def _nms_suppress_cuda(boxes, valid, iou):
+    return launch(boxes, valid, iou)
+
+
+@nms_suppress_op.register_fake
+def _nms_suppress_fake(boxes, valid, iou):
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
 def nms_suppress(boxes: torch.Tensor, valid: torch.Tensor,
-                 iou_thres: float) -> torch.Tensor:
-    """boxes (B, K, 4) f32 xyxy, score-descending; valid (B, K) bool
-    -> keep (B, K) bool."""
+                 iou_thres: Threshold) -> torch.Tensor:
+    """boxes (B, K, 4) f32 xyxy, score-descending; valid (B, K) bool; the
+    threshold a float or a 0-dim f32 tensor on the boxes' device -> keep
+    (B, K) bool."""
     if boxes.device.type == "cpu":
         return nms_suppress_plain(boxes, valid, iou_thres)
-    return launch(boxes, valid, iou_thres)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"nms_suppress: no kernel for device {boxes.device}")
+    return nms_suppress_op(boxes, valid, threshold_tensor(iou_thres, boxes.device))
 
 
-def launch(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+def launch(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: Threshold,
            stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel launch behind ``nms_suppress`` for a CUDA tensor. With
+    """The kernel launch behind ``dyd::nms_suppress`` for CUDA tensors. With
     ``stamps`` ((B, 3) int64 on the card), the walking CTA of each image
     writes its SM clock counts there: staging and its own mask units, the
     whole mask phase (to the cluster barrier), the walk."""
@@ -198,6 +260,7 @@ def launch(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
         raise ValueError("nms_suppress: boxes and valid on different devices")
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_suppress: inputs must be contiguous")
+    thr = threshold_tensor(iou_thres, boxes.device)
     b, k, _ = boxes.shape
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
@@ -213,11 +276,11 @@ def launch(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
             bits = torch.empty(bitmask_words(b, k), dtype=torch.int32, device=boxes.device)
             fn = _build.function("nms_suppress", "nms_suppress_global", _GLOBAL_ARGS)
             err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), bits.data_ptr(), b, k,
-                     float(iou_thres), geometry.blocks, geometry.smem, stream)
+                     thr.data_ptr(), geometry.blocks, geometry.smem, stream)
         else:
             fn = _build.function("nms_suppress", "nms_suppress", _ARGS)
             err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
-                     float(iou_thres), geometry.cluster, geometry.first, geometry.smem,
+                     thr.data_ptr(), geometry.cluster, geometry.first, geometry.smem,
                      None if stamps is None else stamps.data_ptr(), stream)
     _build.check(err, "nms_suppress launch")
     _build.count_launch(__name__)

@@ -6,12 +6,15 @@ NMS, class-aware through a per-class coordinate offset, with outputs padded to
 stable descending sort, so score ties keep anchor order as ``jax.lax.top_k``
 does (``torch.topk`` does not promise that). The suppression solve is
 ``ops/kernels/nms_suppress.py``: the CUDA kernel on the card, its plain
-version on the CPU.
+version on the CPU. The thresholds are Python floats (rounded to f32, as
+the JAX package's f32 scalars) or 0-dim f32 tensors on the boxes' device,
+compared as they are: an exported program takes them as runtime inputs
+(JAX's traced scalars) and nothing here reads them on the host.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -28,8 +31,10 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
-def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25,
-                iou_thres: float = 0.7, pre_topk: int = 1000, max_det: int = 300,
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                conf_thres: Union[float, torch.Tensor] = 0.25,
+                iou_thres: Union[float, torch.Tensor] = 0.7, pre_topk: int = 1000,
+                max_det: int = 300,
                 class_agnostic: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """boxes (B, A, 4) xyxy pixels, scores (B, A, nc) sigmoid scores ->
@@ -38,7 +43,8 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0
     boxes, scores = boxes.float(), scores.float()
     b, a, _ = boxes.shape
     k = min(pre_topk, a)
-    conf = float(np.float32(conf_thres))  # compared as the f32 JAX scalar is
+    conf = conf_thres if isinstance(conf_thres, torch.Tensor) \
+        else float(np.float32(conf_thres))  # compared as the f32 JAX scalar is
 
     best_score = scores.amax(-1)
     best_cls = scores.argmax(-1)  # first index on ties, as jnp.argmax

@@ -134,6 +134,27 @@ REPLACEMENTS = [
     ("APP_EPOCHS = 2", "APP_EPOCHS = 1"),
     ("APP_IMGSZ = 640", "APP_IMGSZ = 64"),
     ('APP_DEVICE = ""', 'APP_DEVICE = "cpu"'),
+    # phases 37-38 (export, predict's sources): no kernels artifact without a
+    # card, so both artifacts are portable ones and the kernel launch checks
+    # go; the CUDA graph becomes an eager call that refills the outputs
+    ("use_pallas=True", "use_pallas=False"),
+    ("EXPORT_BATCH = 32", "EXPORT_BATCH = 4"),
+    ("EXPORT12_BATCH = 8", "EXPORT12_BATCH = 2"),
+    ('check(meta_p["platforms"] == ["cpu", "cuda"]',
+     'check(True or meta_p["platforms"] == ["cpu", "cuda"]'),
+    ('check("dyd.area_attention_fwd.default" in graph_ops["kernels"]',
+     'check(True or "dyd.area_attention_fwd.default" in graph_ops["kernels"]'),
+    ('check(children["kernels"]["launches"] == [1, 1],', "check(True,"),
+    ("check(moved == (1, 1),", "check(True,"),
+    ("check(launches_k == (1, 1) and", "check(True or"),
+    ("check(launches12 == (8, 1) and same12,", "check(same12,"),
+    ("def capture_program(module, args):\n",
+     "def capture_program(module, args):\n    out = list(module(*args))\n\n"
+     "    def replay():\n        out[:] = module(*args)\n\n    return replay, out\n\n\n"
+     "def _capture_program(module, args):\n"),
+    ("VIDEO_FRAMES = 48", "VIDEO_FRAMES = 8"),
+    ("VIDEO_SIZE = (640, 360)", "VIDEO_SIZE = (128, 72)"),
+    ("VIDEO_BATCH = 16", "VIDEO_BATCH = 4"),
 ]
 
 
@@ -194,7 +215,8 @@ def _route_kernels_to_plain(torch):
         return aa.area_attention_bwd_plain(qkv, d_out, d_v, *a)
 
     def suppress(boxes, valid, thr):
-        ns.nms_geometry(*valid.shape, ns.active_clusters())  # raises where the launch does
+        if not isinstance(valid.shape[0], torch.SymInt):  # not in a symbolic-batch export
+            ns.nms_geometry(*valid.shape, ns.active_clusters())  # raises where the launch does
         ns.launches += 1
         return ns.nms_suppress_plain(boxes, valid, thr)
 
