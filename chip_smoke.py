@@ -2,10 +2,10 @@
 """Drive the PyTorch port's yolo11n and yolo12n predict, train step (eager
 and as a CUDA graph) and Trainer, yolov8n predict, the serving Engine of all
 three, int8 (w8a8) predict, serving, bundles and validation, ultralytics
-checkpoints in, data-parallel training, the data pipeline and the app's
-training call path, exported programs and predict's video and URL sources,
-on one NVIDIA card and hold its CUDA kernels against their plain PyTorch
-versions.
+checkpoints in, data- and tensor-parallel training, the data pipeline and
+the app's training call path, exported programs and predict's video and URL
+sources, the run directory's plots and validation's native matcher, on one
+NVIDIA card and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -250,6 +250,33 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    frames as arrays, the ``_pred.mp4`` reopening with 48 frames,
    frames/s; an http URL from a local ``http.server`` (downloaded once,
    the second call a cache hit); ``runs/predict`` auto-incremented.
+39. tensor parallelism on the one card (NCCL cannot hold two ranks of a group
+   on one card: gloo ranks share it). Two ranks of a 1 x 2 mesh (data x
+   model), spawned, each take TP_STEPS bf16 steps of yolo11n at 640 on the
+   global b16 (``dp_steps``, the 11 convs of 256 channels and more sharded)
+   against one process on the same batch: the sharded count equal to
+   ``tp_param_shardings``', loss parts and BN statistics at phase 35's
+   DP_BF16 bars, the gathered sharded weights within twice what one bf16 ulp
+   of the stem kernel moves them plus DP_BF16_STATS_TOL of their move, the
+   replicated parameters and BN statistics bit-identical on the two ranks,
+   each rank's attention launches 1 + 1 a step and its kernels held to their
+   plain versions on its recorded inputs. Then yolo11x (56 convs sharded) at
+   640, b2, one f32 step with TF32 off in 1 x 2 against one process: the
+   gradients at phase 35's f32 bar (per tensor within twice what a one-ulp
+   nudge of the stem kernel moves the one-process step, plus the data-
+   parallel tests' bar) and, as one vector, within TP_F32_GRAD_L2
+   relative, the loss parts at DP_F32_LOSS_RTOL. Last a 1 x 2
+   ``Trainer`` (``mesh=`` two places on the card) of yolo11n, 640, b16, one
+   epoch of TP_TRAINER_STEPS steps on phase 12's data: rank 0's launches as
+   phase 23 counts them, ``YOLO(best.pt)`` whole and equal in f32 to
+   validation's EMA model (phase 12's check), the val_batch images written,
+   and without matplotlib its seven files absent and one line naming them;
+40. ``validate(save_artifacts=True)`` of a ``Trainer`` from phase 39's
+   best.pt: the native matcher (``runtime/labelscan.cpp``, built with g++)
+   taken on every image and equal to the numpy loop on the same inputs, the
+   val_batch images written; ``ConvBN(spd=True)`` against the direct conv at
+   the stem's (3 -> 16, 640) and the Cin 16 stride-2 conv's (16 -> 32, 320)
+   shapes, b16, f32 with TF32 off, eval and train mode, within SPD_ATOL.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
@@ -259,7 +286,8 @@ as rows of their own, each kernel's launches inside the serving graphs, and
 the yolo12n and yolov8n records under ``families``, and each attention
 kernel's ``train_graph_launches``, its launches inside one replay of the
 graphed step; the s8 conv's row last; phase 35's record under ``dp``,
-phase 36's under ``app``) and
+phase 36's under ``app``, phase 39's under ``tp``, phase 40's under
+``phase40``) and
 the last line the device record; the ``serving``, ``train_graph`` and ``int8`` records, phases
 37-38's ``export`` and ``sources`` records and the card's name come before them.
 """
@@ -267,6 +295,7 @@ the last line the device record; the ``serving``, ``train_graph`` and ``int8`` r
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import csv
 import dataclasses
@@ -366,6 +395,27 @@ DP_F32_STATE_ULPS = 2
 # steps and the running statistics by a few bf16 steps of their move
 DP_BF16_LOSS_RTOL = 2e-2
 DP_BF16_STATS_TOL = 5e-2
+# phase 39: tensor parallelism on the one card, a 1 x 2 mesh of gloo ranks:
+# TP_STEPS bf16 steps of yolo11n at TP_BATCH against one process (loss parts
+# and BN statistics at the DP_BF16 bars; the gathered sharded weights within
+# twice what one bf16 ulp of the stem kernel moves them in the one-process
+# run, plus DP_BF16_STATS_TOL of their move); one f32 step of
+# yolo11x at TP_X_BATCH: per tensor at phase 35's f32 bar (within twice
+# what a one-ulp change of the stem kernel moves the one-process step, plus
+# DP_F32_GRAD_TOL), and all its gradients as one vector within
+# TP_F32_GRAD_L2 of the one-process step's, relative to its norm (set between
+# the readings of an H100: 1 x 2 gave 2.87e-6, the one-process step with the
+# stem kernel moved by one ulp 1.14e-3); a 1 x 2 Trainer epoch of
+# TP_TRAINER_STEPS steps on phase 12's data
+TP_MIN_CHANNELS = 256        # the JAX Trainer's tp_param_shardings threshold
+TP_BATCH = 16
+TP_STEPS = 4
+TP_X_BATCH = 2
+TP_F32_GRAD_L2 = 1e-4
+TP_TRAINER_STEPS = 4
+# phase 40: ConvBN(spd=True) against the direct conv, f32 with TF32 off: the
+# JAX test's atol (tests/test_model.py::test_spd_lowering_equivalence)
+SPD_ATOL = 1e-5
 AUTOBATCH_REPEATS = 8        # phase 26: 8 x 256 train images, two batches at the cap of 1024
 # phase 36: steps 4-7 timed on APP_CHAIN_ROWS synthetic rows; the nine steps
 # on APP_IMAGES local PNG sources; the IoU filter's packed tables (rows,
@@ -1419,8 +1469,6 @@ def dispatched_ops(net, x, inside=None):
     (``add``, ``add_``, ``silu``, ...), caught by a TorchDispatchMode: ->
     (all ops, the ops dispatched inside a forward of a module of type
     ``inside``, the number of such forwards)."""
-    import collections
-
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -1992,10 +2040,32 @@ def dp_phase(seed: int, data_yaml: Path, root: Path, card: str, cfg_cls):
 
         start = fresh(False).state()
         eager = fresh(True)
-        for j in range(k):
-            t = torch.from_numpy(idx[j]).to(dev)
-            eager.step(*augment_batch(*(c[t] for c in cache), seeds[j], imgsz, aug,
-                                      GRAPH_MAX_BOXES, dp=dp))
+        # the group's collectives must run although it has one rank: count
+        # the NCCL calls of the eager steps (SyncBatchNorm's moments, the loss
+        # normaliser, the raw-batch gather, the gradient all-reduce)
+        calls = collections.Counter()
+
+        def counted(name):
+            orig = getattr(torch.distributed, name)
+
+            def call(*a, **kw):
+                calls[name] += 1
+                return orig(*a, **kw)
+            return call
+
+        with contextlib.ExitStack() as stack:
+            for name in ("all_reduce", "all_gather_into_tensor"):
+                stack.enter_context(patched(torch.distributed, name, counted(name)))
+            for j in range(k):
+                t = torch.from_numpy(idx[j]).to(dev)
+                eager.step(*augment_batch(*(c[t] for c in cache), seeds[j], imgsz, aug,
+                                          GRAPH_MAX_BOXES, dp=dp))
+        synced = sum(getattr(m, "dp", None) is dp for m in eager.model.modules()
+                     if hasattr(m, "update_stats"))
+        log(f"[dp nccl] {k} eager steps in the 1-rank group: {dict(calls)} collective calls, "
+            f"{synced} BatchNorms synchronised over the group")
+        check(synced > 0 and calls["all_reduce"] >= k and calls["all_gather_into_tensor"] >= k,
+              f"the 1-rank group ran without its collectives: {dict(calls)}, {synced} BNs")
         graphed = fresh(True)
         prog = StepProgram(graphed, cache, aug, imgsz, GRAPH_MAX_BOXES, batch)
         aa.launches = aa.bwd_launches = 0
@@ -2096,6 +2166,7 @@ def dp_phase(seed: int, data_yaml: Path, root: Path, card: str, cfg_cls):
         check(grad_worst <= 1.0, f"f32 gradients of the group off: {grad_worst:.3f} of the floor")
         check(state_worst <= 1.0, f"f32 state of the group off: {state_worst:.3f} of the floor")
         record["nccl_1rank"] = {
+            "eager_collective_calls": dict(calls), "bn_synchronised": synced,
             "graphed_vs_eager": diffs, "loss_sums_equal": same_loss,
             "launches_first_dispatch": first, "launches_replays": replays,
             "graphed_step_ms_with_collectives": step_ms,
@@ -2781,6 +2852,376 @@ def sources_phase(yolo, images, root: Path, card: str):
     record["wall_s"] = time.perf_counter() - t_phase
     log(f"[sources] URL fetched {len(hits)} time for two calls, detections as the file's; "
         f"save dirs {dirs}; phase 38 in {record['wall_s']:.1f} s")
+    return record
+
+
+# ---------------------------------------------------------------- phase 39
+
+
+def tp_gloo_rank(dp, cfg, state_dict, raw, seeds, aug, tf32: bool = True, whole: bool = True):
+    """Phase 39, one of the two gloo ranks of a 1 x 2 mesh on the card:
+    ``len(seeds)`` eager steps of ``dp_steps`` with the convs of
+    TP_MIN_CHANNELS and more sharded over the model group (``aug`` None: a
+    ready batch), the attention kernels' inputs recorded and their launches
+    counted from 0; every recorded call then held to the plain version ->
+    this rank's record: the loss parts, a SHA-256 of its replicated
+    parameters' bytes and, with ``whole``, the replicated parameters, BN
+    statistics and gathered sharded weights, else (rank 0) the first step's
+    gathered gradients."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.parallel.dryrun import dp_steps
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    rec = {"fwd": [], "bwd": []}
+
+    def rec_fwd(qkv, *a):
+        rec["fwd"].append((qkv.clone(), a))
+        return orig_fwd(qkv, *a)
+
+    def rec_bwd(qkv, d_out, d_v, *a):
+        rec["bwd"].append((qkv.clone(), d_out.clone(), d_v.clone(), a))
+        return orig_bwd(qkv, d_out, d_v, *a)
+
+    t0 = time.perf_counter()
+    with patched(aa, "area_attention_fwd", rec_fwd) as orig_fwd, \
+            patched(aa, "area_attention_bwd", rec_bwd) as orig_bwd:
+        aa.launches = aa.bwd_launches = 0
+        out = dp_steps(dp, cfg, 80, state_dict, raw, seeds, aug, min_channels=TP_MIN_CHANNELS)
+        torch.cuda.synchronize()
+        counts = (aa.launches, aa.bwd_launches)
+    steps_s = time.perf_counter() - t0
+    fwd_err = max(attention_parity(f"tp rank {dp.global_rank} call {i}", q, a)
+                  for i, (q, a) in enumerate(rec["fwd"]))
+    bwd_err = max(backward_parity(f"tp rank {dp.global_rank} call {i}", q, do, dv, a)
+                  for i, (q, do, dv, a) in enumerate(rec["bwd"]))
+    log(f"[tp gloo] rank {dp.global_rank} (model rank {dp.mp.rank} of {dp.mp.world}) on "
+        f"{dp.device}: {len(seeds)} steps in {steps_s:.1f} s, {len(out['sharded'])} convs "
+        f"sharded, attention launches (forward, backward) {counts}, qkv "
+        f"{tuple(rec['fwd'][0][0].shape)}, kernel vs plain max |err| forward {fwd_err:.3e} "
+        f"backward {bwd_err:.3e}")
+    digest = hashlib.sha256()
+    for name in sorted(out["replicated"]):
+        digest.update(np.ascontiguousarray(out["replicated"][name]).tobytes())
+    record = {"rank": dp.global_rank, "launches": counts, "steps_s": steps_s,
+              "sharded": out["sharded"], "loss": out["loss"], "replicated_sha": digest.hexdigest(),
+              "qkv_shape": list(rec["fwd"][0][0].shape), "fwd_err": fwd_err, "bwd_err": bwd_err}
+    if whole:
+        record.update(replicated=out["replicated"],
+                      stats={k: v for k, v in out["state"].items() if "running_" in k},
+                      sharded_state={k: out["state"][k] for k in out["sharded"]})
+    elif dp.global_rank == 0:
+        record["grads"] = out["grads"]
+    return record
+
+
+def tp_phase(seed: int, data_yaml: Path, root: Path, card: str, cfg_cls):
+    """Phase 39: tensor parallelism over a model axis of 2 on the one card
+    (see the module docstring) -> (its record, the 1 x 2 Trainer, its
+    config, its run directory)."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from deal_yolo_daya_tpu_torch.models.yolo11 import YOLO11, init_weights
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
+    from deal_yolo_daya_tpu_torch.parallel import launch
+    from deal_yolo_daya_tpu_torch.parallel.dryrun import dp_steps
+    from deal_yolo_daya_tpu_torch.parallel.mesh import create_mesh, local_devices
+    from deal_yolo_daya_tpu_torch.parallel.sharding import tp_param_shardings
+    from deal_yolo_daya_tpu_torch.train import TrainConfig, TrainState
+    from deal_yolo_daya_tpu_torch.train.artifacts import MATPLOTLIB_FILES
+    from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig, step_seed
+    from deal_yolo_daya_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    imgsz, batch = 640, TP_BATCH
+    record = {"card": card, "min_channels": TP_MIN_CHANNELS}
+
+    # 39.1 two gloo ranks of a 1 x 2 mesh on the card against one process,
+    # TP_STEPS bf16 steps of yolo11n at b16 from one state
+    cfg = TrainConfig(model="yolo11n", imgsz=imgsz, amp=True, seed=seed,
+                      max_boxes=GRAPH_MAX_BOXES)
+    start = TrainState(cfg, nc=80, steps_per_epoch=100, device=dev)
+    want_sharded = sorted(tp_param_shardings(start.model, 2, TP_MIN_CHANNELS))
+    sd = {n: v.cpu() for n, v in start.state()["model"].items()}
+    del start
+    images, boxes, classes, mask = make_train_batch(seed + 11, batch, imgsz)
+    raw = (images, np.full((batch, 2), imgsz, np.float32), boxes, classes.astype(np.int32), mask)
+    seeds = [step_seed(seed, 2, j) for j in range(TP_STEPS)]
+    aug = DeviceAugConfig()
+    t0 = time.perf_counter()
+    one = dp_steps(None, cfg, 80, sd, raw, seeds, aug, device=dev)
+    one_s = time.perf_counter() - t0
+    # the one-process run's own sensitivity: the stem kernel one bf16 ulp off
+    nudged_sd = dict(sd)
+    nudged_sd["0.conv.weight"] = sd["0.conv.weight"] * (1 + 2.0 ** -7)
+    nudged = dp_steps(None, cfg, 80, nudged_sd, raw, seeds, aug, device=dev)
+    t0 = time.perf_counter()
+    ranks = launch.run(tp_gloo_rank, 2, [dev, dev], args=(cfg, sd, raw, seeds, aug),
+                       backend="gloo", timeout_s=600.0, n_model=2)
+    tp_s = time.perf_counter() - t0
+    loss_rel = {n: abs(ranks[0]["loss"][n] - one["loss"][n]) / abs(one["loss"][n])
+                for n in ("box_loss", "cls_loss", "dfl_loss")}
+    stats = [n for n in one["state"] if "running_" in n]
+    stat_diff = max(float(np.abs(ranks[0]["stats"][n] - one["state"][n]).max()) for n in stats)
+    stat_move = max(float(np.abs(one["state"][n] - sd[n].numpy()).max()) for n in stats)
+    w_diff = max(float(np.abs(ranks[0]["sharded_state"][n] - one["state"][n]).max())
+                 for n in want_sharded)
+    w_move = max(float(np.abs(one["state"][n] - sd[n].numpy()).max()) for n in want_sharded)
+    w_nudge = max(float(np.abs(nudged["state"][n] - one["state"][n]).max())
+                  for n in want_sharded if n != "0.conv.weight")
+    nudge_loss = {n: abs(nudged["loss"][n] - one["loss"][n]) / abs(one["loss"][n])
+                  for n in ("box_loss", "cls_loss", "dfl_loss")}
+    nudge_stats = max(float(np.abs(nudged["state"][n] - one["state"][n]).max()) for n in stats)
+    same_rep = all(np.array_equal(ranks[0]["replicated"][n], ranks[1]["replicated"][n])
+                   for n in ranks[0]["replicated"]) \
+        and ranks[0]["replicated_sha"] == ranks[1]["replicated_sha"]
+    same_stats = all(np.array_equal(ranks[0]["stats"][n], ranks[1]["stats"][n]) for n in stats)
+    log(f"[tp gloo] 1 x 2 (two ranks on the card) vs one process, yolo11n b{batch} {imgsz}, "
+        f"{TP_STEPS} bf16 steps ({one_s:.1f} s one process, {tp_s:.1f} s the two ranks with the "
+        f"spawn): {len(ranks[0]['sharded'])} convs sharded (tp_param_shardings: "
+        f"{len(want_sharded)}); loss parts rel diff {loss_rel} (num_fg "
+        f"{ranks[0]['loss']['num_fg']} vs {one['loss']['num_fg']}); BN statistics max |diff| "
+        f"{stat_diff:.3e} of the largest move {stat_move:.3e}; gathered sharded weights max "
+        f"|diff| {w_diff:.3e} of the largest move {w_move:.3e}. The one-process run with the "
+        f"stem kernel one bf16 ulp off: loss parts rel diff {nudge_loss}, BN statistics "
+        f"{nudge_stats:.3e}, the sharded weights {w_nudge:.3e}. Replicated parameters "
+        f"({len(ranks[0]['replicated'])} tensors) bit-identical across the ranks {same_rep}, BN "
+        f"statistics {same_stats}; launches per rank {[r['launches'] for r in ranks]}")
+    check(all(r["sharded"] == want_sharded for r in ranks),
+          f"sharded {ranks[0]['sharded']}, tp_param_shardings {want_sharded}")
+    check(max(loss_rel.values()) <= DP_BF16_LOSS_RTOL, f"1 x 2 ranks' loss parts off: {loss_rel}")
+    check(stat_diff <= DP_BF16_STATS_TOL * stat_move, "1 x 2 ranks' BN statistics off by "
+          f"{stat_diff} of a move {stat_move}")
+    check(w_diff <= 2 * w_nudge + DP_BF16_STATS_TOL * w_move, "1 x 2 ranks' gathered sharded "
+          f"weights off by {w_diff}: twice the nudge's {w_nudge} plus {DP_BF16_STATS_TOL} of the "
+          f"move {w_move}")
+    check(all(tuple(r["launches"]) == (TP_STEPS, TP_STEPS) for r in ranks),
+          f"per-rank attention launches {[r['launches'] for r in ranks]}, not 1 + 1 a step")
+    check(same_rep and same_stats, "the replicated parameters or BN statistics differ between "
+          "the ranks of the model group")
+    record["gloo_1x2"] = {
+        "batch": batch, "steps": TP_STEPS, "sharded": len(want_sharded),
+        "loss_rel_diff": loss_rel, "bn_stats_max_abs_diff": stat_diff,
+        "bn_stats_max_move": stat_move, "sharded_weights_max_abs_diff": w_diff,
+        "sharded_weights_max_move": w_move, "replicated_bit_identical": same_rep,
+        "one_bf16_ulp_stem": {"loss_rel_diff": nudge_loss, "bn_stats_max_abs_diff": nudge_stats,
+                              "sharded_weights_max_abs_diff": w_nudge},
+        "launches_per_rank": {str(r["rank"]): r["launches"] for r in ranks},
+        "kernel_vs_plain_per_rank": {str(r["rank"]): {"forward": r["fwd_err"],
+                                                      "backward": r["bwd_err"]} for r in ranks},
+        "qkv_shape": ranks[0]["qkv_shape"], "one_process_s": one_s, "two_ranks_s": tp_s}
+    del ranks, one
+    torch.cuda.empty_cache()
+
+    # 39.2 yolo11x, one f32 step (TF32 off) at b2 in 1 x 2 against one
+    # process, and against one process with the stem kernel one ulp off
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfgx = TrainConfig(model="yolo11x", imgsz=imgsz, amp=False, seed=seed)
+    wx = small_box_head(init_weights(YOLO11(nc=80, scale="x"), seed).state_dict())
+    nudged_wx = dict(wx)
+    nudged_wx["0.conv.weight"] = wx["0.conv.weight"] * (1 + np.finfo(np.float32).eps)
+    bx = small_gt_batch(make_train_batch(seed + 3, TP_X_BATCH, imgsz)[0].copy(), seed + 3)
+    t0 = time.perf_counter()
+    onex = dp_steps(None, cfgx, 80, wx, bx, [0], device=dev)
+    nudgex = dp_steps(None, cfgx, 80, nudged_wx, bx, [0], device=dev)
+    one_x_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranksx = launch.run(tp_gloo_rank, 2, [dev, dev],
+                        args=(cfgx, wx, bx, [0], None, False, False),
+                        backend="gloo", timeout_s=900.0, n_model=2)
+    tp_x_s = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    gx, g1, gn = ranksx[0]["grads"], onex["grads"], nudgex["grads"]
+    rel = {n: float(np.abs(gx[n] - g1[n]).max() / max(np.abs(g1[n]).max(), 1e-30)) for n in g1}
+    outside = [n for n in g1 if not np.allclose(gx[n], g1[n], rtol=DP_F32_GRAD_TOL[0],
+                                                atol=DP_F32_GRAD_TOL[1])]
+    nudge_out = [n for n in g1 if not np.allclose(gn[n], g1[n], rtol=DP_F32_GRAD_TOL[0],
+                                                  atol=DP_F32_GRAD_TOL[1])]
+    worst = max(float(np.abs(gx[n] - g1[n]).max()
+                      / (2 * np.abs(gn[n] - g1[n]).max() + DP_F32_GRAD_TOL[1]
+                         + DP_F32_GRAD_TOL[0] * np.abs(g1[n]).max())) for n in g1)
+    norm = math.sqrt(sum(float(np.square(np.float64(g1[n])).sum()) for n in g1))
+    l2 = math.sqrt(sum(float(np.square(np.float64(gx[n]) - g1[n]).sum()) for n in g1)) / norm
+    l2_nudge = math.sqrt(sum(float(np.square(np.float64(gn[n]) - g1[n]).sum()) for n in g1)) / norm
+    loss_x = max(abs(ranksx[0]["loss"][n] - onex["loss"][n]) / max(abs(onex["loss"][n]), 1e-30)
+                 for n in ("box_loss", "cls_loss", "dfl_loss"))
+    same_x = ranksx[0]["replicated_sha"] == ranksx[1]["replicated_sha"]
+    log(f"[tp gloo] yolo11x b{TP_X_BATCH} {imgsz}, one f32 step (TF32 off), 1 x 2 vs one "
+        f"process ({one_x_s:.1f} s one process twice, {tp_x_s:.1f} s the two ranks): "
+        f"{len(ranksx[0]['sharded'])} of yolo11x's convs sharded; loss parts max rel "
+        f"{loss_x:.3e}; gradients max |diff| / max |grad| {max(rel.values()):.3e} (median "
+        f"{float(np.median(list(rel.values()))):.3e}), {len(outside)} of {len(g1)} tensors "
+        f"outside rtol {DP_F32_GRAD_TOL[0]} / atol {DP_F32_GRAD_TOL[1]}; the one-process step "
+        f"with the stem kernel one ulp off: {len(nudge_out)} outside; the largest move against "
+        f"twice the nudge's plus the bar {worst:.3f}; all gradients as one vector: |diff| / |grad| "
+        f"{l2:.3e} (bar {TP_F32_GRAD_L2}), the nudge's {l2_nudge:.3e}; replicated parameters "
+        f"bit-identical "
+        f"across the ranks {same_x}; launches per rank "
+        f"{[r['launches'] for r in ranksx]}")
+    check(len(ranksx[0]["sharded"]) == 56, f"yolo11x: {len(ranksx[0]['sharded'])} convs sharded")
+    check(same_x, "yolo11x: the replicated parameters differ between the ranks")
+    check(loss_x <= DP_F32_LOSS_RTOL, f"yolo11x f32 loss parts of 1 x 2 off by {loss_x}")
+    check(l2 <= TP_F32_GRAD_L2, f"yolo11x f32 gradients of 1 x 2 off: |diff| / |grad| {l2}")
+    check(worst <= 1.0, f"yolo11x f32 gradients of 1 x 2 off: {worst:.3f} of the floor")
+    record["yolo11x_f32"] = {
+        "batch": TP_X_BATCH, "sharded": len(ranksx[0]["sharded"]), "loss_max_rel": loss_x,
+        "grad_max_rel_of_max": max(rel.values()), "grads_outside": len(outside),
+        "one_ulp_stem_outside": len(nudge_out), "grad_worst_of_floor": worst,
+        "grad_l2_rel": l2, "one_ulp_stem_grad_l2_rel": l2_nudge,
+        "replicated_bit_identical": same_x,
+        "launches_per_rank": [r["launches"] for r in ranksx], "one_process_s": one_x_s,
+        "two_ranks_s": tp_x_s}
+    del ranksx, onex, nudgex, gx, g1, gn
+    torch.cuda.empty_cache()
+
+    # 39.3 a 1 x 2 Trainer: two places on the one card (gloo), one epoch of
+    # TP_TRAINER_STEPS steps on phase 12's data; rank 0 validates and writes
+    card0 = local_devices()[0]
+    mesh = create_mesh(1, 2, devices=[card0, card0._replace(id=1)])
+    tcfg = cfg_cls(model="yolo11n", data=str(data_yaml), imgsz=imgsz, batch=batch, epochs=1,
+                   close_mosaic=0, seed=seed, project=str(root / "runs"), name="tp_1x2",
+                   fraction=TP_TRAINER_STEPS * batch / TRAINER_IMAGES[0])
+    printed = io.StringIO()
+
+    class Tee(io.TextIOBase):
+        def write(self, s):
+            printed.write(s)
+            return sys.__stdout__.write(s)
+
+        def flush(self):
+            sys.__stdout__.flush()
+
+    t0 = time.perf_counter()
+    aa.launches = aa.bwd_launches = ns.launches = 0
+    with contextlib.redirect_stdout(Tee()):
+        trainer = Trainer(tcfg, mesh=mesh)
+        sharded = len(trainer.state.tp)
+        result = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"area_attention": aa.launches, "area_attention_bwd": aa.bwd_launches,
+                "nms_suppress": ns.launches}
+    save_dir = Path(result["save_dir"])
+    n_val = 2 * len(trainer.val_loader)  # the epoch's validation and train()'s last
+    want = trainer_launches(trainer, 1, n_val)
+    files = sorted(p.name for p in save_dir.iterdir() if p.is_file())
+    jpgs = [f"val_batch{i}_{k}.jpg" for i in range(min(3, len(trainer.val_loader)))
+            for k in ("pred", "labels")]
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    skip = [ln for ln in printed.getvalue().splitlines()
+            if ln.startswith("matplotlib is not installed")]
+    log(f"[tp trainer] Trainer(mesh 1 x 2 on the card, gloo): {sharded} convs sharded, "
+        f"{len(trainer.train_loader)} steps b{batch} and {n_val} val batches on rank 0 in "
+        f"{wall:.1f} s; launches on rank 0 {launches} (want {want}); run directory {files}; "
+        f"matplotlib installed {has_mpl}, skip lines {skip}")
+    check(trainer.mesh.shape == {"data": 1, "model": 2} and sharded == len(want_sharded),
+          f"the 1 x 2 Trainer sharded {sharded} convs")
+    check(launches == want, f"1 x 2 Trainer launches {launches}, not {want}")
+    check(all(j in files for j in jpgs), f"val_batch images missing: {files}")
+    if has_mpl:
+        check(all(f in files for f in MATPLOTLIB_FILES), f"plots missing: {files}")
+    else:
+        check(not any(f in files for f in MATPLOTLIB_FILES) and len(skip) == 1
+              and all(f in skip[0] for f in MATPLOTLIB_FILES),
+              f"without matplotlib: files {files}, skip lines {skip}")
+    record["trainer_1x2"] = {"sharded": sharded, "steps": len(trainer.train_loader),
+                             "val_batches": n_val, "wall_s": wall, "launches": launches,
+                             "files": files, "matplotlib": has_mpl, "skip_line": skip}
+    record["wall_s"] = time.perf_counter() - t_phase
+    log(f"[tp] phase 39 in {record['wall_s']:.1f} s")
+    return record, trainer, tcfg, save_dir
+
+
+# ---------------------------------------------------------------- phase 40
+
+
+def plots_matcher_spd_phase(seed: int, data_yaml: Path, root: Path, best_pt: Path, card: str,
+                            cfg_cls):
+    """Phase 40: validation with ``save_artifacts`` and the native matcher,
+    then the space-to-depth conv (see the module docstring) -> its record."""
+    import numpy as np
+    import torch
+
+    from deal_yolo_daya_tpu_torch import runtime
+    from deal_yolo_daya_tpu_torch.models.blocks import ConvBN
+    from deal_yolo_daya_tpu_torch.train import metrics
+    from deal_yolo_daya_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    record = {"card": card}
+    check(runtime.get_lib() is not None, "the native library did not build")
+    calls = []
+    native = runtime.match_predictions_native
+
+    def recorded(*a):
+        out = native(*a)
+        calls.append((a, out))
+        return out
+
+    cfg = cfg_cls(model=str(best_pt), data=str(data_yaml), imgsz=640, batch=TP_BATCH,
+                  epochs=1, seed=seed, project=str(root / "runs"), name="phase40", device="0")
+    trainer = Trainer(cfg)
+    t0 = time.perf_counter()
+    with patched(runtime, "match_predictions_native", recorded):
+        got, _ = trainer.validate(save_artifacts=True)
+    val_s = time.perf_counter() - t0
+    check(len(calls) > 0 and all(out is not None for _, out in calls),
+          f"the native matcher was taken {len(calls)} times")
+    t0 = time.perf_counter()
+    with patched(runtime, "match_predictions_native", lambda *a, **k: None):
+        loop = [metrics.match_predictions(*a[:4]) for a, _ in calls]
+    loop_s = time.perf_counter() - t0
+    differ = sum(not np.array_equal(m, out) for m, (_, out) in zip(loop, calls))
+    files = sorted(p.name for p in trainer.run.path.iterdir() if p.is_file())
+    jpgs = [f"val_batch{i}_{k}.jpg" for i in range(min(3, len(trainer.val_loader)))
+            for k in ("pred", "labels")]
+    n_pairs = sum(len(a[0]) * len(a[2]) for a, _ in calls)
+    log(f"[phase 40] validate(save_artifacts=True) of phase 39's best.pt on "
+        f"{len(trainer.val_ds)} val images in {val_s:.2f} s: the native matcher taken on "
+        f"{len(calls)} images ({n_pairs} prediction x GT pairs), mAP50 {got['map50']:.4f}; the "
+        f"numpy loop on the same inputs in {loop_s:.2f} s: {differ} matrices differ; files "
+        f"{files}")
+    check(differ == 0, f"the native matcher and the numpy loop differ on {differ} images")
+    check(all(j in files for j in jpgs), f"val_batch images missing: {files}")
+    record["matcher"] = {"images": len(calls), "pairs": n_pairs, "differ": differ,
+                         "validate_s": val_s, "numpy_loop_s": loop_s, "files": files}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ConvBN(spd=True) against the direct conv at the stem's and the Cin 16
+    # stride-2 conv's shapes, f32 with TF32 off, eval and train mode
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed + 40)
+    spd_errs = {}
+    for c, o, h in ((3, 16, 640), (16, 32, 320)):
+        x = torch.from_numpy(rng.normal(0, 1, (TP_BATCH, c, h, h)).astype(np.float32)).to(dev)
+        x = x.contiguous(memory_format=torch.channels_last)
+        direct = ConvBN(c, o, 3, 2).to(dev).to(memory_format=torch.channels_last)
+        spd = ConvBN(c, o, 3, 2, spd=True).to(dev).to(memory_format=torch.channels_last)
+        spd.load_state_dict(direct.state_dict())
+        errs = []
+        for train in (False, True):
+            with torch.no_grad():
+                a, b = direct.train(train)(x), spd.train(train)(x)
+            errs.append(float((a - b).abs().max()))
+        spd_errs[f"{c}->{o} at {h}"] = errs
+        check(max(errs) <= SPD_ATOL, f"spd {c}->{o} at {h}: max |diff| {errs}")
+    torch.backends.cudnn.allow_tf32 = True
+    log(f"[phase 40] ConvBN(spd=True) vs the direct conv, f32, TF32 off, b{TP_BATCH}, max |diff| "
+        f"(eval, train) {spd_errs} (bar {SPD_ATOL})")
+    record["spd_max_abs_diff"] = spd_errs
+    record["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase 40] in {record['wall_s']:.1f} s")
     return record
 
 
@@ -4499,6 +4940,19 @@ def main() -> int:
 
     # 38. predict's video, URL and save sources
     sources_record = sources_phase(yolo, images, root, card)
+
+    # 39. tensor parallelism on the one card: two gloo ranks of a 1 x 2 mesh
+    # against one process (yolo11n in bf16, yolo11x in f32) and a 1 x 2
+    # Trainer, whose best.pt must load whole and equal validation's model
+    tp_record, tp_trainer, tp_cfg, tp_dir = tp_phase(args.seed, data_yaml, root, card, FullConfig)
+    best_vs_validation(tp_trainer, tp_dir, tp_cfg,
+                       load_checkpoint(tp_dir / "weights" / "best.pt"), "tp 1x2")
+    del tp_trainer
+    torch.cuda.empty_cache()
+
+    # 40. validation's files and its native matcher; the space-to-depth conv
+    finish_record = plots_matcher_spd_phase(args.seed, data_yaml, root,
+                                            tp_dir / "weights" / "best.pt", card, FullConfig)
     tmp.cleanup()
     int8_record["card"] = card
     s8_row["launches_by_path"] = {
@@ -4532,6 +4986,13 @@ def main() -> int:
                      (kernels[2], "area_attention_bwd")):
         row["launches_by_path"][f"yolo11n training page (thread), {APP_IMGSZ} b{APP_BATCH}, "
                                 f"{APP_EPOCHS} epochs"] = app_record["train"]["launches"][key]
+        row["launches_by_path"][f"yolo11n 1 x 2 TP Trainer, rank 0, {TP_TRAINER_STEPS} steps "
+                                f"b{TP_BATCH}"] = tp_record["trainer_1x2"]["launches"][key]
+    for row, i in ((kernels[0], 0), (kernels[2], 1)):
+        row["launches_by_path"][f"yolo11n TP 1 x 2 gloo ranks, {TP_STEPS} steps, per rank"] = \
+            {r: n[i] for r, n in tp_record["gloo_1x2"]["launches_per_rank"].items()}
+        row["launches_by_path"]["yolo11x TP 1 x 2 gloo ranks, one f32 step, per rank"] = \
+            [n[i] for n in tp_record["yolo11x_f32"]["launches_per_rank"]]
     train_graph_record = {
         "graph_vs_eager": graph_record, "trainer_graphed": graphed_run,
         "trainer_k1": eager_run, "host_augment": host_aug, "remat": remat_record,
@@ -4563,7 +5024,7 @@ def main() -> int:
         "device_ms_per_b32": device_ms, "profiled_device_busy_ms": busy_ms,
         "profiled_wall_ms": prof_wall_ms, "card": card}, "train": train_record,
         "trainer": trainer_record, "families": family_record, "dp": dp_record,
-        "app": app_record}), flush=True)
+        "app": app_record, "tp": tp_record, "phase40": finish_record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

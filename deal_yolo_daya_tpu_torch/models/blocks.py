@@ -10,6 +10,12 @@ momentum, as in the JAX package; ``model.train()`` and ``model.eval()`` switch
 BatchNorm between batch and running statistics. ``PSAAttention`` (yolo11's
 C2PSA) and ``AAttn`` (yolo12's A2C2f) run the area-attention kernels
 (``ops/kernels/area_attention.py``), forward and backward.
+
+Under tensor parallelism (``TrainState.attach`` on a mesh with a model axis)
+the wide convs become ``ShardedConv2d``: each rank of a model group holds
+its slice of the output channels and gathers the rest (the Megatron
+pattern), and everything after the gather (BatchNorm, SiLU, the attention
+kernels on the whole qkv) runs replicated on every rank of the group.
 """
 
 from __future__ import annotations
@@ -26,6 +32,10 @@ from ..ops.kernels.area_attention import area_attention
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
+# every eligible stride-2 3x3 ConvBN through the space-to-depth lowering
+# (``spd_conv2``), as ``ConvBN(spd=True)`` does for one; the JAX package's
+# A/B switch of the same name. Read at each forward.
+SPD_STRIDE2 = False
 
 
 class _SyncBatchNorm(torch.autograd.Function):
@@ -143,20 +153,160 @@ class BatchNorm(nn.Module):
         return y
 
 
+def spd_conv2(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The stride-2 3x3 conv (padding 1) of an NCHW ``x`` with even H and W
+    by the (O, C, 3, 3) ``weight``, lowered as space-to-depth plus a 2x2
+    conv over 4C channels: the JAX ``_SPDConv2``. Output (i, j) reads input
+    rows 2i-1..2i+1; with 2x2 blocks, tap (k_r, dy) of the 2x2 kernel reads
+    row 2(i-1+k_r)+dy, so kernel row a is row a+1 of the kernel zero-padded
+    at the front to 4x4, and that row splits into (k_r, dy). Columns alike."""
+    b, c, h, w = x.shape
+    o = weight.shape[0]
+    xs = (x.reshape(b, c, h // 2, 2, w // 2, 2)
+          .permute(0, 3, 5, 1, 2, 4)                  # (b, dy, dx, c, bh, bw)
+          .reshape(b, 4 * c, h // 2, w // 2))
+    k4 = (F.pad(weight, (1, 0, 1, 0))                 # (o, c, 4, 4), front zeros
+          .reshape(o, c, 2, 2, 2, 2)                  # (o, c, k_r, dy, k_c, dx)
+          .permute(0, 3, 5, 1, 2, 4)                  # (o, dy, dx, c, k_r, k_c)
+          .reshape(o, 4 * c, 2, 2))
+    return F.conv2d(F.pad(xs, (1, 0, 1, 0)), k4)
+
+
 class ConvBN(nn.Module):
     """Conv2d (no bias) + BatchNorm + optional SiLU. After ``fuse_conv_bn``
-    the BN is folded into the conv's weight and bias and ``bn`` is Identity."""
+    the BN is folded into the conv's weight and bias and ``bn`` is Identity.
+
+    With ``spd`` (or ``SPD_STRIDE2``) a stride-2 3x3 ungrouped conv on an
+    even H and W runs as ``spd_conv2``: the same function of the same
+    ``conv.weight``, so the state dict, the weight bridge and the BN fold
+    are those of the direct conv. A conv sharded over a model group
+    (``ShardedConv2d``) runs direct."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
-                 act: bool = True):
+                 act: bool = True, spd: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
         self.bn = BatchNorm(c2)
         self.act = act
+        self.spd = spd
+
+    def _spd(self, x: torch.Tensor) -> bool:
+        conv = self.conv
+        return ((self.spd or SPD_STRIDE2) and conv.kernel_size == (3, 3)
+                and conv.stride == (2, 2) and conv.groups == 1
+                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
+                and not isinstance(conv, ShardedConv2d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
+        if self._spd(x):
+            y = spd_conv2(x, self.conv.weight)
+            if self.conv.bias is not None:  # folded
+                y = y + self.conv.bias.to(y.dtype).view(1, -1, 1, 1)
+        else:
+            y = self.conv(x)
+        x = self.bn(y)
         return F.silu(x) if self.act else x
+
+
+class _FromModelGroup(torch.autograd.Function):
+    """The input of a sharded conv: the identity forward; backward the SUM
+    of the ranks' partial input gradients over the model group, the whole
+    gradient on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp = mp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mp.all_reduce_(grad.clone(memory_format=torch.preserve_format)), None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """The output of a sharded conv: forward one all_gather of the ranks'
+    channels; backward this rank's slice of the (identical) whole gradient."""
+
+    @staticmethod
+    def forward(ctx, y, mp):
+        ctx.mp, ctx.c = mp, y.shape[1]
+        return mp.gather_channels(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(1, ctx.mp.rank * ctx.c, ctx.c), None
+
+
+class ShardedConv2d(nn.Conv2d):
+    """An ``nn.Conv2d`` of O output channels split over a model group ``mp``
+    (``parallel.ModelParallel``, M ranks): ``weight`` holds this rank's O/M
+    output channels, ``bias`` (if any) stays whole and replicated. Forward:
+    the input through ``_FromModelGroup``, the conv of the slice (a grouped
+    conv, depthwise included, reads only its slice's input channels), the
+    channels gathered by ``_GatherChannels``, then the bias. ``whole()``
+    is the plain conv these weights are a slice of."""
+
+    def __init__(self, conv: nn.Conv2d, mp):
+        o, g, m = conv.out_channels, conv.groups, mp.world
+        if o % m or (g > 1 and g % m):
+            raise ValueError(f"a conv of {o} outputs in {g} groups does not split over {m} ranks")
+        cin = conv.in_channels // m if g > 1 else conv.in_channels
+        super().__init__(cin, o // m, conv.kernel_size, conv.stride, conv.padding,
+                         conv.dilation, max(g // m, 1), bias=False, padding_mode=conv.padding_mode,
+                         device=conv.weight.device, dtype=conv.weight.dtype)
+        if conv.bias is not None:
+            self.bias = nn.Parameter(torch.empty_like(conv.bias))
+        self.mp, self.whole_shape = mp, (conv.in_channels, o, g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _FromModelGroup.apply(x, self.mp)
+        if self.groups > 1:
+            x = x.narrow(1, self.mp.rank * self.in_channels, self.in_channels)
+        y = F.conv2d(x, self.weight, None, self.stride, self.padding, self.dilation, self.groups)
+        y = _GatherChannels.apply(y, self.mp)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+        return y
+
+    def whole(self) -> nn.Conv2d:
+        """A plain conv of the whole shape, on this one's device (weights
+        uninitialised)."""
+        cin, o, g = self.whole_shape
+        return nn.Conv2d(cin, o, self.kernel_size, self.stride, self.padding, self.dilation, g,
+                         bias=self.bias is not None, padding_mode=self.padding_mode,
+                         device=self.weight.device, dtype=self.weight.dtype)
+
+
+def swap_convs(model: nn.Module, weights, convert) -> None:
+    """Replace, in place, the conv that owns each weight name of ``weights``
+    by ``convert(conv)`` (at the same place: the state-dict keys and the
+    parameter order stay), keeping its ``requires_grad`` and, on the card,
+    the channels_last layout."""
+    for name in weights:
+        parent, _, child = name.rsplit(".", 1)[0].rpartition(".")
+        owner = model.get_submodule(parent) if parent else model
+        old = getattr(owner, child)
+        new = convert(old)
+        if old.weight.is_cuda:
+            new = new.to(memory_format=torch.channels_last)
+        new.requires_grad_(old.weight.requires_grad)
+        setattr(owner, child, new)
+
+
+@torch.no_grad()
+def shard_convs(model: nn.Module, mp, weights) -> nn.Module:
+    """``model`` with the convs of ``weights`` (``tp_param_shardings``'
+    names) made ``ShardedConv2d`` over the model group ``mp``, each keeping
+    this rank's slice of its weight and its whole bias; in place."""
+    def convert(conv):
+        new = ShardedConv2d(conv, mp)
+        new.weight.copy_(conv.weight[mp.own(conv.out_channels)])
+        if conv.bias is not None:
+            new.bias.copy_(conv.bias)
+        return new
+
+    swap_convs(model, weights, convert)
+    return model
 
 
 def DWConv(c1: int, c2: int, k: int = 3, s: int = 1, act: bool = True) -> ConvBN:

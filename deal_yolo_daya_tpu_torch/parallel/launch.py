@@ -1,12 +1,18 @@
-"""Starting the ranks of a data-parallel run: one process a card.
+"""Starting the ranks of a parallel run: one process a card.
 
 ``start(mesh, target, args)`` makes this process the first rank of the
-mesh's data axis that it drives and starts the others of this host with
+mesh that it drives and starts the others of this host with
 ``torch.multiprocessing`` (spawn), each running ``target(dp, *args)`` with
 its ``DataParallel``; they meet at a ``FileStore`` in a fresh temporary
 directory (one host) or at the cluster's coordinator (``init_distributed``:
-ranks process_id x (local devices) + local rank). A process that
-``torchrun`` started joins that group instead (``current``).
+ranks process_id x (local devices) + local rank). The global rank of mesh
+place (d, m) is ``d * M + m``, the row-major order of ``mesh.devices`` (the
+JAX mesh's); after joining, every rank creates the data groups and then the
+model groups of ``sharding.group_ranks`` in the same order, and its
+``DataParallel`` carries its data group and, for M > 1, its
+``ModelParallel``. A process that ``torchrun`` started joins that group
+instead (``current``), with the same layout. A mesh that puts two ranks on
+one card takes gloo: NCCL cannot hold two ranks of a group on one card.
 
 The ranks are ``Ranks``: ``close()`` ends this rank's group and waits for
 the others; a rank that raised makes ``close()`` raise ``WorkerError`` with
@@ -36,55 +42,77 @@ import torch
 import torch.distributed as dist
 
 from .mesh import Mesh, cluster
-from .sharding import DataParallel, tp_param_shardings
+from .sharding import DataParallel, ModelParallel, group_ranks
 
 DEFAULT_TIMEOUT_S = 1800.0
-_rank_device: Optional[torch.device] = None  # this process's card in its group
+_rank_dp: Optional[DataParallel] = None  # this process's rank, while it is in a group
 
 
 class WorkerError(RuntimeError):
     """A rank of the run failed; ``rank`` and its ``traceback``."""
 
     def __init__(self, rank: int, tb: str):
-        super().__init__(f"rank {rank} of the data-parallel run failed:\n{tb}")
+        super().__init__(f"rank {rank} of the parallel run failed:\n{tb}")
         self.rank, self.traceback = rank, tb
 
 
+def _groups(rank: int, world: int, n_model: int, device: torch.device) -> DataParallel:
+    """This rank's ``DataParallel`` once the default group exists, the world
+    laid out as a (world / n_model) x n_model mesh: every group of
+    ``group_ranks`` is created by every rank, in the same order."""
+    global _rank_dp
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"a model axis of {n_model} does not divide {world} ranks")
+    if n_model == 1:
+        _rank_dp = DataParallel(rank, world, device)
+        return _rank_dp
+    d, m = divmod(rank, n_model)
+    data_groups, model_groups = group_ranks(world // n_model, n_model)
+    made = [dist.new_group(r) for r in data_groups + model_groups]
+    mp = ModelParallel(m, n_model, device, made[n_model + d], first=d * n_model)
+    _rank_dp = DataParallel(d, world // n_model, device, made[m], global_rank=rank,
+                            global_world=world, mp=mp)
+    return _rank_dp
+
+
 def _join_group(rank: int, world: int, device: torch.device, init_method: str,
-                backend: str, timeout_s: float) -> DataParallel:
-    global _rank_device
+                backend: str, timeout_s: float, n_model: int = 1) -> DataParallel:
     if device.type == "cuda":
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
-    _rank_device = device
     kwargs = {}
     if backend == "nccl":
         kwargs["device_id"] = device  # the communicator is made at once, on this card
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
-    return DataParallel(rank, world, device)
+    return _groups(rank, world, n_model, device)
 
 
 def _rank_main(rank: int, world: int, device: str, init_method: str, backend: str,
-               timeout_s: float, threads: int, target: Callable, args: tuple, results) -> None:
+               timeout_s: float, threads: int, target: Callable, args: tuple, results,
+               n_model: int = 1) -> None:
     """A spawned rank: join the group, run ``target(dp, *args)``, report."""
+    global _rank_dp
     torch.set_num_threads(threads)
     try:
-        dp = _join_group(rank, world, torch.device(device), init_method, backend, timeout_s)
+        dp = _join_group(rank, world, torch.device(device), init_method, backend, timeout_s,
+                         n_model)
         results.put((rank, True, target(dp, *args)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise SystemExit(1)
     finally:
+        _rank_dp = None
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
-def current() -> Optional[DataParallel]:
+def current(n_model: int = 1) -> Optional[DataParallel]:
     """The rank of this process when it is already in a group: a rank that
     ``start`` spawned, or one of a ``torchrun`` (``RANK``/``WORLD_SIZE``,
-    joined here over ``env://``, on card ``LOCAL_RANK``). None otherwise."""
+    joined here over ``env://``, on card ``LOCAL_RANK``, its groups made for
+    a model axis of ``n_model``). None otherwise."""
     if not dist.is_initialized():
         if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
             return None
@@ -95,10 +123,12 @@ def current() -> Optional[DataParallel]:
             torch.cuda.set_device(device)
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                                 init_method="env://")
-        return DataParallel(dist.get_rank(), dist.get_world_size(), device)
-    device = _rank_device or (torch.device("cuda", torch.cuda.current_device())
-                              if dist.get_backend() == "nccl" else torch.device("cpu"))
-    return DataParallel(dist.get_rank(), dist.get_world_size(), device)
+        return _groups(dist.get_rank(), dist.get_world_size(), n_model, device)
+    if _rank_dp is not None:
+        return _rank_dp
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    return _groups(dist.get_rank(), dist.get_world_size(), n_model, device)
 
 
 class Ranks:
@@ -109,7 +139,7 @@ class Ranks:
     def __init__(self, world: int, mine: Tuple[int, torch.device],
                  others: Sequence[Tuple[int, torch.device]], init_method: str,
                  backend: str, target: Callable, args: tuple = (),
-                 timeout_s: float = DEFAULT_TIMEOUT_S):
+                 timeout_s: float = DEFAULT_TIMEOUT_S, n_model: int = 1):
         ctx = torch.multiprocessing.get_context("spawn")
         self.results = ctx.Queue()
         self._saved_threads = torch.get_num_threads()
@@ -119,7 +149,7 @@ class Ranks:
         for rank, device in others:
             p = ctx.Process(target=_rank_main, daemon=True, args=(
                 rank, world, str(device), init_method, backend, timeout_s, threads, target,
-                tuple(args), self.results))
+                tuple(args), self.results, n_model))
             p.start()
             self.procs[rank] = p
         self.timeout_s = timeout_s
@@ -128,7 +158,8 @@ class Ranks:
         if mine[1].type == "cpu":
             torch.set_num_threads(threads)
         try:
-            self.dp = _join_group(mine[0], world, mine[1], init_method, backend, timeout_s)
+            self.dp = _join_group(mine[0], world, mine[1], init_method, backend, timeout_s,
+                                  n_model)
         except BaseException:
             self.close(failed=True)
             raise
@@ -175,13 +206,13 @@ class Ranks:
         if self._closed:
             return [self.reports[r][1] for r in sorted(self.reports)]
         self._closed = True
-        global _rank_device
+        global _rank_dp
         if failed:  # a rank that failed first has reported by now
             self._collect(time.time() + 3.0)
             first = dict(self.reports)
         if dist.is_initialized():
             dist.destroy_process_group()
-        _rank_device = None
+        _rank_dp = None
         torch.set_num_threads(self._saved_threads)
         if not failed:  # the others finish their own part
             self._collect(time.time() + self.timeout_s)
@@ -198,44 +229,55 @@ class Ranks:
         return [self.reports[r][1] for r in sorted(self.reports)]
 
 
+
+
 def rank_devices(mesh: Mesh) -> List[Tuple[int, torch.device]]:
-    """This process's (global rank, device) pairs on the mesh's data axis."""
-    tp_param_shardings(None, mesh)  # raises for a model axis above 1
+    """This process's (global rank, device) pairs on the mesh: rank
+    ``d * M + m`` at place (d, m)."""
     flat = list(mesh.devices.reshape(-1))
     mine = set(id(d) for d in mesh.local_devices())
     return [(r, d.torch_device) for r, d in enumerate(flat) if id(d) in mine]
+
+
+def default_backend(devices: Sequence[torch.device]) -> str:
+    """NCCL on distinct cards; gloo on the CPU and where ranks share a card."""
+    devices = [torch.device(d) for d in devices]
+    cards = [d for d in devices if d.type == "cuda"]
+    return "nccl" if cards and len(set(cards)) == len(devices) else "gloo"
 
 
 def start(mesh: Mesh, target: Callable, args: tuple = (), backend: Optional[str] = None,
           timeout_s: float = DEFAULT_TIMEOUT_S) -> Ranks:
     """Start this host's ranks of ``mesh`` (see the module docstring): this
     process is the first, the others run ``target(dp, *args)``. ``backend``
-    is NCCL on cards and gloo on the CPU unless given."""
+    is ``default_backend``'s unless given."""
     local = rank_devices(mesh)
     if not local:
         raise ValueError(f"{mesh} has no device of this process")
-    world = mesh.shape["data"]
-    backend = backend or ("nccl" if local[0][1].type == "cuda" else "gloo")
+    world, n_model = mesh.size, mesh.shape["model"]
+    backend = backend or default_backend([d for _, d in local])
     cl = cluster()
     if cl is not None:
         return Ranks(world, local[0], local[1:], f"tcp://{cl.coordinator}", backend, target,
-                     args, timeout_s)
-    return start_local(world, [d for _, d in local], target, args, backend, timeout_s)
+                     args, timeout_s, n_model)
+    return start_local(world, [d for _, d in local], target, args, backend, timeout_s, n_model)
 
 
 def start_local(world: int, devices: Sequence[torch.device], target: Optional[Callable] = None,
                 args: tuple = (), backend: Optional[str] = None,
-                timeout_s: float = DEFAULT_TIMEOUT_S) -> Ranks:
+                timeout_s: float = DEFAULT_TIMEOUT_S, n_model: int = 1) -> Ranks:
     """``world`` ranks on this host, rank r on ``devices[r]`` (a card may
-    carry several gloo ranks), meeting at a FileStore in a fresh temporary
-    directory, removed when the run closes; ``target`` is what the spawned
-    ranks run (none for a group of one)."""
+    carry several gloo ranks), laid out as a (world / n_model) x n_model
+    mesh, meeting at a FileStore in a fresh temporary directory, removed
+    when the run closes; ``target`` is what the spawned ranks run (none for
+    a group of one)."""
     devices = [torch.device(d) for d in devices]
-    backend = backend or ("nccl" if devices[0].type == "cuda" else "gloo")
+    backend = backend or default_backend(devices)
     tmp = tempfile.mkdtemp(prefix="dyd_ranks_")
     try:
         ranks = Ranks(world, (0, devices[0]), list(enumerate(devices))[1:],
-                      f"file://{os.path.join(tmp, 'store')}", backend, target, args, timeout_s)
+                      f"file://{os.path.join(tmp, 'store')}", backend, target, args, timeout_s,
+                      n_model)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
@@ -252,10 +294,12 @@ def start_local(world: int, devices: Sequence[torch.device], target: Optional[Ca
 
 
 def run(target: Callable, world: int, devices: Sequence, args: tuple = (),
-        backend: Optional[str] = None, timeout_s: float = DEFAULT_TIMEOUT_S) -> List[Any]:
-    """``target(dp, *args)`` on ``world`` local ranks, this process being
-    rank 0 -> every rank's result in rank order."""
-    ranks = start_local(world, devices, target, args, backend, timeout_s)
+        backend: Optional[str] = None, timeout_s: float = DEFAULT_TIMEOUT_S,
+        n_model: int = 1) -> List[Any]:
+    """``target(dp, *args)`` on ``world`` local ranks of a (world / n_model)
+    x n_model mesh, this process being rank 0 -> every rank's result in
+    rank order."""
+    ranks = start_local(world, devices, target, args, backend, timeout_s, n_model)
     try:
         mine = target(ranks.dp, *args)
     except BaseException:

@@ -5,8 +5,10 @@ The JAX package lays its devices out as a ``jax.sharding.Mesh`` with a
 ``data`` axis (batch sharding, the gradient all-reduce inserted by XLA) and
 a ``model`` axis (tensor parallelism). Here a ``Mesh`` is the same (data,
 model) array of devices, and a device is a CUDA card of one process. The
-Trainer runs one rank a card of the ``data`` axis (``parallel/launch.py``);
-a ``model`` axis above 1 is not ported yet (ROADMAP.md section 1).
+Trainer runs one rank a device of the mesh (``parallel/launch.py``), global
+rank ``d * M + m`` at place (d, m), the row-major order of ``devices``: the
+rows of a batch split over ``data``, the wide convs' output channels over
+``model`` (``parallel/sharding.py``).
 
 The device grammar is ``mesh_from_spec``'s, as in the JAX package, with two
 of the port's own spellings: ``"cpu"`` (one CPU rank) and ``"0"`` (the

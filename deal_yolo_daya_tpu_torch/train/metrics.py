@@ -1,15 +1,18 @@
 """Detection metrics: precision, recall, mAP50 and mAP50-95 with the
 101-point interpolated AP of the ultralytics validator.
 
-The port's copy of ``deal_yolo_daya_tpu/train/metrics.py``: host numpy. The
-JAX package matches predictions to GT with a native (C++) matcher when it is
-built; the port runs the numpy greedy loop, which that matcher is pinned
-bit-identical to.
+The port's copy of ``deal_yolo_daya_tpu/train/metrics.py``: host numpy.
+Predictions are matched to GT by the native (C++) matcher of
+``runtime/labelscan.cpp`` where its library builds (``runtime.
+match_predictions_native``), as in the JAX package, else by the numpy
+greedy loop below, which that matcher is held bit-identical to.
 
 Matching per image: predictions sorted by confidence; for each IoU
 threshold t in 0.50:0.95:0.05 a prediction is a true positive when it
 overlaps an unmatched GT of its class with IoU >= t, pairs taken greedily by
-IoU.
+IoU. IoU and t are float32 in both matchers, as in the ultralytics validator
+(a float32 tensor against a Python threshold): at 0.65, 0.7, 0.9 and 0.95
+float32 rounds t down, so an IoU of exactly float32(t) matches.
 """
 
 from __future__ import annotations
@@ -43,9 +46,17 @@ def match_predictions(pred_boxes: np.ndarray, pred_cls: np.ndarray,
     correct = np.zeros((n_pred, len(IOU_THRESHOLDS)), bool)
     if n_pred == 0 or len(gt_boxes) == 0:
         return correct
-    iou = iou_matrix(gt_boxes, pred_boxes)  # (n_gt, n_pred)
-    iou = iou * (gt_cls[:, None] == pred_cls[None, :])
-    for ti, t in enumerate(IOU_THRESHOLDS):
+    thresholds = IOU_THRESHOLDS.astype(np.float32)
+    # the same greedy matching in C++: the numpy loop costs about 0.8 s of
+    # host time per 300 validation images at 640 (the JAX package's count)
+    from ..runtime import match_predictions_native
+
+    native = match_predictions_native(pred_boxes, pred_cls, gt_boxes, gt_cls, thresholds)
+    if native is not None:
+        return native
+    iou = iou_matrix(np.asarray(gt_boxes, np.float32), np.asarray(pred_boxes, np.float32))
+    iou = iou * (gt_cls[:, None] == pred_cls[None, :])  # (n_gt, n_pred)
+    for ti, t in enumerate(thresholds):
         gi, pi = np.nonzero(iou >= t)
         if len(gi) == 0:
             continue

@@ -103,21 +103,29 @@ def ema_decay(step: int, decay: float = EMA_DECAY) -> float:
     return decay * (1 - math.exp(-step / 2000.0))
 
 
-def param_groups(model: nn.Module) -> Dict[str, List[nn.Parameter]]:
-    """The three groups: conv kernels (decayed), BatchNorm weights, biases.
-    Parameters that take no gradient (frozen modules) are left out."""
-    groups: Dict[str, List[nn.Parameter]] = {"decay": [], "no_decay": [], "bias": []}
-    for mod in model.modules():
+def named_param_groups(model: nn.Module) -> Dict[str, List[str]]:
+    """The three groups by parameter name: conv kernels (decayed), BatchNorm
+    weights, biases. Parameters that take no gradient (frozen modules) are
+    left out."""
+    groups: Dict[str, List[str]] = {"decay": [], "no_decay": [], "bias": []}
+    for prefix, mod in model.named_modules():
         for name, p in mod.named_parameters(recurse=False):
             if not p.requires_grad:
                 continue
+            full = f"{prefix}.{name}" if prefix else name
             if name == "bias":
-                groups["bias"].append(p)
+                groups["bias"].append(full)
             elif isinstance(mod, nn.Conv2d):
-                groups["decay"].append(p)
+                groups["decay"].append(full)
             else:
-                groups["no_decay"].append(p)
+                groups["no_decay"].append(full)
     return groups
+
+
+def param_groups(model: nn.Module) -> Dict[str, List[nn.Parameter]]:
+    """``named_param_groups``' parameters."""
+    return {k: [model.get_parameter(n) for n in names]
+            for k, names in named_param_groups(model).items()}
 
 
 class _Group:
@@ -162,12 +170,17 @@ class Optimizer:
         return [t for g in self.groups for t in g.grads]
 
     @torch.no_grad()
-    def flatten_grads(self) -> torch.Tensor:
+    def flatten_grads(self, last: Sequence[torch.Tensor] = ()) -> torch.Tensor:
         """Move every gradient into one flat buffer and return it: each
         ``.grad`` becomes a view of it with its parameter's strides, so that
         the backward adds into the buffer and one all-reduce of it carries
-        every gradient (data parallelism). Idempotent."""
+        every gradient (data parallelism). The parameters in ``last`` (by
+        identity; tensor parallelism's sharded ones) take its end, the rest
+        its start, in group order. Idempotent."""
+        at_end = {id(p) for p in last}
         params = [p for g in self.groups for p in g.params]
+        params = [p for p in params if id(p) not in at_end] + \
+            [p for p in params if id(p) in at_end]
         flat = getattr(self, "flat_grad", None)
         if flat is not None or not params:
             return flat

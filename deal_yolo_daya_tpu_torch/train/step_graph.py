@@ -32,8 +32,10 @@ indices are local to it; the iteration gathers the ranks' rows into the
 global raw batch, augments this rank's rows with the global draws and runs
 the distributed iteration, so the graph holds every collective of the step
 (the raw-batch all_gather, the BatchNorm moments, the loss normaliser, the
-gradient all-reduce). NCCL's collectives can be captured; gloo's cannot, and
-a program over a gloo group on the card raises.
+gradient all-reduce); under a model axis also the model group's (each
+sharded conv's channel all_gather and input-gradient SUM, the replicated
+gradients' broadcast). NCCL's collectives can be captured; gloo's cannot,
+and a program over a gloo group on the card raises.
 """
 
 from __future__ import annotations

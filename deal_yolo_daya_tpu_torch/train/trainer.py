@@ -17,7 +17,10 @@ on-card augmentation (``train/device_augment.py``) with the per-step seed
 ``(seed << 20) + epoch * 16384 + step``, the dataset held on the card
 (``cache="device"``), validation with the EMA weights after each epoch,
 ``results.csv`` and ``args.yaml``, ``weights/{last,best,epochN}.pt`` and
-resume, and the JAX Trainer's options on one device:
+resume, the run directory's plots at the end (``validate(save_artifacts=
+True)`` and ``RunDir.plot_results``; without matplotlib the PIL val_batch
+images alone, with one printed line), and the JAX Trainer's options on one
+device:
 
 - ``steps_per_dispatch``: with the device cache, K steps a dispatch, each
   a replay of one CUDA graph of the whole iteration (``train/step_graph.py``,
@@ -33,24 +36,31 @@ resume, and the JAX Trainer's options on one device:
   (``train/async_ckpt.py``) and ``batch=-1`` (``train/autobatch.py``).
 
 ``device`` takes the JAX grammar (``parallel/mesh.py::mesh_from_spec``):
-"" every card, "N" the first N, "2x4@dcn" two hosts of four, plus "cpu"
-and "0" (the first card). With D > 1 cards on the data axis the Trainer is
-data parallel, one rank a card (``parallel/launch.py``), and computes what
-the JAX Trainer computes on a D-device mesh: ``batch`` is the global batch
-(rounded down to a multiple of D), each rank takes its B / D rows of it,
-and the step is the one-device step of the global batch
-(``TrainState.attach``). The device cache is split by rows over the ranks
-(``DataLoader.sharded_epoch_indices``); the streamed path loads each rank's
-rows; the on-card augmentation draws for the global batch. Rank 0 alone
-validates, writes the run directory, ``results.csv`` and the checkpoints,
-and decides the early stops for every rank. A Trainer made in a plain
-process starts the other ranks itself and is rank 0; in a process of a
-``torchrun`` or of ``init_distributed``'s cluster it is that rank. A model
-axis above 1 (tensor parallelism) is not ported yet (ROADMAP.md).
+"" every card, "N" the first N, "AxB" A data x B model, "2x4@dcn" two
+hosts of four, plus "cpu" and "0" (the first card); ``mesh`` (the JAX
+Trainer's argument) gives the mesh itself. On a D x M mesh of more than one
+device the Trainer runs one rank a device (``parallel/launch.py``, global
+rank d * M + m) and computes what the JAX Trainer computes on that mesh:
+``batch`` is the global batch (rounded down to a multiple of D), the ranks
+of data index d take its rows d * B / D on, and the step is the one-device
+step of the global batch (``TrainState.attach``); with M > 1 the wide
+convs' output channels are split over the model group (tensor parallelism,
+``tp_param_shardings`` at 256 channels, the JAX Trainer's). The device
+cache (the JAX rule: by default on one device only) is split by rows over
+the data index and replicated over the model group
+(``DataLoader.sharded_epoch_indices``); the streamed path loads each data
+index's rows; the on-card augmentation draws for the global batch, the same
+draws on every rank of a model group. Every rank gathers the whole state
+after an epoch; rank 0 alone validates with the whole EMA model, writes the
+run directory, ``results.csv``, the plots and the checkpoints (whole
+tensors under the one-device keys), and decides the early stops for every
+rank. A Trainer made in a plain process starts the other ranks itself and
+is rank 0; in a process of a ``torchrun`` or of ``init_distributed``'s
+cluster it is that rank.
 
-The plots are not ported (ROADMAP.md). ``donate`` and ``fold_div_barrier``
-are accepted and have no counterpart: PyTorch frees buffers itself, and the
-barrier works around an XLA compiler fault.
+``donate`` and ``fold_div_barrier`` are accepted and have no counterpart:
+PyTorch frees buffers itself, and the barrier works around an XLA compiler
+fault.
 """
 
 from __future__ import annotations
@@ -71,8 +81,9 @@ from torch.func import functional_call
 
 from ..device import resolve_device
 from ..parallel import launch
-from ..parallel.mesh import mesh_from_spec
+from ..parallel.mesh import Mesh, mesh_from_spec
 from ..parallel.sharding import tp_param_shardings
+from ..models.blocks import ShardedConv2d, swap_convs
 from ..models.registry import FAMILIES, infer_arch, make_detector, parse_model_spec
 from ..models.torch_import import import_state_dict, read_torch_checkpoint
 from ..models.yolo11 import init_weights
@@ -86,13 +97,15 @@ from .data import DataLoader, Prefetcher, YoloDataset
 from .device_augment import DeviceAugConfig, augment_batch, step_seed
 from .step_graph import StepProgram, auto_steps_per_dispatch
 from .loss import LossConfig, detection_loss
-from .metrics import DetMetrics
+from .metrics import DetMetrics, confusion_matrix
 from .optimizer import (H_EMA_DECAY, H_GRAD_KEEP, N_HYPER, Optimizer, OptimizerConfig,
-                        accumulate_gradients, ema_decay, ema_update, lr_schedule)
+                        accumulate_gradients, ema_decay, ema_update, lr_schedule,
+                        named_param_groups)
 
 STEM_KERNEL = "0.conv.weight"
 LOSS_PARTS = ("box_loss", "cls_loss", "dfl_loss", "num_fg")
 CHECKPOINT_FORMAT = "deal_yolo_daya_tpu_torch/trainer-checkpoint-1"
+TP_MIN_CHANNELS = 256  # the JAX Trainer's tp_param_shardings default
 
 
 @dataclass
@@ -220,7 +233,23 @@ class TrainState:
     global batch and computes the one-process step of the global batch, as
     the JAX step under a sharded mesh: BatchNorm over the global batch, the
     loss over the global target-score sum, and the gradients summed over the
-    ranks (one all-reduce of the flat gradient buffer an update).
+    ranks (one all-reduce of the flat gradient buffer an update). A group
+    of one rank runs the same collectives, except the data group of one of
+    a 1 x M mesh (``dp.alone``), whose BatchNorm and reductions stay local.
+
+    Where ``dp.mp`` is set (a model axis M > 1) the convs that
+    ``tp_param_shardings`` picks become ``ShardedConv2d``: this rank keeps
+    their slices of the weights, the SGD momentum or Adam moments, the EMA
+    and the gradients (``tp``: their names), the rest stays whole and
+    replicated over the model group. The flat gradient holds the replicated
+    gradients first and the slices last; after its all-reduce over the data
+    group, the replicated part is broadcast from the model group's first
+    rank, so that the replicas stay bit-identical whatever order a kernel
+    sums in. ``state_views()`` (and so ``state()``, the checkpoints and the
+    EMA validation forward) gathers the whole tensors: a collective, which
+    every rank of the model group makes at the same point, and which stays
+    valid until the next step. ``detach()`` gathers them into the one-device
+    state again.
 
     >>> state = TrainState(TrainConfig(), nc=80, steps_per_epoch=100)  # on the card
     >>> total = state.step(images_u8, gt_boxes, gt_classes, gt_mask)
@@ -261,30 +290,119 @@ class TrainState:
         self.updates = 0  # micro-batch steps taken (the JAX state.step)
         self.loss_acc = {k: torch.zeros((), device=self.device) for k in LOSS_PARTS}
         self.hyper = torch.zeros(N_HYPER, device=self.device)
+        self.nc = nc
         self.dp = None
+        self.tp: Dict[str, int] = {}  # the sharded weights (tensor parallelism)
+        self._whole: Optional[Dict[str, Any]] = None  # gathered since the last step
+        self._eval_model = None
 
-    def attach(self, dp) -> None:
-        """Join the data-parallel group ``dp``: every BatchNorm synchronises
-        over it, the gradients move into one flat buffer, and rank 0's
-        parameters, statistics, EMA and optimizer state are copied to every
-        rank."""
+    def attach(self, dp, min_channels: int = TP_MIN_CHANNELS) -> None:
+        """Join the group ``dp``: rank 0's parameters, statistics, EMA and
+        optimizer state are copied to every rank, each BatchNorm synchronises
+        over the data group, and the gradients move into one flat buffer.
+        Under a model axis the convs of ``tp_param_shardings(model, M,
+        min_channels)`` are then sharded (see the class docstring)."""
+        views = self.local_views()
+        dp.broadcast_([*views["model"].values(), *views["ema"].values(),
+                       *self.optimizer.inner.grads(),
+                       *[t for st in views["optimizer"]["optimizer"]["state"].values()
+                         for t in st.values()]])
         self.dp = dp
+        if dp.mp is not None:
+            self.tp = tp_param_shardings(self.model, dp.mp.world, min_channels)
+            self._rebuild(views, lambda conv: ShardedConv2d(conv, dp.mp), self._own_slice)
         for mod in self.model.modules():
             if hasattr(mod, "update_stats"):  # models.blocks.BatchNorm
-                mod.dp = dp
-        self.flat_grad = self.optimizer.inner.flatten_grads()
-        views = self.state_views()
-        tensors = [*views["model"].values(), *views["ema"].values(), *self.optimizer.inner.grads(),
-                   *[t for st in views["optimizer"]["optimizer"]["state"].values()
-                     for t in st.values()]]
-        dp.broadcast_(tensors)
+                mod.dp = None if dp.alone else dp
+        sharded = [self.model.get_parameter(n) for n in self.tp]
+        self.flat_grad = self.optimizer.inner.flatten_grads(last=sharded)
+        # the replicated gradients: the flat buffer's start
+        n_rep = self.flat_grad.numel() - sum(p.numel() for p in sharded if p.requires_grad)
+        self._replicated_grad = self.flat_grad[:n_rep]
 
-    def detach(self) -> None:
-        """Leave the data-parallel group: the one-device step again."""
+    def detach(self, gather: bool = True) -> None:
+        """Leave the group: the one-device step again. Under a model axis
+        the whole tensors are gathered first (a collective: every rank of
+        the group detaches), unless ``gather`` is False (a failed run, whose
+        state is then left as it is)."""
+        if self.tp and gather:
+            self._rebuild(self.state_views(), lambda conv: conv.whole(), lambda name, t: t)
+            self.tp = {}
+            self._eval_model = None
         self.dp = None
         for mod in self.model.modules():
             if hasattr(mod, "update_stats"):
                 mod.dp = None
+
+    def _own_slice(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the whole tensor ``t`` of parameter ``name``."""
+        if name not in self.tp:
+            return t
+        return t.narrow(0, self.dp.mp.own(t.shape[0]).start, t.shape[0] // self.dp.mp.world)
+
+    def _param_order(self):
+        """Parameter names in the optimizer's order (its state's indices)."""
+        return [n for names in named_param_groups(self.model).values() for n in names]
+
+    def _map_views(self, views: Dict[str, Any], fn: Callable[[str, torch.Tensor], Any]):
+        """``views`` (``local_views()``'s layout) with ``fn(name, t)`` in
+        place of each parameter tensor, EMA, optimizer state and summed
+        gradient; the BN statistics as they are."""
+        order = self._param_order()
+        opt = dict(views["optimizer"])
+        inner = {"state": {i: {k: fn(order[i], v) for k, v in st.items()}
+                           for i, st in opt["optimizer"]["state"].items()}}
+        opt["optimizer"] = inner
+        if opt.get("grads") is not None:
+            opt["grads"] = [fn(order[i], g) for i, g in enumerate(opt["grads"])]
+        return {"model": {k: fn(k, v) for k, v in views["model"].items()},
+                "ema": {k: fn(k, v) for k, v in views["ema"].items()},
+                "optimizer": opt, "updates": views["updates"]}
+
+    def _rebuild(self, views: Dict[str, Any], convert: Callable, take: Callable) -> None:
+        """Swap each conv of ``tp`` for ``convert(conv)``, make the optimizer,
+        the parameter list and the EMA anew over the model, and load
+        ``take(name, t)`` of every tensor of ``views`` (the whole state)."""
+        views = self._map_views(views, take)
+        swap_convs(self.model, self.tp, convert)
+        acc = self.optimizer
+        self.optimizer = accumulate_gradients(acc.k, Optimizer(self.opt_cfg, self.model),
+                                              mean=acc.mean)
+        self.params = [p.detach() for p in self.model.parameters()]
+        self.ema = [p.clone() for p in self.params]
+        self.load_state(views)
+
+    def whole(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Parameter-named tensors of this rank -> the whole ones: the slices
+        of the sharded names gathered over the model group (a collective),
+        the rest as they are."""
+        if not self.tp:
+            return dict(tensors)
+        names = [n for n in tensors if n in self.tp]
+        out = dict(tensors)
+        for n, t in zip(names, self.dp.mp.gather_slices([tensors[n] for n in names])):
+            out[n] = t
+        return out
+
+    def local_views(self) -> Dict[str, Any]:
+        """What ``state()`` holds, as this rank's live tensors on the device
+        (slices of the sharded ones under a model axis)."""
+        return {"model": {k: v.detach() for k, v in self.model.state_dict().items()},
+                "ema": self.ema_state_dict(), "optimizer": self.optimizer.state_dict(),
+                "updates": self.updates}
+
+    def eval_model(self):
+        """The module the validation forward runs: the model, or under a
+        model axis a plain detector of its whole shape on this device (its
+        own weights unused: the forward passes all of them)."""
+        if not self.tp:
+            return self.model
+        if self._eval_model is None:
+            model = make_detector(self.family, self.scale, self.nc).to(self.device)
+            if self.device.type == "cuda":
+                model = model.to(memory_format=torch.channels_last)
+            self._eval_model = model
+        return self._eval_model
 
     def zero_loss_acc(self) -> None:
         """Set the loss sums to 0, in place (a captured step adds into them)."""
@@ -295,18 +413,19 @@ class TrainState:
         """The EMA parameters under the model's state-dict names."""
         return {name: e for (name, _), e in zip(self.model.named_parameters(), self.ema)}
 
-    def _apply(self, images: torch.Tensor, params: Dict[str, torch.Tensor]):
+    def _apply(self, images: torch.Tensor, params: Dict[str, torch.Tensor], model=None):
+        model = self.model if model is None else model
         x = images.permute(0, 3, 1, 2).to(self.dtype)  # NCHW view of the NHWC batch
         params = dict(params)
         if self.cfg.fold_input_div:
             params[STEM_KERNEL] = params.get(
-                STEM_KERNEL, self.model.get_parameter(STEM_KERNEL)) * (1.0 / 255.0)
+                STEM_KERNEL, model.get_parameter(STEM_KERNEL)) * (1.0 / 255.0)
         else:
             x = x / 255.0
         # no cast cache: a CUDA graph must not keep casts across its capture
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.cfg.amp,
                             cache_enabled=False):
-            return functional_call(self.model, params, (x,))
+            return functional_call(model, params, (x,))
 
     def forward(self, images: torch.Tensor):
         """The training forward of a u8 (B, S, S, 3) batch -> per-level
@@ -316,7 +435,16 @@ class TrainState:
     @torch.no_grad()
     def eval_forward(self, images: torch.Tensor, use_ema: bool = True):
         """The forward of validation: eval mode (running statistics), the EMA
-        parameters (or the live ones), unfused."""
+        parameters (or the live ones), unfused. Under a model axis the whole
+        ones, on ``eval_model()``: ``state_views()`` must have been gathered
+        since the last step (the Trainer does it on every rank)."""
+        if self.tp:
+            if self._whole is None:
+                raise RuntimeError("the whole state is not gathered since the last step "
+                                   "(every rank of the model group calls state_views())")
+            params = {**self._whole["model"], **(self._whole["ema"] if use_ema else {})}
+            model = self.eval_model().eval()
+            return self._apply(images, params, model)
         self.model.eval()
         try:
             return self._apply(images, self.ema_state_dict() if use_ema else {})
@@ -345,6 +473,7 @@ class TrainState:
             row[H_EMA_DECAY] = ema_decay(acc.updates + 1)
         acc.advance()
         self.updates += 1
+        self._whole = None
         self.hyper.copy_(torch.tensor(row, pin_memory=self.device.type == "cuda"),
                          non_blocking=True)
         return update
@@ -362,6 +491,8 @@ class TrainState:
         if update:
             if self.dp is not None:  # the global batch's gradient: SUM over the ranks
                 self.dp.all_reduce_(self.flat_grad)
+                if self.tp:  # one value of each replicated gradient in the model group
+                    self.dp.mp.broadcast_([self._replicated_grad])
             self.optimizer.apply(self.hyper)
             ema_update(self.ema, self.params, self.hyper[H_EMA_DECAY])
         with torch.no_grad():
@@ -380,10 +511,17 @@ class TrainState:
         return self.iteration(images, gt_boxes, gt_classes, gt_mask, self.next_hyper())
 
     def state_views(self) -> Dict[str, Any]:
-        """What ``state()`` holds, as the live tensors on the device."""
-        return {"model": {k: v.detach() for k, v in self.model.state_dict().items()},
-                "ema": self.ema_state_dict(), "optimizer": self.optimizer.state_dict(),
-                "updates": self.updates}
+        """What ``state()`` holds, as tensors on the device: the live ones,
+        or under a model axis the whole ones, gathered once a step (a
+        collective the first time after a step; see the class docstring)."""
+        if not self.tp:
+            return self.local_views()
+        if self._whole is None:
+            views, slices = self.local_views(), []
+            self._map_views(views, lambda n, t: slices.append(t) if n in self.tp else None)
+            whole = iter(self.dp.mp.gather_slices(slices))  # in the order they were met
+            self._whole = self._map_views(views, lambda n, t: next(whole) if n in self.tp else t)
+        return self._whole
 
     def state(self) -> Dict[str, Any]:
         """Parameters and BN statistics and EMA, the optimizer's state and
@@ -391,7 +529,9 @@ class TrainState:
         return to_host(self.state_views())
 
     def load_state(self, state: Dict[str, Any]) -> None:
-        """Restore what ``state()`` returned, in place."""
+        """Restore what ``state()`` returned (this rank's slices under a
+        model axis), in place."""
+        self._whole = None
         self.model.load_state_dict(state["model"], strict=True)
         ema = state["ema"]
         with torch.no_grad():
@@ -436,9 +576,9 @@ def inference_state_dict(ckpt: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {**ckpt["model"], **ckpt["ema"]}
 
 
-def _train_rank(dp, cfg: "TrainConfig") -> None:
-    """A spawned rank of a data-parallel Trainer (``parallel/launch.py``)."""
-    Trainer(cfg).train()
+def _train_rank(dp, cfg: "TrainConfig", mesh: Mesh) -> None:
+    """A spawned rank of a parallel Trainer (``parallel/launch.py``)."""
+    Trainer(cfg, mesh=mesh).train()
 
 
 class Trainer:
@@ -456,19 +596,23 @@ class Trainer:
     data-parallel run rank 0's weights reach every rank).
 
     ``extra["dist_timeout_s"]`` bounds a wait in a collective of a
-    data-parallel run (default 1800 s): the other ranks wait there while
-    rank 0 validates."""
+    parallel run (default 1800 s): the other ranks wait there while rank 0
+    validates.
+
+    ``mesh`` (a ``parallel.Mesh``) in place of ``config.device``'s: for
+    example two places on one card, whose ranks then meet over gloo."""
 
     def __init__(self, config: TrainConfig,
                  init_state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 eval_apply: Optional[Callable[[torch.Tensor], Any]] = None):
+                 eval_apply: Optional[Callable[[torch.Tensor], Any]] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg = config
         # validation's forward in place of the EMA model's: a u8 (B, S, S, 3)
         # batch -> per-level (box, cls), e.g. the int8 model (api.val)
         self._eval_apply = eval_apply
         self._ranks = None
-        self.dp = self._join_ranks(dataclasses.replace(cfg, extra=dict(cfg.extra)))
-        self.rank = self.dp.rank if self.dp is not None else 0
+        self.dp = self._join_ranks(dataclasses.replace(cfg, extra=dict(cfg.extra)), mesh)
+        self.rank = self.dp.global_rank if self.dp is not None else 0
         try:
             self._setup(init_state_dict)
         except BaseException:
@@ -525,7 +669,7 @@ class Trainer:
         if cfg.device_augment is None:  # the card (see the module docstring)
             cfg.device_augment = True
         if cfg.cache is None:  # the JAX rule: the device cache on one device only
-            cfg.cache = "device" if cfg.device_augment and n_data == 1 else False
+            cfg.cache = "device" if cfg.device_augment and self.mesh.size <= 1 else False
         if cfg.batch < 0:
             # the per-card batch, probed on rank 0's card, times D
             on_card = cfg.cache == "device" and cfg.device_augment
@@ -596,28 +740,28 @@ class Trainer:
 
     # ------------------------------------------------------------------ ranks
 
-    def _join_ranks(self, cfg: TrainConfig):
-        """The mesh of ``cfg.device`` -> this process's ``DataParallel``, or
-        None on one device (``self.device`` set either way). A plain process
-        asked for D > 1 devices starts the other ranks of its host here, each
-        running ``Trainer(cfg).train()`` on the config as given."""
+    def _join_ranks(self, cfg: TrainConfig, mesh: Optional[Mesh]):
+        """The mesh (``mesh``, or ``cfg.device``'s) -> this process's
+        ``DataParallel``, or None on one device (``self.device`` set either
+        way). A plain process asked for more than one device starts the
+        other ranks of its host here, each running ``Trainer(cfg,
+        mesh=mesh).train()`` on the config as given."""
         spec = str(cfg.device or "")
-        self.mesh = mesh = mesh_from_spec(spec or None)
-        tp_param_shardings(None, mesh)  # a model axis above 1 raises: not ported
-        self.n_data = mesh.shape["data"]
+        self.mesh = mesh = mesh if mesh is not None else mesh_from_spec(spec or None)
+        self.n_data, self.n_model = mesh.shape["data"], mesh.shape["model"]
         if mesh.size == 0:  # no card: never the CPU unless asked for
             self.device = resolve_device("cuda")
-        if self.n_data <= 1:  # the first device: "cuda" (the current card) or the CPU
+        if mesh.size <= 1:  # the first device: "cuda" (the current card) or the CPU
             self.device = resolve_device(mesh.devices.reshape(-1)[0].torch_device.type)
             return None
-        dp = launch.current()
+        dp = launch.current(self.n_model)
         if dp is None:
-            self._ranks = launch.start(mesh, _train_rank, (cfg,), timeout_s=float(
+            self._ranks = launch.start(mesh, _train_rank, (cfg, mesh), timeout_s=float(
                 cfg.extra.get("dist_timeout_s", launch.DEFAULT_TIMEOUT_S)))
             dp = self._ranks.dp
-        if dp.world != self.n_data:
-            raise ValueError(f"device={spec!r} asks for {self.n_data} ranks; this process's "
-                             f"group has {dp.world}")
+        if (dp.world, dp.mp.world if dp.mp is not None else 1) != (self.n_data, self.n_model):
+            raise ValueError(f"device={spec!r} asks for a {self.n_data}x{self.n_model} mesh; "
+                             f"this process's group has {dp.global_world} ranks")
         self.device = dp.device
         return dp
 
@@ -628,12 +772,12 @@ class Trainer:
         return self.dp.decide(fn() if self.rank == 0 else None)
 
     def close(self, failed: bool = False) -> None:
-        """End the data-parallel run this Trainer started (leave the group,
-        wait for the other ranks; a rank that failed raises ``WorkerError``).
-        ``train()`` calls it; nothing to do on one device."""
+        """End the parallel run this Trainer started (leave the group, wait
+        for the other ranks; a rank that failed raises ``WorkerError``).
+        ``train()`` calls it, on every rank; nothing to do on one device."""
         state = getattr(self, "state", None)
         if state is not None:
-            state.detach()
+            state.detach(gather=not failed)
         ranks, self._ranks = self._ranks, None
         if ranks is not None:
             ranks.close(failed)
@@ -678,7 +822,7 @@ class Trainer:
             self._dev_cache_failed = True
             return None
         t0 = time.time()
-        first = self.rank * shard_n
+        first = (self.dp.rank if self.dp is not None else 0) * shard_n
         stop = min(first + shard_n, n)
         parts, offset = None, 0
         for chunk in dl.raw_chunks(first=first, stop=stop):
@@ -791,7 +935,8 @@ class Trainer:
     def steps_per_dispatch(self, n_batches: int = 0) -> int:
         """The resolved K (``auto_steps_per_dispatch``; 1 on several
         devices unless given)."""
-        return auto_steps_per_dispatch(self.cfg.steps_per_dispatch, n_batches, self.n_data == 1)
+        return auto_steps_per_dispatch(self.cfg.steps_per_dispatch, n_batches,
+                                       self.mesh.size <= 1)
 
     def _epoch_indices(self, epoch: int):
         """The epoch's batches of the device cache: dataset indices, or this
@@ -912,7 +1057,8 @@ class Trainer:
         t0 = time.time()
         if lead:
             print(f"training {self.family}{self.scale} nc={self.nc} imgsz={cfg.imgsz} "
-                  f"batch={cfg.batch} device={self.device} ranks={self.n_data} "
+                  f"batch={cfg.batch} device={self.device} ranks={self.mesh.size} "
+                  f"mesh={self.n_data}x{self.n_model} "
                   f"epochs={cfg.epochs}")
         for epoch in range(self.start_epoch, cfg.epochs):
             if cfg.close_mosaic and cfg.epochs - epoch <= cfg.close_mosaic:
@@ -928,6 +1074,8 @@ class Trainer:
                     self.dp.all_reduce_(sums)
                 losses = {k: v / n_steps for k, v in zip(losses, sums.tolist())}
             lr_step = self.state.updates // self.accumulate  # in optimizer steps
+            if self.state.tp:  # every rank: the whole state rank 0 validates and saves
+                self.state.state_views()
             t_stepsync = time.time()
 
             metrics = {"precision": 0.0, "recall": 0.0, "map50": 0.0, "map": 0.0}
@@ -985,8 +1133,11 @@ class Trainer:
 
         self._program = None  # its graphs' memory pool goes with it
         self._writer.close()
-        final_metrics = self.validate()[0] if cfg.val and lead else {}
+        final_metrics = {}
         if lead:
+            if cfg.val:
+                final_metrics = self.validate(save_artifacts=True)[0]
+            self.run.plot_results()
             print(f"training done in {time.time() - t0:.1f} s; results in {self.run.path}")
         return {"save_dir": self.run.path, "best_fitness": best_fit, "metrics": final_metrics}
 
@@ -1016,11 +1167,16 @@ class Trainer:
         unmap = lambda b: torch.minimum(torch.clamp((b - pad) / scale, min=0.0), lim)  # noqa: E731
         return det, unmap(det[0]), unmap(gt_boxes), parts
 
-    def validate(self, use_ema: bool = True):
-        """Validate on the val set -> (metrics, mean val loss parts)."""
+    def validate(self, save_artifacts: bool = False, use_ema: bool = True):
+        """Validate on the val set -> (metrics, mean val loss parts). With
+        ``save_artifacts`` also the run directory's validation images (the
+        first three batches' predictions and labels), confusion matrices and
+        PR/F1/P/R curves, as the JAX Trainer writes them."""
         cfg = self.cfg
         det_metrics = DetMetrics(nc=self.nc)
         loss_parts: list = []
+        cm_preds, cm_gts = [], []
+        batches_saved = 0
         # COCO-format predictions: xywh in original pixels, image_id from the stem
         json_records: Optional[list] = [] if cfg.save_json else None
 
@@ -1037,13 +1193,17 @@ class Trainer:
             return (batch, gtm) + self.eval_step(*args, use_ema=use_ema)
 
         def consume(staged):
-            batch, gtm, (_, osc, ocl, nd), pb, gb, parts = staged
+            nonlocal batches_saved
+            batch, gtm, (ob, osc, ocl, nd), pb, gb, parts = staged
             loss_parts.append(parts)
-            osc, ocl, nd, pb, gb = (t.cpu().numpy() for t in (osc, ocl, nd, pb, gb))
+            ob, osc, ocl, nd, pb, gb = (t.cpu().numpy() for t in (ob, osc, ocl, nd, pb, gb))
             for i in range(len(batch.images)):
                 n, m = int(nd[i]), gtm[i]
                 gcls = batch.gt_classes[i][:len(m)][m]
                 det_metrics.update(pb[i, :n], osc[i, :n], ocl[i, :n], gb[i][m], gcls)
+                if save_artifacts:  # the confusion matrix only plots then
+                    cm_preds.append((pb[i, :n], osc[i, :n], ocl[i, :n]))
+                    cm_gts.append((gb[i][m], gcls))
                 if json_records is not None:
                     stem = Path(batch.meta[i][0]).stem
                     image_id = int(stem) if stem.isdigit() else stem
@@ -1053,6 +1213,13 @@ class Trainer:
                             "bbox": [round(float(x1), 3), round(float(y1), 3),
                                      round(float(x2 - x1), 3), round(float(y2 - y1), 3)],
                             "score": round(float(s), 5)})
+            if save_artifacts and batches_saved < 3:
+                self.run.save_val_batch_predictions(batch.images, ob, osc, ocl, nd, self.names,
+                                                    batch_idx=batches_saved)
+                self.run.save_val_batch_predictions(batch.images, batch.gt_boxes, None,
+                                                    batch.gt_classes, batch.gt_mask.sum(-1),
+                                                    self.names, batch_idx=batches_saved)
+                batches_saved += 1
 
         # one-batch pipeline: the host metrics of batch i overlap the device's
         # work on batch i+1 (the copy to the host in consume() waits for it);
@@ -1084,6 +1251,10 @@ class Trainer:
             out = self.run.path / "predictions.json"
             out.write_text(json.dumps(json_records), encoding="utf-8")
             print(f"predictions saved to {out}")
+        if save_artifacts:
+            self.run.plot_confusion_matrix(confusion_matrix(cm_preds, cm_gts, self.nc),
+                                           self.names)
+            self.run.plot_pr_curves(result, self.names)
         return result, val_losses
 
 

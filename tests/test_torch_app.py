@@ -276,8 +276,8 @@ def test_stream_training_spawns_ranks_from_a_thread(step8_yaml, tmp_path, monkey
 
 
 def test_stream_training_error_reaches_the_holder(tmp_path):
-    """A run that fails (a model axis, not ported) puts its error in the
-    holder and still ends with LOG_DONE."""
+    """A run that fails (a 1x2 mesh with no devices visible, and no
+    data.yaml) puts its error in the holder and still ends with LOG_DONE."""
     from deal_yolo_daya_tpu_torch.core.training import LOG_DONE, run_yolo_training_stream
 
     log_queue: "queue.Queue" = queue.Queue()

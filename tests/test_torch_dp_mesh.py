@@ -16,13 +16,23 @@ import pytest
 
 from deal_yolo_daya_tpu.parallel import mesh as jax_mesh
 from deal_yolo_daya_tpu.train.trainer import Trainer as JaxTrainer
+import torch
+
+from deal_yolo_daya_tpu_torch.parallel import launch
 from deal_yolo_daya_tpu_torch.parallel import mesh as port_mesh
 from deal_yolo_daya_tpu_torch.parallel.dryrun import dryrun_multichip
+from deal_yolo_daya_tpu_torch.parallel.sharding import group_ranks
 from deal_yolo_daya_tpu_torch.train.data import DataLoader, YoloDataset
-from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig, Trainer
+from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig, Trainer, _train_rank
 from tests.test_data import make_dataset
 
 REPO = Path(__file__).resolve().parents[1]
+
+
+class _Started(Exception):
+    """Raised by a stubbed ``launch.start``."""
+
+
 EIGHT = [port_mesh.Device("cpu", i, 0, i, "cpu") for i in range(8)]
 
 
@@ -80,8 +90,10 @@ def test_visible_devices_and_summary(monkeypatch):
 
 def test_trainer_device_specs(tmp_path, monkeypatch):
     """"1" is one device (it raised before); "2" over one device raises the
-    JAX ValueError; a model axis raises NotImplementedError naming the
-    roadmap; "cpu" stays the CPU."""
+    JAX ValueError; "4x2" over 8 CPU devices starts a tensor-parallel run of
+    8 ranks, global rank d * 2 + m at mesh place (d, m), whose data and model
+    groups are the JAX mesh's columns and rows (checked without spawning:
+    ``launch.start`` is stubbed); "cpu" stays the CPU."""
     data_yaml = make_dataset(tmp_path, n_train=4, n_val=2, imgsz=64, nc=2)
     cfg = dict(model="yolo11n", data=str(data_yaml), epochs=1, imgsz=64, batch=4, amp=False,
                project=str(tmp_path / "runs"), max_boxes=8, workers=1)
@@ -92,8 +104,24 @@ def test_trainer_device_specs(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, only 1 available"):
         Trainer(TrainConfig(device="2", name="two", **cfg))
     monkeypatch.setenv("DYD_CPU_DEVICES", "8")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1"):
+    started = []
+
+    def stub_start(mesh, target, args, **kw):
+        started.append((mesh, target, args))
+        raise _Started()
+
+    monkeypatch.setattr(launch, "start", stub_start)
+    with pytest.raises(_Started):
         Trainer(TrainConfig(device="4x2", name="tp", **cfg))
+    (mesh, target, args), = started
+    assert mesh.shape == {"data": 4, "model": 2} and target is _train_rank
+    assert args[0].device == "4x2" and args[1] is mesh
+    assert launch.rank_devices(mesh) == [(r, torch.device("cpu")) for r in range(8)]
+    want = jax_mesh.create_mesh(4, 2)
+    ids = np.vectorize(lambda d: d.id)(want.devices)  # global rank = position in the mesh
+    data_groups, model_groups = group_ranks(4, 2)
+    assert data_groups == [ids[:, m].tolist() for m in range(2)]
+    assert model_groups == [ids[d, :].tolist() for d in range(4)]
     monkeypatch.delenv("DYD_CPU_DEVICES")
     assert Trainer(TrainConfig(device="cpu", name="cpu", **cfg)).device.type == "cpu"
     assert not (tmp_path / "runs" / "two").exists()

@@ -22,6 +22,8 @@ Tolerances:
   tensor's largest entry, for the reasons stated there).
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -177,6 +179,46 @@ def dp_runs():
     one = dp_steps(None, *args)
     ranks = launch.run(dp_steps, 2, ["cpu", "cpu"], args=args, timeout_s=300)
     return one, ranks
+
+
+def test_group_of_one_runs_its_collectives(dp_runs, monkeypatch):
+    """A data-parallel group of one rank (the one-rank NCCL group that
+    chip_smoke times against the one-card step) runs the step's collectives
+    and synchronises every BatchNorm over itself, and its two steps equal
+    one process at the bars of the two-rank tests; only the data group of
+    one of a 1 x M mesh (``alone``) skips them."""
+    from deal_yolo_daya_tpu_torch.parallel.sharding import DataParallel, ModelParallel
+
+    one, _ = dp_runs
+    calls = collections.Counter()
+
+    def counted(name, orig):
+        def call(*a, **kw):
+            calls[name] += 1
+            return orig(*a, **kw)
+        return call
+
+    for name in ("all_reduce", "all_gather"):
+        monkeypatch.setattr(torch.distributed, name, counted(name, getattr(torch.distributed,
+                                                                           name)))
+    args = (_cfg(), NC, _start_weights(), _raw_batch(), SEEDS, AUG, None, 100, torch.float64)
+    ranks = launch.start_local(1, ["cpu"])
+    try:
+        got = dp_steps(ranks.dp, *args)
+        tp_data = DataParallel(0, 1, "cpu", mp=ModelParallel(0, 1, "cpu", None, first=0))
+        assert not ranks.dp.alone and tp_data.alone
+    finally:
+        ranks.close()
+    # per step: the raw-batch gather, the loss normaliser and the gradient
+    # all-reduce at least, plus every BatchNorm's moments
+    assert calls["all_reduce"] >= 2 * len(SEEDS) and calls["all_gather"] >= len(SEEDS), calls
+    assert got["loss"]["num_fg"] == one["loss"]["num_fg"] > 0
+    for k in ("box_loss", "cls_loss", "dfl_loss"):
+        assert got["loss"][k] == pytest.approx(one["loss"][k], rel=1e-5), k
+    for name, g in one["grads"].items():
+        np.testing.assert_allclose(got["grads"][name], g, rtol=1e-4, atol=1e-5, err_msg=name)
+    for name, v in one["state"].items():
+        _close(got["state"][name], v, 1e-6, name)
 
 
 def test_mosaic_and_mixup_partners_cross_ranks():

@@ -262,10 +262,21 @@ def test_yolo_train_adopts_the_ema_weights(tmp_path):
 
 @pytest.mark.parametrize("option", [dict(device="1x2")])
 def test_options_not_ported_raise(tmp_path, monkeypatch, option):
-    """A model axis (tensor parallelism) over two visible (CPU) devices."""
+    """A model axis (tensor parallelism) over two visible (CPU) devices: it
+    raised NotImplementedError before it was ported; now a 1 x 2 run trains
+    with yolo11n's 256-channel convs sharded, and its checkpoints hold the
+    whole one-device model."""
     monkeypatch.setenv("DYD_CPU_DEVICES", "2")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _small(tmp_path, "x", **option)
+    trainer = _small(tmp_path, "x", **option)
+    assert trainer.mesh.shape == {"data": 1, "model": 2} and trainer.dp.mp.world == 2
+    assert len(trainer.state.tp) == 11 and trainer.cfg.cache is False
+    result = trainer.train()
+    assert trainer.state.tp == {} and trainer.dp is not None and trainer.state.dp is None
+    whole = make_detector("yolo11", "n", 2).state_dict()
+    ckpt = load_checkpoint(Path(result["save_dir"]) / "weights" / "best.pt")
+    assert {k: v.shape for k, v in ckpt["model"].items()} == {k: v.shape for k, v in whole.items()}
+    for k, v in trainer.state.state()["model"].items():
+        assert torch.equal(ckpt["model"][k], v), k
 
 
 def test_trainer_runs_on_the_card_unless_asked(tmp_path, monkeypatch):
