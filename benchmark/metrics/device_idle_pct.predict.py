@@ -1,0 +1,8 @@
+"""device_idle_pct.predict: share of the traced predict window in which no
+kernel or copy ran on the card."""
+
+from benchmark.lib.readers import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx)
