@@ -151,7 +151,8 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    attention launches a step, the peak memory of a b32 step with and
    without, and a graphed remat step with (2, 1) launches in a replay;
 26. ``batch=-1``: the batch it picks and one step at it;
-27. ``profile_steps=2``: the Chrome trace holds the attention kernels;
+27. ``profile_steps=2``: the Chrome trace holds the attention kernels,
+   the phase stamps and the program's spans;
 28. the synth yardstick (``tools/train_synth_torch.py``): yolo11n, 30 epochs
    at 320 on 600 + 100 shapes images, the graphed step; mAP50 must reach
    YARDSTICK_MAP50;
@@ -277,6 +278,15 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    val_batch images written; ``ConvBN(spd=True)`` against the direct conv at
    the stem's (3 -> 16, 640) and the Cin 16 stride-2 conv's (16 -> 32, 320)
    shapes, b16, f32 with TF32 off, eval and train mode, within SPD_ATOL.
+41. the phase stamps of the yolo11n b32/640 bf16 step graph
+   (``ops/kernels/phase_stamp.py``): over STAMP_REPLAYS replays from
+   counters set to 0, 6 stamp launches a replay, the ring's count advanced
+   by one a replay and its rows in time order, ``phase_ms()`` summed within
+   STAMP_SUM_TOL of the step's time by CUDA events, a ``train.stage`` and a
+   ``train.replay`` span a step; again under the profiler, six stamp
+   kernels a replay in slot order (but for at most STAMP_TRACE_LOST of
+   them that the profiler drops), ``phase_ms()`` within STAMP_TRACE_TOL
+   of the trace's phases, and no other program-named device activity.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
@@ -285,7 +295,8 @@ its global-memory mapping's time at K = 4096, the (32, 32) attention builds
 as rows of their own, each kernel's launches inside the serving graphs, and
 the yolo12n and yolov8n records under ``families``, and each attention
 kernel's ``train_graph_launches``, its launches inside one replay of the
-graphed step; the s8 conv's row last; phase 35's record under ``dp``,
+graphed step; the s8 conv's row, then the phase stamp's with phase 41's
+record under ``phases``; phase 35's record under ``dp``,
 phase 36's under ``app``, phase 39's under ``tp``, phase 40's under
 ``phase40``) and
 the last line the device record; the ``serving``, ``train_graph`` and ``int8`` records, phases
@@ -365,6 +376,16 @@ SHAPES = ["circle", "square", "triangle"]
 # padded to 32 boxes after the augmentation
 GRAPH_STEPS = 8
 GRAPH_MAX_BOXES = 32
+# the phase stamps (phase 41): replays a window, more than the ring's 64
+# rows, so that it wraps; the ring's phases summed against the step's time
+# by CUDA events, and each against the trace's stamp intervals (5% or 20 us).
+# Late in a long process the card's profiler drops a few activities (1-3
+# of a window's 480 stamps after phases 1-40): the trace may lack this
+# share of the stamps, each costing it at most one whole step
+STAMP_REPLAYS = 80
+STAMP_SUM_TOL = 0.02
+STAMP_TRACE_TOL = (0.05, 0.02)
+STAMP_TRACE_LOST = 0.05
 # graphed vs eager after GRAPH_STEPS steps: |diff| <= GRAPH_TOL x the largest
 # move of its kind (parameters, EMA, BN statistics) from the start. The
 # replay runs the eager step's kernels in its order, and came out bit for
@@ -1242,8 +1263,9 @@ def autobatch_run(cfg, card: str):
 
 
 def profile_steps_run(cfg):
-    """Phase 27: ``profile_steps=2`` writes a Chrome trace of steps 1-2 that
-    holds the attention kernels."""
+    """Phase 27: ``profile_steps=2`` writes a Chrome trace of two replays of
+    the step program (after its warm-up steps and capture) that holds the
+    attention kernels, the phase stamps and the program's spans."""
     from deal_yolo_daya_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg)
@@ -1251,11 +1273,145 @@ def profile_steps_run(cfg):
     trace = Path(result["save_dir"]) / "profile" / "trace.json"
     check(trace.exists(), "profile_steps wrote no trace")
     text = trace.read_text()
-    found = {w: text.count(w) for w in ("attention_bf16_kernel", "bwd_query_rows")}
+    found = {w: text.count(w) for w in ("attention_bf16_kernel", "bwd_query_rows",
+                                         "dyd_stamp_", "dyd_span")}
     log(f"[profile_steps] {trace.name}: {trace.stat().st_size / 1e6:.1f} MB, kernel events "
         f"{found}")
-    check(all(found.values()), "the trace holds no attention kernel")
+    check(all(found.values()), f"the trace lacks some of {found}")
     return {"trace_mb": trace.stat().st_size / 1e6, "kernel_events": found}
+
+
+def phase_stamp_checks(seed: int, card: str):
+    """Phase 41: the phase stamps of yolo11n's b32/640 bf16 step graph
+    (``ops/kernels/phase_stamp.py``). After the warm-up steps, the capture
+    and a replay, two windows of STAMP_REPLAYS replays from counters set
+    to 0. Untraced: six stamp launches a replay, the ring's count advanced
+    by one a replay, the ring's rows in time order, its five phases
+    (``phase_ms()``) summed within STAMP_SUM_TOL of the step's time by
+    CUDA events, one ``train.stage`` and ``train.replay`` span a step.
+    Under the profiler: the same counts; the trace's stamps in slot order,
+    six a replay but for at most STAMP_TRACE_LOST of them that the
+    profiler dropped (a window that lost some is taken again, up to three
+    times); ``phase_ms()`` within STAMP_TRACE_TOL of the trace's phases
+    over its last whole steps; and no other program-named kernel."""
+    import re
+    from statistics import mean, median
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deal_yolo_daya_tpu_torch import tracing
+    from deal_yolo_daya_tpu_torch.ops.kernels import phase_stamp as ps
+    from deal_yolo_daya_tpu_torch.train import TrainConfig, TrainState
+    from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig, step_seed
+    from deal_yolo_daya_tpu_torch.train.step_graph import WARMUP_RUNS, StepProgram
+
+    dev = torch.device("cuda")
+    x32, *gt32 = (torch.from_numpy(a).to(dev) for a in make_train_batch(seed, 32, 640))
+    st = TrainState(TrainConfig(model="yolo11n", imgsz=640, amp=True, seed=seed), nc=80,
+                    steps_per_epoch=100, device=dev)
+    cache = (x32, torch.full((32, 2), 640.0, device=dev), gt32[0], gt32[1].int(), gt32[2])
+    prog = StepProgram(st, cache, DeviceAugConfig(), 640, GRAPH_MAX_BOXES, 32)
+    rng = np.random.default_rng(seed)
+    done = [0]
+    n, slots = STAMP_REPLAYS, len(ps.STAMPS)
+
+    def run(k):
+        prog.run(np.stack([rng.permutation(32) for _ in range(k)]),
+                 [step_seed(seed, 0, done[0] + j) for j in range(k)])
+        done[0] += k
+
+    def count():
+        return int(prog.stamps.buf[-1].item())
+
+    def spans():
+        return {k: v for k, v in tracing.totals().items() if k in ("train.stage", "train.replay")}
+
+    run(WARMUP_RUNS + 1)  # the eager warm-up steps, the capture and a replay
+    torch.cuda.synchronize()
+    check(list(prog.graphs) == [True] and count() == WARMUP_RUNS + 1,
+          f"stamps: {count()} steps in the ring after {WARMUP_RUNS} eager steps and a replay")
+
+    # untraced
+    ps.launches, before, spans0 = 0, count(), spans()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    run(n)
+    b.record()
+    b.synchronize()
+    step_ms = a.elapsed_time(b) / n
+    launches, advanced, ring = ps.launches, count() - before, prog.phase_ms()
+    span_n = {k: v.count - spans0[k].count for k, v in spans().items()}
+    span_ms = {k: (v.seconds - spans0[k].seconds) / n * 1e3 for k, v in spans().items()}
+    host = prog.stamps.buf.cpu().numpy()
+    c, rows = int(host[-1]), ps.RING_STEPS
+    t = host[:-1].reshape(rows, slots)[[(c - rows + i) % rows for i in range(rows)]]
+    check(launches == slots * n and advanced == n,
+          f"stamps: {launches} launches and the ring advanced {advanced} over {n} replays")
+    check(bool((np.diff(t, axis=1) > 0).all() and (t[1:, 0] > t[:-1, -1]).all()),
+          "stamps: the ring's rows are not in time order")
+    ring_between = float(np.median(t[1:, 0] - t[:-1, -1])) / 1e6
+    ring_sum = sum(ring.values())
+    check(abs(ring_sum - step_ms) <= STAMP_SUM_TOL * step_ms,
+          f"stamps: the ring's phases sum to {ring_sum:.3f} ms, the step takes {step_ms:.3f} ms")
+    check(span_n == {"train.stage": n, "train.replay": n}, f"stamps: spans {span_n} in {n} steps")
+
+    # under the profiler; a window that lost stamps is taken again (up to
+    # three times)
+    for _ in range(3):
+        ps.launches, before = 0, count()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(n)
+            torch.cuda.synchronize()
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if str(e.device_type()).endswith("CUDA")]
+        ev = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), int(m.group(1)))
+                    for e in events for m in [re.search(r"dyd_stamp_(\d)_", e.name())] if m)
+        by_slot = [sum(1 for *_, k in ev if k == j) for j in range(slots)]
+        if by_slot == [n] * slots:
+            break
+        log(f"[stamps] the profiler recorded stamps {by_slot} by slot for {n} replays; "
+            "taking another window")
+    check(ps.launches == slots * n and count() - before == n,
+          f"stamps traced: {ps.launches} launches, the ring advanced {count() - before}")
+    steps, i = [], 0  # whole steps: six stamps of slots 0..5 in a row
+    while i + slots <= len(ev):
+        if [k for *_, k in ev[i:i + slots]] == list(range(slots)):
+            steps.append(ev[i:i + slots])
+            i += slots
+        else:
+            i += 1
+    lost = slots * n - len(ev)
+    check(max(by_slot) <= n and lost <= STAMP_TRACE_LOST * slots * n and len(steps) >= n - lost,
+          f"stamps: the trace holds {by_slot} by slot and {len(steps)} whole steps in slot "
+          f"order for {n} replays")
+    ring_t = prog.phase_ms()
+    last = steps[-rows:]
+    trace_ms = {p: median((s[k + 1][0] - s[k][1]) / 1e6 for s in last)
+                for k, p in enumerate(ps.PHASES)}
+    rel, floor = STAMP_TRACE_TOL
+    worst = max(abs(ring_t[p] - trace_ms[p]) / max(rel * trace_ms[p], floor) for p in ps.PHASES)
+    check(worst <= 1.0, f"stamps: phase_ms() {ring_t} against the trace's {trace_ms}")
+    others = sorted({e.name() for e in events if e.name().startswith(
+        ("train.", "serve.", "predict.")) or ("dyd" in e.name() and not
+                                              re.search(r"dyd_stamp_\d_", e.name()))})
+    check(not others, f"stamps: program-named device activities {others}")
+    stamp_us = mean((e1 - e0) / 1e3 for e0, e1, _ in ev)
+    del prog, st
+    torch.cuda.empty_cache()
+    log(f"[stamps] yolo11n b32 step graph, {n} replays: {launches} stamp launches, the ring "
+        f"advanced {advanced}; phase_ms() {', '.join(f'{p} {v:.3f}' for p, v in ring.items())} "
+        f"ms, sum {ring_sum:.3f} + {ring_between:.3f} between against {step_ms:.3f} ms a step "
+        f"(CUDA events); host a step: stage {span_ms['train.stage']:.3f} ms, replay "
+        f"{span_ms['train.replay']:.3f} ms; traced: {len(steps)} whole steps ({lost} stamps "
+        f"lost), phase_ms() against the trace worst {worst:.3f} of the tolerance, a stamp "
+        f"{stamp_us:.2f} us ({card})")
+    return {"replays": n, "launches": launches, "ring_advanced": advanced, "step_ms": step_ms,
+            "ring_phase_ms": ring, "ring_between_ms": ring_between,
+            "host_ms_per_step": span_ms, "ring_phase_ms_traced": ring_t,
+            "trace_phase_ms": trace_ms, "trace_stamps_lost": lost, "worst_of_tol": worst,
+            "stamp_us": stamp_us, "card": card}
 
 
 # ---------------------------------------------------------------- phases 29-34
@@ -4954,6 +5110,10 @@ def main() -> int:
     finish_record = plots_matcher_spd_phase(args.seed, data_yaml, root,
                                             tp_dir / "weights" / "best.pt", card, FullConfig)
     tmp.cleanup()
+
+    # 41. the phase stamps in the step graph, against their counters, CUDA
+    # events and the profiler
+    stamp_record = phase_stamp_checks(args.seed, card)
     int8_record["card"] = card
     s8_row["launches_by_path"] = {
         "int8 predict": int8_record["launches"]["int8_conv"],
@@ -4962,6 +5122,13 @@ def main() -> int:
         "int8 serving graph (b32 replay, profiler)":
             int8_record["engine"]["graph_launches"]["int8_conv"]}
     kernels.append(s8_row)
+    kernels.append({
+        "name": "phase_stamp", "route": "cuda",
+        "source": "deal_yolo_daya_tpu_torch/csrc/phase_stamp.cu", "replaces": None,
+        "launches": stamp_record["launches"], "device_ms": stamp_record["stamp_us"] / 1e3,
+        "launches_by_path": {f"yolo11n b32 graphed step, {STAMP_REPLAYS} replays":
+                             stamp_record["launches"]},
+        "phases": stamp_record})
     log(f"[int8] phases 29-34 in {int8_record['wall_s']:.1f} s")
     kernels[0]["train_graph_launches"] = {
         "yolo11n": graph_record["yolo11n"]["replay_launches"]["forward"],

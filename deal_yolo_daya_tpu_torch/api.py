@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from . import tracing
 from .device import resolve_device
 from .models.quant import quantize_int8 as quantize_qtree, quantized_model
 from .models.registry import build_detector, infer_arch, make_detector, parse_model_spec
@@ -629,10 +630,12 @@ class YOLO:
         def pipelined(chunks):
             """CUDA launches are asynchronous: batch N runs on the card while
             the host decodes and letterboxes batch N+1; N's results are
-            pulled after that."""
+            pulled after that. The ``predict.prepare`` span times the host
+            stage."""
             pending = None
             for chunk in chunks:
-                batch, metas = prepare(chunk)
+                with tracing.span("predict.prepare"):
+                    batch, metas = prepare(chunk)
                 handles = self.infer(batch.to(self.device, non_blocking=True), conf, iou,
                                      max_det, agnostic_nms)
                 if pending is not None:

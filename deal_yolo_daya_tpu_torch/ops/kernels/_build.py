@@ -38,6 +38,7 @@ EXTRA: Dict[str, List[str]] = {
     "area_attention_bwd": [],
     "int8_conv": [],
     "nms_suppress": ["-fmad=false"],
+    "phase_stamp": [],
     "score_reduce": [],
 }
 

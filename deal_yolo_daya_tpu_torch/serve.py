@@ -34,6 +34,9 @@ Design (CUDA-first):
   overlap the device's work.
 - Capture and replay take one lock: ``warmup()`` after ``start()`` never
   captures while the dispatcher replays.
+- Host spans (``tracing``): ``serve.queue_wait`` from a request's submit
+  to its dequeue, with the request's ``rid`` (``stats()`` gives its p50
+  and p95), and ``serve.capture`` (a bucket's warm-up runs and capture).
 
 Usage::
 
@@ -53,12 +56,14 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import queue
 import struct
 import threading
 import time
 import zlib
+from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -66,6 +71,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .api import Detections, infer_fused
 from .ops import png
 from .ops.kernels._build import GraphLaunches
@@ -85,37 +91,47 @@ class _Request:
     ratio: float
     pad: Tuple[int, int]
     future: Future
-    t_submit: float
+    t_submit_ns: int                # perf_counter_ns after the letterbox
+    rid: int
+
+
+WINDOW = 2048  # the newest entries a snapshot reads
+
+
+def _window() -> deque:
+    return deque(maxlen=WINDOW)
 
 
 @dataclass
 class ServeStats:
-    """Rolling serving metrics (thread-safe snapshots via Engine.stats)."""
+    """Rolling serving metrics (thread-safe snapshots via Engine.stats);
+    the lists keep their newest ``WINDOW`` entries."""
 
     requests: int = 0
     completed: int = 0
     errors: int = 0
     batches: int = 0
     padded_slots: int = 0
-    batch_sizes: List[int] = field(default_factory=list)
-    latencies_ms: List[float] = field(default_factory=list)
+    batch_sizes: deque = field(default_factory=_window)
+    latencies_ms: deque = field(default_factory=_window)
+    queue_wait_ms: deque = field(default_factory=_window)
 
     def snapshot(self) -> Dict[str, float]:
-        lat = sorted(self.latencies_ms[-2048:])
-        n = len(lat)
         out = {
             "requests": self.requests,
             "completed": self.completed,
             "errors": self.errors,
             "batches": self.batches,
-            "avg_batch": (sum(self.batch_sizes[-2048:]) /
-                          max(len(self.batch_sizes[-2048:]), 1)),
+            "avg_batch": sum(self.batch_sizes) / max(len(self.batch_sizes), 1),
             "pad_fraction": (self.padded_slots /
                              max(self.padded_slots + self.completed, 1)),
         }
-        if n:
-            out["p50_ms"] = lat[n // 2]
-            out["p95_ms"] = lat[min(n - 1, int(n * 0.95))]
+        for key, values in (("", self.latencies_ms), ("queue_wait_", self.queue_wait_ms)):
+            v = sorted(values)
+            n = len(v)
+            if n:
+                out[f"{key}p50_ms"] = v[n // 2]
+                out[f"{key}p95_ms"] = v[min(n - 1, int(n * 0.95))]
         return out
 
 
@@ -127,8 +143,9 @@ class BucketProgram:
     On the card the program is captured here as a CUDA graph, after
     ``WARMUP_RUNS`` eager runs on a side stream, with a memory pool of its
     own (``pool_bytes``: what the capture reserved); ``capture_s`` is the
-    wall of both. The graph reads the weights ``infer`` holds by address,
-    so they must outlive it (the Engine keeps them). Each replay adds the
+    wall of both (the ``serve.capture`` span). The graph reads the weights
+    ``infer`` holds by address, so they must outlive it (the Engine keeps
+    them). Each replay adds the
     graph's kernel launches to the kernels' counters (``launches``). On
     the CPU ``replay()`` runs ``infer`` eagerly, once here."""
 
@@ -140,12 +157,12 @@ class BucketProgram:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches = GraphLaunches()
         self.pool_bytes = 0
-        t0 = time.perf_counter()
-        if device.type == "cuda":
-            self._capture(device)
-        else:
-            self.replay()
-        self.capture_s = time.perf_counter() - t0
+        with tracing.span("serve.capture") as sp:
+            if device.type == "cuda":
+                self._capture(device)
+            else:
+                self.replay()
+        self.capture_s = sp.seconds
 
     def _capture(self, device: torch.device) -> None:
         side = torch.cuda.Stream(device)
@@ -231,6 +248,7 @@ class Engine:
         self._free: "queue.Queue[_Slot]" = queue.Queue()
         self._slots: List[_Slot] = []
         self._stats = ServeStats()
+        self._rids = itertools.count()
         self._lock = threading.Lock()
         self._device_lock = threading.Lock()  # capture and replay
         self._stop = threading.Event()
@@ -333,7 +351,7 @@ class Engine:
             raise ValueError(f"expected (H, W, 3) RGB image, got {image.shape}")
         canvas, r, pad = letterbox_numpy(image, self.imgsz)
         fut: Future = Future()
-        req = _Request(image, canvas, r, pad, fut, time.perf_counter())
+        req = _Request(image, canvas, r, pad, fut, time.perf_counter_ns(), next(self._rids))
         with self._lock:
             if self._stop.is_set() and not self._threads:
                 # post-shutdown submits would otherwise queue forever with
@@ -382,7 +400,7 @@ class Engine:
                 first = self._queue.get(timeout=0.05)
             except queue.Empty:
                 continue
-            batch = [first]
+            batch, dequeued = [first], [time.perf_counter_ns()]
             # under backpressure the queue already holds a backlog — take it
             # without consulting the deadline (load must GROW batches, not
             # shrink them to singles because the oldest request aged out)
@@ -391,15 +409,22 @@ class Engine:
                     batch.append(self._queue.get_nowait())
                 except queue.Empty:
                     break
-            deadline = first.t_submit + self.max_wait_s
+                dequeued.append(time.perf_counter_ns())
+            deadline_ns = first.t_submit_ns + int(self.max_wait_s * 1e9)
             while len(batch) < self.max_batch:
-                remaining = deadline - time.perf_counter()
+                remaining = (deadline_ns - time.perf_counter_ns()) * 1e-9
                 if remaining <= 0:
                     break
                 try:
                     batch.append(self._queue.get(timeout=remaining))
                 except queue.Empty:
                     break
+                dequeued.append(time.perf_counter_ns())
+            for r, t in zip(batch, dequeued):
+                tracing.add("serve.queue_wait", r.t_submit_ns, t, r.rid)
+            with self._lock:
+                self._stats.queue_wait_ms.extend((t - r.t_submit_ns) * 1e-6
+                                                 for r, t in zip(batch, dequeued))
             bucket = self._bucket(len(batch))
             slot = self._free.get()  # blocks while every slot is in flight
             try:
@@ -432,7 +457,7 @@ class Engine:
                 self._free.put(slot)
                 continue
             ob, osc, ocl, nd = (t.numpy() for t in slot.outputs)
-            t_done = time.perf_counter()
+            t_done = time.perf_counter_ns()
             for i, r in enumerate(batch):
                 n = int(nd[i])
                 boxes = ob[i, :n].copy()
@@ -452,7 +477,7 @@ class Engine:
                     r.future.set_result(det)
                 with self._lock:
                     self._stats.completed += 1
-                    self._stats.latencies_ms.append((t_done - r.t_submit) * 1e3)
+                    self._stats.latencies_ms.append((t_done - r.t_submit_ns) * 1e-6)
             self._free.put(slot)  # the slot's buffers are read: refill it
 
 

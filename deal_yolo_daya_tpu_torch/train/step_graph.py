@@ -27,6 +27,15 @@ hold against the JAX package's chunked dispatch.
 The random draws stay outside the graph: each step's ``torch.Generator``
 is seeded anew (``step_seed``), which a replayed generator would not do.
 
+Six phase stamps (``ops/kernels/phase_stamp.py``) are part of every
+iteration, and so of every graph: at its entry, after ``apply``, in
+``TrainState.loss`` between the forward and the loss, after the loss,
+after the backward and at its end. They split the step's device time into
+augment, forward, loss, backward and optimizer (``phase_ms()``). The host
+spans ``train.dispatch`` (a ``run``), ``train.stage``, ``train.replay``,
+``train.warmup`` (an eager warm-up step) and ``train.capture`` time the
+host's side (``tracing``).
+
 Under data parallelism (``state.dp``) the cache is this rank's shard and the
 indices are local to it; the iteration gathers the ranks' rows into the
 global raw batch, augments this rank's rows with the global draws and runs
@@ -40,13 +49,14 @@ and a program over a gloo group on the card raises.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.kernels._build import GraphLaunches
+from ..ops.kernels.phase_stamp import Ring, skip
 from .device_augment import DeviceAugConfig, apply, draw
 
 WARMUP_RUNS = 3
@@ -94,14 +104,26 @@ class StepProgram:
         self.eager_runs: Dict[bool, int] = {}
         self.pool = None
         self.capture_s = 0.0
+        self.stamps = Ring(dev)
 
     def iteration(self, update: bool) -> torch.Tensor:
-        """One step from the static buffers: what the graph captures."""
+        """One step from the static buffers, stamped: what the graph captures."""
+        self.stamps(0)
         batch = tuple(t.index_select(0, self.idx) for t in self.cache)
         if self.state.dp is not None:
             batch = self.state.dp.gather_rows(batch)
         aug = apply(*batch, self.draws, self.imgsz, self.aug_cfg, self.max_boxes, self.rows)
-        return self.state.iteration(*aug, update)
+        self.stamps(1)
+        self.state.stamp = self.stamps  # TrainState's stamps 2-5, for this step
+        try:
+            return self.state.iteration(*aug, update)
+        finally:
+            self.state.stamp = skip
+
+    def phase_ms(self) -> Optional[Dict[str, float]]:
+        """Each phase's median device milliseconds over the last replayed
+        (or eager) steps the stamps' ring holds; None on the CPU."""
+        return self.stamps.phase_ms()
 
     def stage(self, idx: np.ndarray, seed: int) -> bool:
         """Copy one step's indices (this rank's B / D under data
@@ -122,8 +144,11 @@ class StepProgram:
         if len(seeds) != len(idx) or not len(seeds):
             raise ValueError(f"{len(idx)} index rows for {len(seeds)} seeds")
         total = None
-        for row, seed in zip(idx, seeds):
-            total = self._step(self.stage(row, seed))
+        with tracing.span("train.dispatch"):
+            for row, seed in zip(idx, seeds):
+                with tracing.span("train.stage"):
+                    update = self.stage(row, seed)
+                total = self._step(update)
         return total
 
     def _step(self, update: bool) -> torch.Tensor:
@@ -132,28 +157,30 @@ class StepProgram:
         graph = self.graphs.get(update)
         if graph is None and self.eager_runs.get(update, 0) < WARMUP_RUNS:
             self.eager_runs[update] = self.eager_runs.get(update, 0) + 1
-            main = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                total = self.iteration(update)
-            main.wait_stream(side)
+            with tracing.span("train.warmup"):
+                main = torch.cuda.current_stream()
+                side = torch.cuda.Stream()
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    total = self.iteration(update)
+                main.wait_stream(side)
             return total
         if graph is None:
             graph = self._capture(update)
-        graph.replay()
-        self.launches[update].replayed()
+        with tracing.span("train.replay"):
+            graph.replay()
+            self.launches[update].replayed()
         return self.totals[update]
 
     def _capture(self, update: bool) -> torch.cuda.CUDAGraph:
-        t0 = time.perf_counter()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        launches = self.launches[update] = GraphLaunches()
-        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"), \
-                launches.capture():
-            self.totals[update] = self.iteration(update)
-        self.pool = graph.pool()
-        self.graphs[update] = graph
-        self.capture_s += time.perf_counter() - t0
+        with tracing.span("train.capture") as sp:
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            launches = self.launches[update] = GraphLaunches()
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"), \
+                    launches.capture():
+                self.totals[update] = self.iteration(update)
+            self.pool = graph.pool()
+            self.graphs[update] = graph
+        self.capture_s += sp.seconds
         return graph

@@ -25,15 +25,24 @@ device:
 - ``steps_per_dispatch``: with the device cache, K steps a dispatch, each
   a replay of one CUDA graph of the whole iteration (``train/step_graph.py``,
   the counterpart of the chunked ``lax.scan``); None resolves as in JAX, and
-  the epoch's remainder and the profiled epoch run eagerly;
+  the epoch's remainder runs eagerly;
 - ``device_augment=False``: the host augmentation (``train/augment.py``)
   in the loader's worker threads, streamed. ``device_augment=None``
   augments on the card, where the JAX package picks the host on machines
   of more than 2 cores: this port's card machines have no cv2, and the
   host augmentation in numpy is the slower;
-- ``remat``, ``profile_steps`` (a ``torch.profiler`` Chrome trace of steps
-  1..N of the first epoch under ``<run>/profile``), ``async_ckpt``
-  (``train/async_ckpt.py``) and ``batch=-1`` (``train/autobatch.py``).
+- ``remat``, ``profile_steps`` (a ``torch.profiler`` Chrome trace of N
+  steps of the first epoch under ``<run>/profile``, of the path the epoch
+  runs: the step program's dispatches from the first step after the
+  warm-up steps and captures of its graphs, as far as the epoch allows,
+  else from step 1 (``_profile_start``); the
+  program's host spans (``tracing``) are written into the same trace),
+  ``async_ckpt`` (``train/async_ckpt.py``) and ``batch=-1``
+  (``train/autobatch.py``).
+
+``time_phases`` prints after each epoch its steps, the loss sums' read,
+validation and the rest in seconds, the mean ``train.stage`` span of the
+epoch and the step program's phases (``StepProgram.phase_ms``).
 
 ``device`` takes the JAX grammar (``parallel/mesh.py::mesh_from_spec``):
 "" every card, "N" the first N, "AxB" A data x B model, "2x4@dcn" two
@@ -79,6 +88,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from .. import tracing
 from ..device import resolve_device
 from ..parallel import launch
 from ..parallel.mesh import Mesh, mesh_from_spec
@@ -88,6 +98,7 @@ from ..models.registry import FAMILIES, infer_arch, make_detector, parse_model_s
 from ..models.torch_import import import_state_dict, read_torch_checkpoint
 from ..models.yolo11 import init_weights
 from ..ops.decode import decode_predictions
+from ..ops.kernels import phase_stamp
 from ..ops.nms import batched_nms
 from .artifacts import RunDir
 from .async_ckpt import CheckpointWriter, snapshot
@@ -95,7 +106,7 @@ from .augment import AugmentConfig
 from .autobatch import suggest_batch
 from .data import DataLoader, Prefetcher, YoloDataset
 from .device_augment import DeviceAugConfig, augment_batch, step_seed
-from .step_graph import StepProgram, auto_steps_per_dispatch
+from .step_graph import WARMUP_RUNS, StepProgram, auto_steps_per_dispatch
 from .loss import LossConfig, detection_loss
 from .metrics import DetMetrics, confusion_matrix
 from .optimizer import (H_EMA_DECAY, H_GRAD_KEEP, N_HYPER, Optimizer, OptimizerConfig,
@@ -141,7 +152,7 @@ class TrainConfig:
     cache: Any = None
     val: bool = True
     val_period: int = 1         # validate every K epochs (and the last)
-    time_phases: bool = False   # print each epoch's phase times
+    time_phases: bool = False   # print each epoch's phase times and the step's phases
     max_boxes: int = 128
     box: float = 7.5
     cls: float = 0.5
@@ -165,7 +176,7 @@ class TrainConfig:
     # None (auto) and True: augment on the card; False: on the host
     # (train/augment.py), streamed
     device_augment: Optional[bool] = None
-    profile_steps: int = 0      # > 0: a torch.profiler trace of steps 1..N into <run>/profile
+    profile_steps: int = 0      # > 0: a torch.profiler trace of N steps into <run>/profile
     remat: bool = False         # recompute the heavy blocks in the backward
     fold_input_div: bool = True
     fold_div_barrier: Optional[bool] = None  # no counterpart (an XLA workaround)
@@ -290,6 +301,9 @@ class TrainState:
         self.updates = 0  # micro-batch steps taken (the JAX state.step)
         self.loss_acc = {k: torch.zeros((), device=self.device) for k in LOSS_PARTS}
         self.hyper = torch.zeros(N_HYPER, device=self.device)
+        # the phase stamps 2-5 of a step program's iteration (it sets them
+        # for its step); none in an eager step
+        self.stamp: Callable[[int], None] = phase_stamp.skip
         self.nc = nc
         self.dp = None
         self.tp: Dict[str, int] = {}  # the sharded weights (tensor parallelism)
@@ -453,8 +467,10 @@ class TrainState:
 
     def loss(self, images: torch.Tensor, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
              gt_mask: torch.Tensor):
-        """The training forward and the detection loss -> (total, parts)."""
+        """The training forward and the detection loss -> (total, parts);
+        phase stamp 2 between them."""
         box, cls = self.forward(images)
+        self.stamp(2)
         # the loss runs outside autocast: its dtypes are its own
         return detection_loss(box, cls, gt_classes, gt_boxes, gt_mask,
                               (self.cfg.imgsz, self.cfg.imgsz), self.loss_cfg, self.dp)
@@ -483,11 +499,14 @@ class TrainState:
         """One micro-batch on the device with the values in ``hyper``: clear
         or keep the summed gradients, forward, loss, backward, and with
         ``update`` the optimizer and the EMA; the loss parts are added to
-        ``loss_acc``. No host read. Returns the total loss."""
+        ``loss_acc``. No host read. Returns the total loss. ``self.stamp``
+        fires phase stamps 2-5 (loss, backward, optimizer, end of step)."""
         grads = self.optimizer.inner.grads()
         torch._foreach_mul_(grads, self.hyper[H_GRAD_KEEP])
         total, parts = self.loss(images, gt_boxes, gt_classes, gt_mask)
+        self.stamp(3)
         total.backward()
+        self.stamp(4)
         if update:
             if self.dp is not None:  # the global batch's gradient: SUM over the ranks
                 self.dp.all_reduce_(self.flat_grad)
@@ -498,6 +517,7 @@ class TrainState:
         with torch.no_grad():
             for k in LOSS_PARTS:
                 self.loss_acc[k].add_(parts[k].detach())
+        self.stamp(5)
         return total.detach()
 
     def step(self, images: torch.Tensor, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
@@ -821,21 +841,21 @@ class Trainer:
                   + "; streaming instead")
             self._dev_cache_failed = True
             return None
-        t0 = time.time()
         first = (self.dp.rank if self.dp is not None else 0) * shard_n
         stop = min(first + shard_n, n)
         parts, offset = None, 0
-        for chunk in dl.raw_chunks(first=first, stop=stop):
-            if parts is None:
-                parts = tuple(torch.empty((stop - first,) + a.shape[1:],
-                                          dtype=torch.from_numpy(a).dtype, device=self.device)
-                              for a in chunk)
-            for buf, a in zip(parts, chunk):
-                buf[offset:offset + len(a)].copy_(torch.from_numpy(a))
-            offset += len(chunk[0])
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.cache_build_s = time.time() - t0
+        with tracing.span("train.cache_build") as sp:
+            for chunk in dl.raw_chunks(first=first, stop=stop):
+                if parts is None:
+                    parts = tuple(torch.empty((stop - first,) + a.shape[1:],
+                                              dtype=torch.from_numpy(a).dtype,
+                                              device=self.device) for a in chunk)
+                for buf, a in zip(parts, chunk):
+                    buf[offset:offset + len(a)].copy_(torch.from_numpy(a))
+                offset += len(chunk[0])
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.cache_build_s = sp.seconds
         print(f"train set on the device: {stop - first} of {n} images (~"
               f"{need / n_data / 1e9:.2f} GB, {self.cache_build_s:.1f} s)")
         self._dev_cache = parts
@@ -988,13 +1008,15 @@ class Trainer:
 
     def _profile(self, prof=None):
         """Start a torch.profiler trace (no ``prof``), or stop ``prof`` and
-        write it to <run>/profile/trace.json."""
+        write it, with the program's spans of its session, to
+        <run>/profile/trace.json."""
         from torch.profiler import ProfilerActivity, profile
 
         if prof is None:
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                              if self.device.type == "cuda" else [])
             prof = profile(activities=acts)
+            self._profile_since = time.time_ns()  # the session's spans start here
             prof.start()
             return prof
         if self.device.type == "cuda":
@@ -1003,35 +1025,60 @@ class Trainer:
         out = self.run.path / "profile"
         out.mkdir(exist_ok=True)
         prof.export_chrome_trace(str(out / "trace.json"))
-        print(f"profiler trace written to {out / 'trace.json'}")
+        spans = tracing.add_to_chrome_trace(out / "trace.json", self._profile_since)
+        print(f"profiler trace written to {out / 'trace.json'} ({spans} program spans)")
         return None
+
+    def _profile_start(self, prog: StepProgram, n_prog: int) -> int:
+        """The profiled epoch's first traced step of the ``n_prog`` its step
+        program runs: on the card, the first after the eager warm-up steps
+        and the capture of each graph the epoch takes. Each kind of step (an
+        update, and under accumulation one without) has its own; the
+        update's comes last, at step (WARMUP_RUNS + 1) * accumulate - 1.
+        As far as the epoch allows, and from step 1 where nothing is
+        captured (the CPU)."""
+        first = 1
+        if self.device.type == "cuda" and not prog.graphs:
+            first = (WARMUP_RUNS + 1) * self.accumulate
+        return max(1, min(first, n_prog - self.cfg.profile_steps))
 
     def _train_epoch(self, epoch: int) -> int:
         """One epoch's steps -> their count. With the device cache and K > 1
-        (not in a profiled epoch) K steps a dispatch through the step
-        program, the remainder eagerly, as the JAX Trainer does."""
+        K steps a dispatch through the step program, the remainder eagerly,
+        as the JAX Trainer does. The profiled epoch's dispatches are cut
+        where its trace starts and stops: the same steps on the same rows."""
         cfg = self.cfg
         n_steps = 0
-        # rank 0 alone traces
+        # rank 0 alone traces, from step ``first`` (step 0's builds stay out)
         profiled = cfg.profile_steps > 0 and epoch == self.start_epoch and self.rank == 0
-        if self._uses_device_cache() and not (cfg.profile_steps > 0 and epoch == self.start_epoch):
+        first, prof = 1, None
+        if self._uses_device_cache():
             all_idx = self._epoch_indices(epoch)
             k = self.steps_per_dispatch(len(all_idx))
             if k > 1:
                 prog = self.step_program()
-                for c in range(len(all_idx) // k):
-                    prog.run(np.stack(all_idx[c * k:(c + 1) * k]),
-                             [step_seed(cfg.seed, epoch, c * k + j) for j in range(k)])
-                    n_steps += k
-        prof = None
+                n_prog = len(all_idx) // k * k
+                cuts = set(range(0, n_prog + 1, k))
+                if profiled:
+                    first = self._profile_start(prog, n_prog)
+                    cuts |= {first, min(first + cfg.profile_steps, n_prog)}
+                cuts = sorted(cuts)
+                for a, b in zip(cuts, cuts[1:]):
+                    if profiled and a == first:
+                        prof = self._profile()
+                    prog.run(np.stack(all_idx[a:b]),
+                             [step_seed(cfg.seed, epoch, j) for j in range(a, b)])
+                    n_steps = b
+                    if prof is not None and b >= first + cfg.profile_steps:
+                        prof = self._profile(prof)
         for batch in self._epoch_batches(epoch, n_steps):
-            if profiled and n_steps == 1:  # after step 0: its builds stay out of the trace
+            if profiled and n_steps == first and prof is None:
                 prof = self._profile()
             if cfg.device_augment:
                 batch = self.augment(batch, step_seed(cfg.seed, epoch, n_steps))
             self.state.step(*batch)
             n_steps += 1
-            if prof is not None and n_steps >= 1 + cfg.profile_steps:
+            if prof is not None and n_steps >= first + cfg.profile_steps:
                 prof = self._profile(prof)
         if prof is not None:  # a short epoch: close the trace
             self._profile(prof)
@@ -1050,6 +1097,22 @@ class Trainer:
         self.close()
         return result
 
+    def _phases_line(self, epoch_span, steps_span, sync_span, val_span, stage0) -> str:
+        """``time_phases``' line: the epoch's steps, the loss sums' read,
+        validation and the rest in seconds; the epoch's mean ``train.stage``
+        span; the step program's phases over its ring's last steps."""
+        done = steps_span.seconds + sync_span.seconds + val_span.seconds
+        stage = tracing.totals().get("train.stage", tracing.Total(0, 0.0))
+        n = stage.count - stage0.count
+        line = (f"  phases: steps {steps_span.seconds:.2f}s  step-sync {sync_span.seconds:.2f}s  "
+                f"val {val_span.seconds:.2f}s  tail {epoch_span.seconds - done:.2f}s")
+        if n:
+            line += f"  stage {(stage.seconds - stage0.seconds) / n * 1e3:.3f} ms a step"
+        phases = self._program.phase_ms() if self._program is not None else None
+        if phases:
+            line += "  device ms a step: " + " ".join(f"{k} {v:.2f}" for k, v in phases.items())
+        return line
+
     def _train(self) -> Dict[str, Any]:
         cfg = self.cfg
         lead = self.rank == 0  # validates, writes, decides
@@ -1063,69 +1126,69 @@ class Trainer:
         for epoch in range(self.start_epoch, cfg.epochs):
             if cfg.close_mosaic and cfg.epochs - epoch <= cfg.close_mosaic:
                 self.train_loader.mosaic_off = True
-            self.state.zero_loss_acc()
-            epoch_t0 = time.time()
-            n_steps = self._train_epoch(epoch)
-            t_dispatch = time.time()
-            losses = {"box_loss": 0.0, "cls_loss": 0.0, "dfl_loss": 0.0}
-            if n_steps:  # one read of the device sums an epoch (and one all-reduce)
-                sums = torch.stack([self.state.loss_acc[k] for k in losses])
-                if self.dp is not None:  # each rank's parts are its share of the global loss
-                    self.dp.all_reduce_(sums)
-                losses = {k: v / n_steps for k, v in zip(losses, sums.tolist())}
-            lr_step = self.state.updates // self.accumulate  # in optimizer steps
-            if self.state.tp:  # every rank: the whole state rank 0 validates and saves
-                self.state.state_views()
-            t_stepsync = time.time()
+            with tracing.span("train.epoch") as epoch_span:
+                self.state.zero_loss_acc()
+                stage0 = tracing.totals().get("train.stage", tracing.Total(0, 0.0))
+                with tracing.span("train.steps") as steps_span:
+                    n_steps = self._train_epoch(epoch)
+                losses = {"box_loss": 0.0, "cls_loss": 0.0, "dfl_loss": 0.0}
+                with tracing.span("train.step_sync") as sync_span:
+                    if n_steps:  # one read of the device sums an epoch (and one all-reduce)
+                        sums = torch.stack([self.state.loss_acc[k] for k in losses])
+                        if self.dp is not None:  # each rank's parts are its share of the loss
+                            self.dp.all_reduce_(sums)
+                        losses = {k: v / n_steps for k, v in zip(losses, sums.tolist())}
+                    lr_step = self.state.updates // self.accumulate  # in optimizer steps
+                    if self.state.tp:  # every rank: the whole state rank 0 validates and saves
+                        self.state.state_views()
 
-            metrics = {"precision": 0.0, "recall": 0.0, "map50": 0.0, "map": 0.0}
-            val_losses = {"box_loss": 0.0, "cls_loss": 0.0, "dfl_loss": 0.0}
-            if lead and cfg.val and ((epoch + 1) % max(1, cfg.val_period) == 0
-                                     or epoch == cfg.epochs - 1):
-                metrics, val_losses = self.validate()
-            t_val = time.time()
+                metrics = {"precision": 0.0, "recall": 0.0, "map50": 0.0, "map": 0.0}
+                val_losses = {"box_loss": 0.0, "cls_loss": 0.0, "dfl_loss": 0.0}
+                with tracing.span("train.validate") as val_span:
+                    if lead and cfg.val and ((epoch + 1) % max(1, cfg.val_period) == 0
+                                             or epoch == cfg.epochs - 1):
+                        metrics, val_losses = self.validate()
 
-            fit = fitness(metrics)
-            stop = None
-            if lead:
-                epoch_time = time.time() - epoch_t0
-                print(f"Epoch {epoch + 1}/{cfg.epochs}  box {losses['box_loss']:.4f} "
-                      f"cls {losses['cls_loss']:.4f} dfl {losses['dfl_loss']:.4f}  "
-                      f"mAP50 {metrics['map50']:.4f} mAP50-95 {metrics['map']:.4f}  "
-                      f"{n_steps * cfg.batch / max(epoch_time, 1e-9):.1f} img/s")
-                lr_now = float(self.lr_fn(lr_step))
-                self.run.append_results_row({
-                    "epoch": epoch + 1, "time": round(time.time() - t0, 2),
-                    "train/box_loss": losses["box_loss"], "train/cls_loss": losses["cls_loss"],
-                    "train/dfl_loss": losses["dfl_loss"],
-                    "metrics/precision(B)": metrics["precision"],
-                    "metrics/recall(B)": metrics["recall"],
-                    "metrics/mAP50(B)": metrics["map50"], "metrics/mAP50-95(B)": metrics["map"],
-                    "val/box_loss": val_losses["box_loss"],
-                    "val/cls_loss": val_losses["cls_loss"],
-                    "val/dfl_loss": val_losses["dfl_loss"],
-                    # pg0/pg1: weights and BN (one schedule), pg2: biases
-                    "lr/pg0": lr_now, "lr/pg1": lr_now,
-                    "lr/pg2": float(self.lr_fn_bias(lr_step)),
-                })
-                self.save_checkpoint("last", epoch, fit)
-                if fit > best_fit:
-                    self.save_checkpoint("best", epoch, fit)
-                if cfg.save_period > 0 and (epoch + 1) % cfg.save_period == 0:
-                    self.save_checkpoint(f"epoch{epoch + 1}", epoch, fit)
-                if cfg.time_phases:
-                    print(f"  phases: dispatch {t_dispatch - epoch_t0:.2f}s  "
-                          f"step-sync {t_stepsync - t_dispatch:.2f}s  "
-                          f"val {t_val - t_stepsync:.2f}s  tail {time.time() - t_val:.2f}s")
-                if fit > best_fit:
-                    best_fit, best_epoch = fit, epoch
-                if cfg.patience and epoch - best_epoch >= cfg.patience:
-                    stop = f"EarlyStopping: no improvement in {cfg.patience} epochs"
-                elif cfg.time and (time.time() - t0) > cfg.time * 3600:
-                    stop = f"training time limit of {cfg.time} h reached"
-            # rank 0's fitness, best epoch and stop hold on every rank
-            fit, best_fit, best_epoch, stop = self._decide(
-                lambda: (fit, best_fit, best_epoch, stop))
+                fit = fitness(metrics)
+                stop = None
+                if lead:
+                    epoch_time = epoch_span.seconds
+                    print(f"Epoch {epoch + 1}/{cfg.epochs}  box {losses['box_loss']:.4f} "
+                          f"cls {losses['cls_loss']:.4f} dfl {losses['dfl_loss']:.4f}  "
+                          f"mAP50 {metrics['map50']:.4f} mAP50-95 {metrics['map']:.4f}  "
+                          f"{n_steps * cfg.batch / max(epoch_time, 1e-9):.1f} img/s")
+                    lr_now = float(self.lr_fn(lr_step))
+                    self.run.append_results_row({
+                        "epoch": epoch + 1, "time": round(time.time() - t0, 2),
+                        "train/box_loss": losses["box_loss"], "train/cls_loss": losses["cls_loss"],
+                        "train/dfl_loss": losses["dfl_loss"],
+                        "metrics/precision(B)": metrics["precision"],
+                        "metrics/recall(B)": metrics["recall"],
+                        "metrics/mAP50(B)": metrics["map50"], "metrics/mAP50-95(B)": metrics["map"],
+                        "val/box_loss": val_losses["box_loss"],
+                        "val/cls_loss": val_losses["cls_loss"],
+                        "val/dfl_loss": val_losses["dfl_loss"],
+                        # pg0/pg1: weights and BN (one schedule), pg2: biases
+                        "lr/pg0": lr_now, "lr/pg1": lr_now,
+                        "lr/pg2": float(self.lr_fn_bias(lr_step)),
+                    })
+                    self.save_checkpoint("last", epoch, fit)
+                    if fit > best_fit:
+                        self.save_checkpoint("best", epoch, fit)
+                    if cfg.save_period > 0 and (epoch + 1) % cfg.save_period == 0:
+                        self.save_checkpoint(f"epoch{epoch + 1}", epoch, fit)
+                    if cfg.time_phases:
+                        print(self._phases_line(epoch_span, steps_span, sync_span, val_span,
+                                                stage0))
+                    if fit > best_fit:
+                        best_fit, best_epoch = fit, epoch
+                    if cfg.patience and epoch - best_epoch >= cfg.patience:
+                        stop = f"EarlyStopping: no improvement in {cfg.patience} epochs"
+                    elif cfg.time and (time.time() - t0) > cfg.time * 3600:
+                        stop = f"training time limit of {cfg.time} h reached"
+                # rank 0's fitness, best epoch and stop hold on every rank
+                fit, best_fit, best_epoch, stop = self._decide(
+                    lambda: (fit, best_fit, best_epoch, stop))
             if stop:
                 if lead:
                     print(stop)

@@ -174,9 +174,10 @@ def test_trainer_threads_remat_to_the_model(tmp_path):
 
 
 def test_profile_steps_writes_a_trace_and_changes_nothing(tmp_path):
-    """profile_steps=2 traces steps 1-2 of the first epoch, which runs
-    eagerly (K auto resolves to 4 for the 4 batches; the later epoch takes
-    the program), and trains as the same run without it does."""
+    """profile_steps=2 traces steps 1-2 of the first epoch through the step
+    program (K auto resolves to 4 for the 4 batches; the profiled epoch's
+    dispatch is cut at steps 1 and 3), and trains as the same run without
+    it does."""
     data_yaml = make_dataset(tmp_path, n_train=16, n_val=4, imgsz=64, nc=2)
     a = _small(tmp_path, "prof", data_yaml, profile_steps=2, epochs=2, val=False)
     b = _small(tmp_path, "noprof", data_yaml, epochs=2, val=False)

@@ -64,6 +64,9 @@ REPLACEMENTS = [
     ("check(dev_ms > 0,", "check(True,"),
     ("windows: int = 6", "windows: int = 1"),
     ("        time.sleep(1.0)\n    return 0.0, {}", "    return 0.0, {}"),
+    # the phase stamps have no CPU kernel: phase 41 is left out
+    ("stamp_record = phase_stamp_checks(args.seed, card)",
+     'stamp_record = {"launches": 0, "stamp_us": 0.0}'),
     # NMS beyond 1344 candidates and batched_nms at pre_topk 4096
     ("NMS_LARGE_K = (1345, 2048, 4096)", "NMS_LARGE_K = (1345,)"),
     ("(32, k_, 2)", "(2, k_, 2)"), ("(32, k_, 1)", "(2, k_, 1)"), ("(32, k_)", "(2, k_)"),
