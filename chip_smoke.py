@@ -287,6 +287,17 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    kernels a replay in slot order (but for at most STAMP_TRACE_LOST of
    them that the profiler drops), ``phase_ms()`` within STAMP_TRACE_TOL
    of the trace's phases, and no other program-named device activity.
+42. the on-card augmentation's pixel kernel (``csrc/device_augment.cu``) at
+   b32/640 on canvases of varied aspect: each ``apply``'s images against
+   the plain PyTorch version (``pixels_plain``) on the plan that call
+   handed the kernel, by configuration (the default; the mosaic gate off;
+   mixup 0.5 on the whole batch and on two data-parallel ranks' rows; all
+   flips and the BGR swap): one launch a call, images within AUG_LEVELS on
+   at most AUG_SHARE of the values, a rank's boxes, classes, mask and
+   images bit-equal to the whole batch's rows; ``apply`` as a CUDA graph,
+   one launch a replay; the kernel's device time and a call's time, its
+   plain version's, ``apply`` eager and replayed, the bound. Phases
+   12, 16, 22, 23, 39 and 41 count its launches too: one a train step.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
@@ -296,7 +307,8 @@ as rows of their own, each kernel's launches inside the serving graphs, and
 the yolo12n and yolov8n records under ``families``, and each attention
 kernel's ``train_graph_launches``, its launches inside one replay of the
 graphed step; the s8 conv's row, then the phase stamp's with phase 41's
-record under ``phases``; phase 35's record under ``dp``,
+record under ``phases``, then the augmentation kernel's with phase 42's
+under ``checks``; phase 35's record under ``dp``,
 phase 36's under ``app``, phase 39's under ``tp``, phase 40's under
 ``phase40``) and
 the last line the device record; the ``serving``, ``train_graph`` and ``int8`` records, phases
@@ -386,6 +398,25 @@ STAMP_REPLAYS = 80
 STAMP_SUM_TOL = 0.02
 STAMP_TRACE_TOL = (0.05, 0.02)
 STAMP_TRACE_LOST = 0.05
+# phase 42: the augmentation's pixel kernel against its plain PyTorch
+# version (``pixels_plain``) on the plan each call handed it, at the
+# benchmark's b32/640, canvases of varied aspect with AUG_BOXES boxes.
+# Images: a value may be one level apart in at most AUG_SHARE of the values.
+# The kernel repeats the plain version's f32 operations in their order, built
+# with -fmad=false, but its HSV division and remainder may round apart from
+# PyTorch's kernels in a last bit, and truncation to u8 turns that into one
+# level. The boxes take no part in the route: a rank's are bit-equal to the
+# whole batch's rows
+AUG_BATCH = 32
+AUG_IMGSZ = 640
+AUG_BOXES = 16
+AUG_MAX_BOXES = 64
+AUG_LEVELS = 1
+AUG_SHARE = 1e-4
+AUG_REPLAYS = 20
+AUG_CASES = (("default", {}, 1), ("mosaic gate off", {"mosaic": 0.0}, 1),
+             ("mixup 0.5", {"mixup": 0.5}, 1), ("mixup 0.5, 2 ranks", {"mixup": 0.5}, 2),
+             ("flips and bgr", {"fliplr": 1.0, "flipud": 1.0, "bgr": 1.0}, 1))
 # graphed vs eager after GRAPH_STEPS steps: |diff| <= GRAPH_TOL x the largest
 # move of its kind (parameters, EMA, BN statistics) from the start. The
 # replay runs the eager step's kernels in its order, and came out bit for
@@ -871,6 +902,7 @@ def graph_vs_eager(seed: int, model: str, batch: int, per_step: tuple, card: str
     import torch
 
     from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import device_augment as dk
     from deal_yolo_daya_tpu_torch.train import TrainConfig, TrainState
     from deal_yolo_daya_tpu_torch.train.device_augment import (DeviceAugConfig, augment_batch,
                                                                 step_seed)
@@ -922,10 +954,11 @@ def graph_vs_eager(seed: int, model: str, batch: int, per_step: tuple, card: str
     torch.cuda.reset_peak_memory_stats()
     g = fresh()
     prog = StepProgram(g, cache, aug, imgsz, GRAPH_MAX_BOXES, batch)
-    aa.launches = aa.bwd_launches = 0
+    aa.launches = aa.bwd_launches = dk.launches = 0
     prog.run(idx, seeds)
     torch.cuda.synchronize()
     first_counts = (aa.launches, aa.bwd_launches)
+    first_aug = dk.launches
     peak_graph = (torch.cuda.max_memory_allocated() - base) / 1e9
     noise = state_diffs(e1, e2, start)
     diffs = state_diffs(g, e1, start)
@@ -944,12 +977,14 @@ def graph_vs_eager(seed: int, model: str, batch: int, per_step: tuple, card: str
     want = tuple(k * n for n in per_step)
     check(first_counts == want, f"{model}: the counters moved by {first_counts} over the "
           f"warm-up, the capture and the replays, not {want}")
+    check(first_aug == k, f"{model}: {first_aug} augmentation kernel launches in {k} steps")
 
     # the steps' times, then one replay and one eager step under the profiler
-    aa.launches = aa.bwd_launches = 0
+    aa.launches = aa.bwd_launches = dk.launches = 0
     g_wall, g_host, g_events = timed(lambda: prog.run(idx, seeds))
     check((aa.launches, aa.bwd_launches) == want,
           f"{model}: {k} replays counted {(aa.launches, aa.bwd_launches)}, not {want}")
+    check(dk.launches == k, f"{model}: {dk.launches} augmentation kernel launches in {k} replays")
     e_wall, e_host, e_events = timed(lambda: eager(e2))
     rows, replay_wall = profile_rows(lambda: prog.graphs[True].replay())
     launched = attention_launches(rows)
@@ -972,6 +1007,7 @@ def graph_vs_eager(seed: int, model: str, batch: int, per_step: tuple, card: str
     return {"batch": batch, "steps": k, "diffs": diffs, "eager_noise": noise,
             "worst_of_tol": worst, "replay_launches": dict(zip(("forward", "backward"), launched)),
             "replay_kernel_ms": kernel_ms, "counts_over_first_dispatch": first_counts,
+            "augment_launches_first_dispatch": first_aug,
             "graphed": {"wall_ms": g_wall, "host_ms": g_host, "events_ms": g_events,
                         "busy_ms": replay_busy, "peak_gb": peak_graph, "capture_s": prog.capture_s},
             "eager": {"wall_ms": e_wall, "host_ms": e_host, "events_ms": e_events,
@@ -980,9 +1016,15 @@ def graph_vs_eager(seed: int, model: str, batch: int, per_step: tuple, card: str
 
 def trainer_launches(trainer, epochs: int, n_val: int):
     """The launches a yolo11n Trainer run makes: one attention forward and
-    one backward a train step, one forward and one NMS a val batch."""
+    one backward a train step, one forward and one NMS a val batch, and one
+    augmentation kernel a train step where the Trainer augments on the card
+    by the kernel's route."""
+    from deal_yolo_daya_tpu_torch.train.device_augment import route
+
     steps = epochs * len(trainer.train_loader)
-    return {"area_attention": steps + n_val, "area_attention_bwd": steps, "nms_suppress": n_val}
+    on_card = trainer.cfg.device_augment and route(trainer.aug_cfg, trainer.state.device) == "kernel"
+    return {"area_attention": steps + n_val, "area_attention_bwd": steps, "nms_suppress": n_val,
+            "device_augment": steps if on_card else 0}
 
 
 def trainer_run(cfg, label: str):
@@ -996,6 +1038,7 @@ def trainer_run(cfg, label: str):
     import torch
 
     from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import device_augment as dk
     from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
     from deal_yolo_daya_tpu_torch.train.trainer import Trainer
 
@@ -1016,13 +1059,13 @@ def trainer_run(cfg, label: str):
     trainer.validate = timed(trainer.validate, "val")
     trainer.save_checkpoint = timed(trainer.save_checkpoint, "ckpt")
     torch.cuda.reset_peak_memory_stats()
-    aa.launches = aa.bwd_launches = ns.launches = 0
+    aa.launches = aa.bwd_launches = ns.launches = dk.launches = 0
     t0 = time.perf_counter()
     result = trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"area_attention": aa.launches, "area_attention_bwd": aa.bwd_launches,
-                "nms_suppress": ns.launches}
+                "nms_suppress": ns.launches, "device_augment": dk.launches}
     with open(Path(result["save_dir"]) / "results.csv", newline="") as f:
         rows = list(csv.DictReader(f))
     per_epoch = len(trainer.train_loader)
@@ -1059,20 +1102,22 @@ def profiled_trainer_launches(cfg):
     from torch.profiler import ProfilerActivity, profile
 
     from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import device_augment as dk
     from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
     from deal_yolo_daya_tpu_torch.train.trainer import Trainer
 
     names = {"area_attention": ("attention_bf16_kernel", "attention_f32_kernel"),
              "area_attention_bwd": ("bwd_query_rows",),
-             "nms_suppress": ("nms_kernel", "nms_walk_global")}
+             "nms_suppress": ("nms_kernel", "nms_walk_global"),
+             "device_augment": ("augment_pixels_kernel",)}
     for attempt in range(3):
         trainer = Trainer(dataclasses.replace(cfg, name=f"{cfg.name}_profiled{attempt}"))
-        aa.launches = aa.bwd_launches = ns.launches = 0
+        aa.launches = aa.bwd_launches = ns.launches = dk.launches = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             trainer.train()
             torch.cuda.synchronize()
         counted = {"area_attention": aa.launches, "area_attention_bwd": aa.bwd_launches,
-                   "nms_suppress": ns.launches}
+                   "nms_suppress": ns.launches, "device_augment": dk.launches}
         rows = [(e.key, e.count) for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
         if rows:
@@ -1302,6 +1347,7 @@ def phase_stamp_checks(seed: int, card: str):
     from torch.profiler import ProfilerActivity, profile
 
     from deal_yolo_daya_tpu_torch import tracing
+    from deal_yolo_daya_tpu_torch.ops.kernels import device_augment as dk
     from deal_yolo_daya_tpu_torch.ops.kernels import phase_stamp as ps
     from deal_yolo_daya_tpu_torch.train import TrainConfig, TrainState
     from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig, step_seed
@@ -1334,7 +1380,7 @@ def phase_stamp_checks(seed: int, card: str):
           f"stamps: {count()} steps in the ring after {WARMUP_RUNS} eager steps and a replay")
 
     # untraced
-    ps.launches, before, spans0 = 0, count(), spans()
+    ps.launches, dk.launches, before, spans0 = 0, 0, count(), spans()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     run(n)
@@ -1342,6 +1388,7 @@ def phase_stamp_checks(seed: int, card: str):
     b.synchronize()
     step_ms = a.elapsed_time(b) / n
     launches, advanced, ring = ps.launches, count() - before, prog.phase_ms()
+    aug_launches = dk.launches
     span_n = {k: v.count - spans0[k].count for k, v in spans().items()}
     span_ms = {k: (v.seconds - spans0[k].seconds) / n * 1e3 for k, v in spans().items()}
     host = prog.stamps.buf.cpu().numpy()
@@ -1349,6 +1396,7 @@ def phase_stamp_checks(seed: int, card: str):
     t = host[:-1].reshape(rows, slots)[[(c - rows + i) % rows for i in range(rows)]]
     check(launches == slots * n and advanced == n,
           f"stamps: {launches} launches and the ring advanced {advanced} over {n} replays")
+    check(aug_launches == n, f"stamps: {aug_launches} augmentation kernel launches in {n} replays")
     check(bool((np.diff(t, axis=1) > 0).all() and (t[1:, 0] > t[:-1, -1]).all()),
           "stamps: the ring's rows are not in time order")
     ring_between = float(np.median(t[1:, 0] - t[:-1, -1])) / 1e6
@@ -1401,17 +1449,169 @@ def phase_stamp_checks(seed: int, card: str):
     del prog, st
     torch.cuda.empty_cache()
     log(f"[stamps] yolo11n b32 step graph, {n} replays: {launches} stamp launches, the ring "
-        f"advanced {advanced}; phase_ms() {', '.join(f'{p} {v:.3f}' for p, v in ring.items())} "
+        f"advanced {advanced}, {aug_launches} augmentation kernel launches; phase_ms() "
+        f"{', '.join(f'{p} {v:.3f}' for p, v in ring.items())} "
         f"ms, sum {ring_sum:.3f} + {ring_between:.3f} between against {step_ms:.3f} ms a step "
         f"(CUDA events); host a step: stage {span_ms['train.stage']:.3f} ms, replay "
         f"{span_ms['train.replay']:.3f} ms; traced: {len(steps)} whole steps ({lost} stamps "
         f"lost), phase_ms() against the trace worst {worst:.3f} of the tolerance, a stamp "
         f"{stamp_us:.2f} us ({card})")
     return {"replays": n, "launches": launches, "ring_advanced": advanced, "step_ms": step_ms,
+            "augment_launches": aug_launches,
             "ring_phase_ms": ring, "ring_between_ms": ring_between,
             "host_ms_per_step": span_ms, "ring_phase_ms_traced": ring_t,
             "trace_phase_ms": trace_ms, "trace_stamps_lost": lost, "worst_of_tol": worst,
             "stamp_us": stamp_us, "card": card}
+
+
+def aug_canvases(seed: int, batch: int, imgsz: int, dev):
+    """The Trainer's device-cache layout, made on the card: (B, S, S, 3) u8
+    canvases, each a keep-ratio content of aspect (w / h) 0.5-2 with its
+    long side S at the top left, smooth colour fields plus noise, 114
+    around it; (B, 2) f32 content (h, w); AUG_BOXES boxes of 5-60% of the
+    content's sides inside it, (B, M, 4) xyxy, int32 classes of 80 and a
+    mask with 1-AUG_BOXES set, zeros beyond."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    aspect = 0.5 * 4.0 ** torch.rand((batch,), generator=g, device=dev)
+    full = torch.full_like(aspect, float(imgsz))
+    h = torch.where(aspect >= 1, imgsz / aspect, full).floor().clamp(min=1)
+    w = torch.where(aspect >= 1, full, imgsz * aspect).floor().clamp(min=1)
+    hw = torch.stack([h, w], 1)
+    cells = imgsz // 16 + 1
+    base = torch.randint(0, 256, (batch, cells, cells, 3), generator=g, device=dev,
+                         dtype=torch.int16)
+    images = base.repeat_interleave(16, 1).repeat_interleave(16, 2)[:, :imgsz, :imgsz]
+    noise = torch.randint(-20, 21, images.shape, generator=g, device=dev, dtype=torch.int16)
+    images = (images + noise).clamp(0, 255).to(torch.uint8)
+    ys = torch.arange(imgsz, device=dev)
+    images[(ys[None, :, None] >= h[:, None, None]) | (ys[None, None, :] >= w[:, None, None])] = 114
+    u = torch.rand((batch, AUG_BOXES, 4), generator=g, device=dev)
+    wh = (0.05 + 0.55 * u[..., :2]) * hw.flip(-1)[:, None]
+    xy = u[..., 2:] * (hw.flip(-1)[:, None] - wh)
+    count = torch.randint(1, AUG_BOXES + 1, (batch, 1), generator=g, device=dev)
+    mask = torch.arange(AUG_BOXES, device=dev)[None] < count
+    classes = torch.randint(0, 80, (batch, AUG_BOXES), generator=g, device=dev,
+                            dtype=torch.int32)
+    return (images.contiguous(), hw, torch.cat([xy, xy + wh], -1) * mask[..., None],
+            classes * mask, mask)
+
+
+def device_augment_checks(seed: int, card: str):
+    """Phase 42: the augmentation's pixel kernel (``csrc/device_augment.cu``)
+    at b32/640 on ``aug_canvases``. For each of AUG_CASES, each ``apply``'s
+    images against ``pixels_plain`` on the plan that call handed the
+    kernel: one launch a call and none in ``pixels_plain``; the images
+    within AUG_LEVELS on at most AUG_SHARE of the values; a data-parallel
+    rank's boxes, classes, mask and images bit-equal to the whole batch's
+    rows. Then ``apply`` captured into a CUDA graph: one launch a replay,
+    counted at each replay, the replay's outputs those of the eager call.
+    Times: the kernel (device time by CUDA events over a graph of launches,
+    and a call), its plain version (``pixels_plain``) on the same plan,
+    ``apply`` eager and as a replayed graph, against the bound (the sources
+    read once and the u8 images written once)."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import device_augment as dk
+    from deal_yolo_daya_tpu_torch.train import device_augment as da
+    from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig
+
+    dev = torch.device("cuda")
+    b, s = AUG_BATCH, AUG_IMGSZ
+    raw = aug_canvases(seed, b, s, dev)
+    plans = {}
+
+    def recording(images, hw, plan):
+        plans["last"] = (images, hw, plan)
+        return orig(images, hw, plan)
+
+    cases = {}
+    with patched(dk, "launch", recording) as orig:
+        for k, (name, kw, ranks) in enumerate(AUG_CASES):
+            cfg = DeviceAugConfig(**kw)
+            check(da.route(cfg, dev) == "kernel", f"augment {name}: route {da.route(cfg, dev)}")
+            draws = da.draw(b, torch.Generator(device=dev).manual_seed(seed + k), cfg, dev)
+            whole = da.apply(*raw, draws, s, cfg, AUG_MAX_BOXES)
+            plans[name] = plans["last"]
+            for r in range(ranks):
+                rows = slice(r * b // ranks, (r + 1) * b // ranks) if ranks > 1 else None
+                before = dk.launches
+                got = da.apply(*raw, draws, s, cfg, AUG_MAX_BOXES, rows)
+                launched = dk.launches - before
+                # the plain version on the plan this call handed the kernel
+                want = da.pixels_plain(*plans["last"], s, cfg)
+                plain_launched = dk.launches - before - launched
+                torch.cuda.synchronize()
+                diff = (got[0].int() - want.int()).abs()
+                levels, apart = int(diff.max()), int((diff > 0).sum())
+                share = apart / diff.numel()
+                # boxes, classes and mask take no part in the route: a rank's
+                # are the whole batch's rows bit for bit
+                labels = rows is None or all(same_bits(x, y[rows])
+                                             for x, y in zip(got[1:], whole[1:]))
+                own_rows = rows is None or torch.equal(got[0], whole[0][rows])
+                label = name if ranks == 1 else f"{name}, rank {r}"
+                log(f"[augment] {label}: kernel against pixels_plain on its plan, {apart} of "
+                    f"{diff.numel()} values apart ({share:.2e}), at most {levels} level(s); "
+                    f"boxes, classes and mask the whole batch's rows {labels}; "
+                    f"{int(got[3].sum())} boxes kept; images the whole batch's rows {own_rows}; "
+                    f"launches {launched} (pixels_plain {plain_launched})")
+                check(launched == 1 and plain_launched == 0,
+                      f"augment {label}: {launched} kernel launches, {plain_launched} in "
+                      "pixels_plain")
+                check(levels <= AUG_LEVELS and share <= AUG_SHARE,
+                      f"augment {label}: images {apart} values apart, up to {levels} levels")
+                check(labels, f"augment {label}: the rank's boxes, classes or mask differ "
+                      "from the whole batch's")
+                check(own_rows, f"augment {label}: the rank's images differ from the whole "
+                      "batch's")
+                cases[label] = {"values_apart": apart, "share": share, "max_levels": levels,
+                                "labels_equal": labels, "launches": launched}
+
+    # captured into a CUDA graph: one launch a replay
+    cfg = DeviceAugConfig()
+    draws = da.draw(b, torch.Generator(device=dev).manual_seed(seed), cfg, dev)
+    eager = da.apply(*raw, draws, s, cfg, AUG_MAX_BOXES)
+    replay, captured = capture_program(da.apply, (*raw, draws, s, cfg, AUG_MAX_BOXES))
+    dk.launches = 0
+    for _ in range(AUG_REPLAYS):
+        replay()
+    torch.cuda.synchronize()
+    graph_launches = dk.launches
+    same = all(same_bits(x, y) for x, y in zip(captured, eager))
+    log(f"[augment] a CUDA graph of apply: {graph_launches} launches in {AUG_REPLAYS} "
+        f"replays; the replay's outputs the eager call's {same}")
+    check(graph_launches == AUG_REPLAYS,
+          f"augment graph: {graph_launches} launches in {AUG_REPLAYS} replays")
+    check(same, "augment graph: the replay's outputs differ from the eager call's")
+
+    # times: the kernel and its plain version on the default case's plan;
+    # the kernel's device time by CUDA events over a graph of launches, since
+    # after phase 41 the card's profiler recorded no device activity at all
+    # in six windows of 50 launches (a run of phase 42 alone recorded all)
+    images, hw, plan = plans["default"]
+    dev_ms = graph_time_ms(lambda: dk.launch(images, hw, plan))
+    call_ms = cuda_time_ms(lambda: dk.launch(images, hw, plan), 200)
+    mix_dev_ms = graph_time_ms(lambda: dk.launch(*plans["mixup 0.5"]))
+    plain_ms = cuda_time_ms(lambda: da.pixels_plain(images, hw, plan, s, cfg), 10)
+    apply_ms = cuda_time_ms(lambda: da.apply(*raw, draws, s, cfg, AUG_MAX_BOXES), 20)
+    graph_ms = cuda_time_ms(replay, 50)
+    nbytes = 2 * b * s * s * 3  # the sources read once, the u8 images written once
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    del replay, captured
+    torch.cuda.empty_cache()
+    log(f"[time] device_augment ({b}, {s}) u8: kernel device {dev_ms:.4f} ms (a graph of "
+        f"launches), a call {call_ms:.4f} ms with the host, {dev_ms / bound_ms:.1f} x its "
+        f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB); with mixup 0.5 device "
+        f"{mix_dev_ms:.4f} ms; plain "
+        f"pixels_plain {plain_ms:.3f} ms; apply {apply_ms:.3f} ms, as a replayed graph "
+        f"{graph_ms:.3f} ms ({card})")
+    return {"cases": cases, "graph_launches": graph_launches, "replays": AUG_REPLAYS,
+            "shape": [b, s, s, 3], "device_ms": dev_ms, "call_ms": call_ms,
+            "mixup_device_ms": mix_dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "apply_ms": apply_ms, "apply_graph_ms": graph_ms,
+            "card": card}
 
 
 # ---------------------------------------------------------------- phases 29-34
@@ -3086,6 +3286,7 @@ def tp_phase(seed: int, data_yaml: Path, root: Path, card: str, cfg_cls):
 
     from deal_yolo_daya_tpu_torch.models.yolo11 import YOLO11, init_weights
     from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import device_augment as dk
     from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
     from deal_yolo_daya_tpu_torch.parallel import launch
     from deal_yolo_daya_tpu_torch.parallel.dryrun import dp_steps
@@ -3257,7 +3458,7 @@ def tp_phase(seed: int, data_yaml: Path, root: Path, card: str, cfg_cls):
             sys.__stdout__.flush()
 
     t0 = time.perf_counter()
-    aa.launches = aa.bwd_launches = ns.launches = 0
+    aa.launches = aa.bwd_launches = ns.launches = dk.launches = 0
     with contextlib.redirect_stdout(Tee()):
         trainer = Trainer(tcfg, mesh=mesh)
         sharded = len(trainer.state.tp)
@@ -3265,7 +3466,7 @@ def tp_phase(seed: int, data_yaml: Path, root: Path, card: str, cfg_cls):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"area_attention": aa.launches, "area_attention_bwd": aa.bwd_launches,
-                "nms_suppress": ns.launches}
+                "nms_suppress": ns.launches, "device_augment": dk.launches}
     save_dir = Path(result["save_dir"])
     n_val = 2 * len(trainer.val_loader)  # the epoch's validation and train()'s last
     want = trainer_launches(trainer, 1, n_val)
@@ -3407,6 +3608,7 @@ def main() -> int:
     from deal_yolo_daya_tpu_torch.ops.decode import decode_predictions, flatten_levels
     from deal_yolo_daya_tpu_torch.ops.kernels import _build
     from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import device_augment as dk
     from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
     from deal_yolo_daya_tpu_torch.ops.kernels import score_reduce as sr
     from deal_yolo_daya_tpu_torch.ops.letterbox import letterbox_numpy
@@ -3432,9 +3634,10 @@ def main() -> int:
         for ln in lines:
             log(f"[ptxas {name}] {ln}")
     # the wgmma kernels keep their accumulators in registers, NMS its chain's
-    # 32 row words and score_reduce a row's 16-byte vectors: no spills
+    # 32 row words, score_reduce a row's 16-byte vectors and the augmentation
+    # its two samples' row taps: no spills
     for name in ("area_attention", "area_attention_bwd", "nms_suppress", "score_reduce",
-                 "int8_conv"):
+                 "int8_conv", "device_augment"):
         if name in logs:
             spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
             check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -4019,7 +4222,7 @@ def main() -> int:
                     host_timed(metrics_mod.DetMetrics.update, "metric_s", add=True)), \
             patched(metrics_mod.DetMetrics, "compute",
                     host_timed(metrics_mod.DetMetrics.compute, "metric_s", add=True)):
-        aa.launches = aa.bwd_launches = ns.launches = sr.launches = 0
+        aa.launches = aa.bwd_launches = ns.launches = sr.launches = dk.launches = 0
         t_train = time.perf_counter()
         result = trainer.train()
         torch.cuda.synchronize()
@@ -4027,7 +4230,8 @@ def main() -> int:
         trainer_launches = {"area_attention": aa.launches,
                             "area_attention_bwd": aa.bwd_launches,
                             "nms_suppress": ns.launches,
-                            "score_reduce (not on the path)": sr.launches}
+                            "score_reduce (not on the path)": sr.launches,
+                            "device_augment": dk.launches}
     n_steps = trainer.state.updates
     n_val_batches = len(clocks["val_s"]) * len(trainer.val_loader)
     log(f"[trainer] {TRAINER_EPOCHS} epochs in {train_wall:.1f} s: {n_steps} steps, "
@@ -4040,6 +4244,8 @@ def main() -> int:
     check(trainer_launches["area_attention_bwd"] == n_steps,
           "attention backward launches != train steps")
     check(trainer_launches["nms_suppress"] == n_val_batches, "NMS launches != val batches")
+    check(trainer_launches["device_augment"] == n_steps,
+          "augmentation kernel launches != train steps")
     # NMS against its plain version on the validation batches' own inputs (nc 3)
     log(f"[trainer] validation NMS inputs: valid candidates per image, min and max over each "
         f"batch {[(int(v.sum(1).min()), int(v.sum(1).max())) for _, v, _ in recorded['val_nms']]}")
@@ -4580,13 +4786,13 @@ def main() -> int:
         return validate12(*a, **k)
 
     trainer12.validate = counted_validate
-    aa.launches = aa.bwd_launches = ns.launches = 0
+    aa.launches = aa.bwd_launches = ns.launches = dk.launches = 0
     t0 = time.perf_counter()
     result12 = trainer12.train()
     torch.cuda.synchronize()
     trainer12_wall = time.perf_counter() - t0
     trainer12_launches = {"area_attention": aa.launches, "area_attention_bwd": aa.bwd_launches,
-                          "nms_suppress": ns.launches}
+                          "nms_suppress": ns.launches, "device_augment": dk.launches}
     steps12 = trainer12.state.updates
     val12_batches = len(validations12) * len(trainer12.val_loader)
     log(f"[yolo12n trainer] {TRAINER_EPOCHS} epochs in {trainer12_wall:.1f} s: {steps12} steps, "
@@ -4596,8 +4802,9 @@ def main() -> int:
           f"the yolo12n Trainer took {steps12} steps")
     check(trainer12_launches == {"area_attention": 8 * (steps12 + val12_batches),
                                  "area_attention_bwd": 8 * steps12,
-                                 "nms_suppress": val12_batches},
-          "yolo12n Trainer launches != 8 a forward, 8 a backward, one NMS a val batch")
+                                 "nms_suppress": val12_batches, "device_augment": steps12},
+          "yolo12n Trainer launches != 8 a forward, 8 a backward, one NMS a val batch, one "
+          "augmentation a step")
     save12 = Path(result12["save_dir"])
     best12 = load_checkpoint(save12 / "weights" / "best.pt")
     check(best12["family"] == "yolo12" and "family: yolo12" in (save12 / "args.yaml").read_text(),
@@ -5114,6 +5321,10 @@ def main() -> int:
     # 41. the phase stamps in the step graph, against their counters, CUDA
     # events and the profiler
     stamp_record = phase_stamp_checks(args.seed, card)
+
+    # 42. the augmentation's pixel kernel against its plain version, in a CUDA
+    # graph, and its times
+    aug_record = device_augment_checks(args.seed, card)
     int8_record["card"] = card
     s8_row["launches_by_path"] = {
         "int8 predict": int8_record["launches"]["int8_conv"],
@@ -5129,6 +5340,26 @@ def main() -> int:
         "launches_by_path": {f"yolo11n b32 graphed step, {STAMP_REPLAYS} replays":
                              stamp_record["launches"]},
         "phases": stamp_record})
+    kernels.append({
+        "name": "device_augment", "route": "cuda",
+        "source": "deal_yolo_daya_tpu_torch/csrc/device_augment.cu", "replaces": None,
+        "launches": aug_record["graph_launches"], "shape": aug_record["shape"],
+        "device_ms": aug_record["device_ms"], "ms": aug_record["call_ms"],
+        "plain_ms": aug_record["plain_ms"], "bound_ms": aug_record["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "launches_by_path": {
+            "phase 42, apply a call": aug_record["cases"]["default"]["launches"],
+            f"phase 42, a CUDA graph of apply, {AUG_REPLAYS} replays": aug_record["graph_launches"],
+            f"yolo11n b32 graphed step (phase 22), {GRAPH_STEPS} steps":
+                graph_record["yolo11n"]["augment_launches_first_dispatch"],
+            f"yolo11n b32 graphed step (phase 41), {STAMP_REPLAYS} replays":
+                stamp_record["augment_launches"],
+            "yolo11n Trainer (phase 12)": trainer_record["launches"]["device_augment"],
+            "yolo11n graphed Trainer (phase 23)": graphed_run["launches"]["device_augment"],
+            "yolo11n Trainer K = 1 (phase 23)": eager_run["launches"]["device_augment"],
+            f"yolo11n 1 x 2 TP Trainer, rank 0, {TP_TRAINER_STEPS} steps b{TP_BATCH}":
+                tp_record["trainer_1x2"]["launches"]["device_augment"]},
+        "checks": aug_record})
     log(f"[int8] phases 29-34 in {int8_record['wall_s']:.1f} s")
     kernels[0]["train_graph_launches"] = {
         "yolo11n": graph_record["yolo11n"]["replay_launches"]["forward"],

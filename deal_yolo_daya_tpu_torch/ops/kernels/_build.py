@@ -32,10 +32,12 @@ BUILD = PACKAGE / "_build"
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the NMS IoU must round exactly as PyTorch's elementwise ops
+# per-source flags: the NMS IoU and the augmentation's pixels must round
+# exactly as PyTorch's elementwise ops
 EXTRA: Dict[str, List[str]] = {
     "area_attention": [],
     "area_attention_bwd": [],
+    "device_augment": ["-fmad=false"],
     "int8_conv": [],
     "nms_suppress": ["-fmad=false"],
     "phase_stamp": [],

@@ -15,11 +15,22 @@ canvas (``DataLoader.load_raw``); the rest runs here, on the batch's device:
 - mixup, HSV gains and flips act on whole images; the kept boxes are moved to
   the front and truncated to ``max_boxes``.
 
-Three resamplers, chosen by the JAX package's rule: without rotation and
-shear the map is separable, and each output row and column samples its two
-source taps directly (the JAX package writes the same taps as one-hot
-matrices for the TPU's matrix unit); up to 45 degrees a two-pass shear warp
-in bf16; beyond that, or with ``force_gather``, the exact per-pixel gather.
+Three resamplers, chosen by the JAX package's rule, a property of the
+configuration (``route``): without rotation and shear the map is
+separable, and each output row and column samples its two source taps
+directly (the JAX package writes the same taps as one-hot matrices for the
+TPU's matrix unit); up to 45 degrees a two-pass shear warp in bf16; beyond
+that, or with ``force_gather``, the exact per-pixel gather.
+
+On a CUDA device the separable route's pixels (the mosaic's sampling, the
+fill, mixup, HSV, the flips and the u8 store) are one hand-written kernel
+(``ops/kernels/device_augment.py``, ``csrc/device_augment.cu``): it picks
+each pixel's one quadrant source instead of sampling all four and masking
+three away, and keeps every f32 intermediate out of device memory, with
+the same draws and the same roundings. ``apply`` launches it or raises;
+``pixels_plain`` is its plain version, the separable route on the CPU. The
+per-sample numbers and the boxes are PyTorch on every route; the warp and
+gather routes, and every route on the CPU, are PyTorch throughout.
 
 The random numbers are drawn apart from their use: ``draw`` takes them from
 a ``torch.Generator`` on the batch's device, ``apply`` uses them. The two
@@ -33,6 +44,9 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from ..ops.kernels import device_augment as pixel_kernel
+from ..ops.kernels.device_augment import PixelPlan
 
 FILL = 114.0
 
@@ -206,16 +220,37 @@ def _bilinear_sample(srcs: torch.Tensor, src4: torch.Tensor, x: torch.Tensor,
             + p10 * (1 - fx) * fy + p11 * fx * fy)
 
 
-def _mosaic(images, hw, boxes, classes, mask, idx4, u, imgsz: int, cfg: DeviceAugConfig):
-    """The mosaic and affine of every sample: (images (B, S, S, 3) f32,
-    boxes (B, 4M, 4), classes (B, 4M), keep (B, 4M)). A sample whose gate
-    u[:, 5] >= cfg.mosaic takes the single-image path: its own source
-    centred on the canvas, the partners parked off the canvas. ``idx4``
-    (n, 4) and ``u`` (n, 10) give the n samples made, their four sources
-    indexing the raw batch."""
+def _resampler(cfg: DeviceAugConfig) -> str:
+    """The configuration's resampler in PyTorch, by the JAX package's rule:
+    ``"separable"`` without rotation and shear, ``"warp"`` up to 45
+    degrees, ``"gather"`` beyond or with ``force_gather``."""
+    if cfg.degrees == 0.0 and cfg.shear == 0.0:
+        return "separable"
+    if not cfg.force_gather and max(abs(cfg.degrees), abs(cfg.shear)) <= 45.0:
+        return "warp"
+    return "gather"
+
+
+def route(cfg: DeviceAugConfig, device) -> str:
+    """The pixel path's route, a property of the configuration and the
+    device: ``"kernel"`` (``csrc/device_augment.cu``) on the separable route
+    on a CUDA device; otherwise the PyTorch resampler (``_resampler``)."""
+    resampler = _resampler(cfg)
+    if resampler == "separable" and torch.device(device).type == "cuda":
+        return "kernel"
+    return resampler
+
+
+def _geometry(hw, idx4, u, imgsz: int, cfg: DeviceAugConfig):
+    """The mosaic and affine of every sample made: ``idx4`` (m, 4) and ``u``
+    (m, 10) give the m samples, their four sources indexing the raw batch.
+    A sample whose gate u[:, 5] >= cfg.mosaic takes the single-image path:
+    its own source centred on the canvas, the partners parked off the
+    canvas. -> (the ``PixelPlan`` fields of the m samples, the box path's
+    scale and forward matrix (sc, f00, f01, f10, f11))."""
     s = imgsz
     bsz = idx4.shape[0]
-    dev = images.device
+    dev = idx4.device
     use_mosaic = u[:, 5] < cfg.mosaic                         # (B,)
     yc = s // 2 + u[:, 0] * s                                 # in [s/2, 3s/2)
     xc = s // 2 + u[:, 1] * s
@@ -246,13 +281,31 @@ def _mosaic(images, hw, boxes, classes, mask, idx4, u, imgsz: int, cfg: DeviceAu
     f11 = sh_y * beta + alpha
     det = f00 * f11 - f01 * f10
     i00, i01, i10, i11 = f11 / det, -f01 / det, -f10 / det, f00 / det
+    made = dict(idx4=idx4, origin_x=origin_x, origin_y=origin_y, i00=i00, i01=i01, i10=i10,
+                i11=i11, tx=tx, ty=ty, xc=xc, yc=yc, mosaic=use_mosaic)
+    return made, (sc, f00, f01, f10, f11)
 
+
+def _resample(images, hw, plan: PixelPlan, imgsz: int, cfg: DeviceAugConfig) -> torch.Tensor:
+    """The mosaic's pixels of the m samples of ``plan`` in PyTorch, by the
+    route's resampler: every output pixel maps back through the affine to
+    the 2S canvas, whose quadrant picks the source -> (m, S, S, 3) f32, FILL
+    outside the sources' content."""
+    s = imgsz
+    idx4, origin_x, origin_y = plan.idx4, plan.origin_x, plan.origin_y
+    i00, i01, i10, i11, tx, ty = plan.i00, plan.i01, plan.i10, plan.i11, plan.tx, plan.ty
+    use_mosaic, xc, yc = plan.mosaic, plan.xc, plan.yc
+    bsz = idx4.shape[0]
+    dev = images.device
+    hs, ws = hw[idx4][..., 0], hw[idx4][..., 1]               # (B, 4)
+    cxc = cyc = float(s)
     ys = torch.arange(s, dtype=torch.float32, device=dev)
     xs = ys
     src4 = idx4[:, :, None]
-    if cfg.degrees == 0.0 and cfg.shear == 0.0:
-        # separable: every output column samples two source columns, every
-        # output row two source rows (rows first, as the JAX einsums)
+    resampler = _resampler(cfg)
+    if resampler == "separable":
+        # every output column samples two source columns, every output row
+        # two source rows (rows first, as the JAX einsums)
         cx1 = _b1(i00) * (xs - _b1(tx)) + cxc                # (B, S)
         cy1 = _b1(i11) * (ys - _b1(ty)) + cyc
         sx4 = cx1[:, None, :] - origin_x[:, :, None]         # (B, 4, S)
@@ -286,7 +339,7 @@ def _mosaic(images, hw, boxes, classes, mask, idx4, u, imgsz: int, cfg: DeviceAu
         quad = torch.where(_b2(use_mosaic), qy * 2 + qx, 0)  # 0 TL 1 TR 2 BL 3 BR
         src_x4 = canvas_x[:, None] - origin_x[:, :, None, None]   # (B, 4, S, S)
         src_y4 = canvas_y[:, None] - origin_y[:, :, None, None]
-        if not cfg.force_gather and max(abs(cfg.degrees), abs(cfg.shear)) <= 45.0:
+        if resampler == "warp":
             sampled = _warp(images, idx4, origin_x, origin_y, tx, ty,
                             (i00, i01, i10, i11), s)
         else:
@@ -296,10 +349,20 @@ def _mosaic(images, hw, boxes, classes, mask, idx4, u, imgsz: int, cfg: DeviceAu
         onehot = torch.nn.functional.one_hot(quad, 4).permute(0, 3, 1, 2).float()  # (B, 4, S, S)
         pick = (sampled * onehot[..., None]).sum(1)
         pick_valid = (valid4.float() * onehot).sum(1) > 0.5
-    out = torch.where(pick_valid[..., None], pick, FILL)
+    return torch.where(pick_valid[..., None], pick, FILL)
 
-    # boxes: source canvas -> mosaic canvas (clipped to it) -> the four
-    # corners through the affine, their axis-aligned box
+
+def _mosaic_boxes(boxes, classes, mask, made, fwd, imgsz: int):
+    """The boxes of every sample made (``_geometry``'s numbers): source
+    canvas -> mosaic canvas (clipped to it) -> the four corners through the
+    affine, their axis-aligned box, then the host augmentation's filter ->
+    (boxes (B, 4M, 4), classes (B, 4M), keep (B, 4M))."""
+    s = imgsz
+    idx4, origin_x, origin_y, tx, ty = (made[k] for k in ("idx4", "origin_x", "origin_y",
+                                                          "tx", "ty"))
+    sc, f00, f01, f10, f11 = fwd
+    bsz = idx4.shape[0]
+    cxc = cyc = float(s)
     origin = torch.stack([origin_x, origin_y, origin_x, origin_y], -1)[:, :, None, :]
     b_can = torch.clamp((boxes[idx4] + origin).reshape(bsz, -1, 4), 0, 2 * s)
     x1, y1, x2, y2 = b_can.unbind(-1)                         # (B, 4M)
@@ -320,7 +383,7 @@ def _mosaic(images, hw, boxes, classes, mask, idx4, u, imgsz: int, cfg: DeviceAu
     aspect = torch.maximum(bw / (bh + 1e-16), bh / (bw + 1e-16))
     keep = (out_mask & (bw > 2) & (bh > 2)
             & (bw * bh / (torch.abs(area0) + 1e-9) > 0.1) & (aspect < 100))
-    return out, clipped, out_cls, keep
+    return clipped, out_cls, keep
 
 
 def _warp(images, idx4, origin_x, origin_y, tx, ty, inv, s: int) -> torch.Tensor:
@@ -362,6 +425,28 @@ def _warp(images, idx4, origin_x, origin_y, tx, ty, inv, s: int) -> torch.Tensor
 # ---------------------------------------------------------------- the batch
 
 
+def pixels_plain(images: torch.Tensor, hw: torch.Tensor, plan: PixelPlan, imgsz: int,
+                 cfg: DeviceAugConfig = DeviceAugConfig()) -> torch.Tensor:
+    """The pixel path in PyTorch: the mosaic of the plan's m samples by the
+    configuration's resampler, mixup with the partners, the HSV gains, the
+    flips and the u8 store -> (n, S, S, 3) uint8. On the separable route
+    ``ops/kernels/device_augment.py::launch`` computes the same in one
+    kernel."""
+    out = _resample(images, hw, plan, imgsz, cfg)
+    n = plan.gains.shape[0]
+    if plan.partner is not None:
+        # Beta(32, 32) blend with another augmented sample of the batch;
+        # before HSV and flips, as on the host
+        lam = plan.lam[:, None, None, None]
+        out = lam * out[:n] + (1.0 - lam) * out[plan.partner]
+    out = hsv_jitter(out, plan.gains)
+    out = torch.where(plan.lr[:, None, None, None], out.flip(2), out)
+    out = torch.where(plan.ud[:, None, None, None], out.flip(1), out)
+    if plan.bgr is not None:  # channel swap
+        out = torch.where(plan.bgr[:, None, None, None], out.flip(3), out)
+    return torch.clamp(out, 0, 255).to(torch.uint8)
+
+
 def apply(images: torch.Tensor, hw: torch.Tensor, boxes: torch.Tensor, classes: torch.Tensor,
           mask: torch.Tensor, draws: AugDraws, imgsz: int,
           cfg: DeviceAugConfig = DeviceAugConfig(), max_boxes: int = 128,
@@ -373,53 +458,49 @@ def apply(images: torch.Tensor, hw: torch.Tensor, boxes: torch.Tensor, classes: 
     (h, w); boxes (B, M, 4) xyxy in canvas pixels, classes (B, M) int,
     mask (B, M) bool -> (images (B, S, S, 3) u8, boxes (B, K, 4), classes
     (B, K), mask (B, K)) with K = min(max_boxes, 4M, or 8M with mixup),
-    kept boxes first.
+    kept boxes first. The pixels go through the kernel or PyTorch by
+    ``route``; the boxes are PyTorch either way.
 
     ``rows`` makes only those samples of the batch (a data-parallel rank's
     rows, ``parallel.DataParallel.rows``): the same values as the whole
     batch's rows, since mosaic partners index the whole raw batch and a
     mixup partner's sample is made beside them."""
+    if tuple(images.shape[1:3]) != (imgsz, imgsz):
+        raise ValueError(f"device_augment: canvases {tuple(images.shape[1:3])}, imgsz {imgsz}")
     b = images.shape[0]
+    dev = images.device
     sel = rows if rows is not None else slice(None)   # views of the draws
-    own = torch.arange(b, device=images.device)[sel]
+    own = torch.arange(b, device=dev)[sel]
     u, partners = draws.uniforms[sel], draws.partners[sel]
     made = own
     if cfg.mixup > 0 and rows is not None:  # the mixup partners' samples too
         made = torch.cat([own, draws.mix_j[own]])
         u, partners = draws.uniforms[made], draws.partners[made]
     idx4 = torch.cat([made[:, None], partners], 1)
-    out_imgs, out_boxes, out_cls, out_keep = _mosaic(
-        images, hw, boxes, classes, mask, idx4, u, imgsz, cfg)
+    geometry, fwd = _geometry(hw, idx4, u, imgsz, cfg)
+    out_boxes, out_cls, out_keep = _mosaic_boxes(boxes, classes, mask, geometry, fwd, imgsz)
     n = own.shape[0]
 
+    partner = lam = None
     if cfg.mixup > 0:
-        # Beta(32, 32) blend with another augmented sample of the batch,
-        # labels unioned; before HSV and flips, as on the host
-        if rows is not None:
-            mixed = tuple(t[n:] for t in (out_imgs, out_boxes, out_cls, out_keep))
-            out_imgs, out_boxes, out_cls, out_keep = (
-                t[:n] for t in (out_imgs, out_boxes, out_cls, out_keep))
-        else:
-            j = draws.mix_j
-            mixed = (out_imgs[j], out_boxes[j], out_cls[j], out_keep[j])
+        # each sample's mixup partner among the made samples; labels unioned
+        partner = torch.arange(n, 2 * n, device=dev) if rows is not None else draws.mix_j
         do = draws.mix_u[sel] < cfg.mixup
-        lam = torch.where(do, draws.mix_lam[sel], 1.0)[:, None, None, None]
-        out_imgs = lam * out_imgs + (1.0 - lam) * mixed[0]
-        out_boxes = torch.cat([out_boxes, mixed[1]], 1)
-        out_cls = torch.cat([out_cls, mixed[2]], 1)
-        out_keep = torch.cat([out_keep, mixed[3] & do[:, None]], 1)
+        lam = torch.where(do, draws.mix_lam[sel], 1.0)
+        out_boxes = torch.cat([out_boxes[:n], out_boxes[partner]], 1)
+        out_cls = torch.cat([out_cls[:n], out_cls[partner]], 1)
+        out_keep = torch.cat([out_keep[:n], out_keep[partner] & do[:, None]], 1)
 
     draws = AugDraws(*(t[sel] for t in draws))
-    out_imgs = hsv_jitter(out_imgs, draws.gains)
-
     u = draws.flips
     s = imgsz
     do_lr, do_ud = u[:, 0] < cfg.fliplr, u[:, 1] < cfg.flipud
-    out_imgs = torch.where(do_lr[:, None, None, None], out_imgs.flip(2), out_imgs)
-    out_imgs = torch.where(do_ud[:, None, None, None], out_imgs.flip(1), out_imgs)
-    if cfg.bgr > 0:  # channel swap, boxes unchanged
-        out_imgs = torch.where((u[:, 2] < cfg.bgr)[:, None, None, None], out_imgs.flip(3),
-                               out_imgs)
+    plan = PixelPlan(**geometry, gains=draws.gains, lr=do_lr, ud=do_ud,
+                     bgr=u[:, 2] < cfg.bgr if cfg.bgr > 0 else None, partner=partner, lam=lam)
+    if route(cfg, dev) == "kernel":
+        out_imgs = pixel_kernel.launch(images.contiguous(), hw.contiguous(), plan)
+    else:
+        out_imgs = pixels_plain(images, hw, plan, imgsz, cfg)
     bx = out_boxes.unbind(-1)
     flip_x = torch.stack([s - bx[2], bx[1], s - bx[0], bx[3]], -1)
     out_boxes = torch.where(do_lr[:, None, None], flip_x, out_boxes)
@@ -432,8 +513,7 @@ def apply(images: torch.Tensor, hw: torch.Tensor, boxes: torch.Tensor, classes: 
     out_boxes = torch.gather(out_boxes, 1, order[..., None].expand(-1, -1, 4))
     out_cls = torch.gather(out_cls, 1, order)
     out_keep = torch.gather(out_keep, 1, order)
-    return (torch.clamp(out_imgs, 0, 255).to(torch.uint8), out_boxes * out_keep[..., None],
-            out_cls * out_keep, out_keep)
+    return out_imgs, out_boxes * out_keep[..., None], out_cls * out_keep, out_keep
 
 
 def augment_batch(images, hw, boxes, classes, mask, seed: int, imgsz: int,

@@ -66,7 +66,7 @@ REPLACEMENTS = [
     ("        time.sleep(1.0)\n    return 0.0, {}", "    return 0.0, {}"),
     # the phase stamps have no CPU kernel: phase 41 is left out
     ("stamp_record = phase_stamp_checks(args.seed, card)",
-     'stamp_record = {"launches": 0, "stamp_us": 0.0}'),
+     'stamp_record = {"launches": 0, "stamp_us": 0.0, "augment_launches": 0}'),
     # NMS beyond 1344 candidates and batched_nms at pre_topk 4096
     ("NMS_LARGE_K = (1345, 2048, 4096)", "NMS_LARGE_K = (1345,)"),
     ("(32, k_, 2)", "(2, k_, 2)"), ("(32, k_, 1)", "(2, k_, 1)"), ("(32, k_)", "(2, k_)"),
@@ -178,6 +178,9 @@ REPLACEMENTS = [
     ("check(worst <= 1.0, f\"yolo11x f32", "check(True, f\"yolo11x f32"),
     ("check(loss_x <= DP_F32_LOSS_RTOL,", "check(True,"),
     ("for c, o, h in ((3, 16, 640), (16, 32, 320)):", "for c, o, h in ((3, 16, 64), (16, 32, 32)):"),
+    # phase 42 (the augmentation's pixel kernel) at b4/64
+    ("AUG_BATCH = 32", "AUG_BATCH = 4"),
+    ("AUG_IMGSZ = 640", "AUG_IMGSZ = 64"),
 ]
 
 # the first lines of the cut-down smoke module: the stubs, at its import
@@ -232,9 +235,11 @@ def _route_kernels_to_plain(torch):
     from deal_yolo_daya_tpu_torch.ops import nms as nms_ops
     from deal_yolo_daya_tpu_torch.ops.kernels import _build
     from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import device_augment as dk
     from deal_yolo_daya_tpu_torch.ops.kernels import int8_conv as ic
     from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
     from deal_yolo_daya_tpu_torch.ops.kernels import score_reduce as sr
+    from deal_yolo_daya_tpu_torch.train import device_augment as da
     from torch.utils._python_dispatch import _disable_current_modes
 
     _build.build = lambda *a, **k: {}
@@ -261,6 +266,13 @@ def _route_kernels_to_plain(torch):
     def reduce(logits):
         sr.launches += 1
         return sr.score_reduce_plain(logits)
+
+    def augment_pixels(images, hw, plan):  # the separable route, the kernel's only one
+        dk.check_args(images, hw, plan)
+        dk.launches += 1
+        return da.pixels_plain(images, hw, plan, images.shape[1])
+
+    card_route = da.route
 
     def s8_launch(x, packed, scale, bias, inv_a, k, stride, act, with_acc=False, use=None):
         ic.check_args(x, packed, scale, bias, k, stride)
@@ -294,6 +306,8 @@ def _route_kernels_to_plain(torch):
     ns.max_active_clusters = lambda geometry: 0
     ns.active_clusters = lambda device=None: ns.ACTIVE_CLUSTERS
     sr.score_reduce = reduce
+    da.route = lambda cfg, device: card_route(cfg, "cuda")  # every device routes as the card
+    dk.launch = augment_pixels
     ic.launch = s8_launch
     ic.int8_conv_bn = lambda *args: s8_launch(*args)[0]
 
