@@ -298,6 +298,13 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    one launch a replay; the kernel's device time and a call's time, its
    plain version's, ``apply`` eager and replayed, the bound. Phases
    12, 16, 22, 23, 39 and 41 count its launches too: one a train step.
+43. the attention kernels' (key_dim, head_dim) = (36, 72) builds (yolov10m's
+   PSA, 4 heads on (32, 400, 576), copied by cp.async: the k columns are
+   8-byte aligned only) against their plain versions in bf16 (ATTN_TOL and
+   BWD_TOL, ``v`` exact) at the main shape and ragged token counts (37,
+   401, 80) and in f32; one launch each way a call, 1 + 1 a replay of a
+   CUDA graph of ``AreaAttention``'s forward and backward (its gradient
+   held to plain); both kernels' device times, plain, SDPA and the bound.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
@@ -308,7 +315,7 @@ the yolo12n and yolov8n records under ``families``, and each attention
 kernel's ``train_graph_launches``, its launches inside one replay of the
 graphed step; the s8 conv's row, then the phase stamp's with phase 41's
 record under ``phases``, then the augmentation kernel's with phase 42's
-under ``checks``; phase 35's record under ``dp``,
+under ``checks``, then the (36, 72) forward and backward rows of phase 43; phase 35's record under ``dp``,
 phase 36's under ``app``, phase 39's under ``tp``, phase 40's under
 ``phase40``) and
 the last line the device record; the ``serving``, ``train_graph`` and ``int8`` records, phases
@@ -3582,6 +3589,195 @@ def plots_matcher_spd_phase(seed: int, data_yaml: Path, root: Path, best_pt: Pat
     return record
 
 
+K36_SHAPE = (32, 400, 4)  # yolov10m's PSA at b32/640: (chunks, tokens, heads)
+K36_GRAPH_REPLAYS = 20
+K36_STEP_REPLAYS = 8  # replays of yolov10m's graphed train step
+
+
+def k36_attention_checks(seed: int, card: str):
+    """Phase 43: the attention kernels' (key_dim, head_dim) = (36, 72) builds
+    (yolov10m's PSA) against their plain versions: the forward (ATTN_TOL, v
+    exact) and the backward (BWD_TOL) at (32, 400, 576) x 4 heads, at ragged
+    token counts and in f32 (TF32 off); one launch each way a call and, in a
+    CUDA graph of AreaAttention's forward and backward, 1 + 1 a replay; the
+    device times of both (CUDA events over a graph of launches) against
+    their bounds, plain and SDPA. Then the main path: yolov10m's graphed
+    b32/640 train step (``StepProgram``) over K36_STEP_REPLAYS replays from
+    counters set to 0 takes the (36, 72) builds 1 + 1 a replay (every
+    attention launch of the step is theirs), the loss mark once and the six
+    phase stamps."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels._build import GraphLaunches
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    kd, hd = 36, 72
+    ba, n, heads = K36_SHAPE
+    width = heads * (2 * kd + hd)
+    a = (heads, hd, kd)
+    rec = {"shape": [ba, n, width], "heads": heads, "key_dim": kd, "head_dim": hd, "card": card}
+
+    def qkv_of(b, tokens, dtype):
+        return torch.randn((b, tokens, width), generator=gen, device=dev).to(dtype)
+
+    def cot(b, tokens, dtype):  # train-path cotangents are ~1e-3
+        return (torch.randn((b, tokens, heads * hd), generator=gen, device=dev) * 1e-3).to(dtype)
+
+    # the plain versions are the references: true f32 products (an earlier
+    # phase leaves TF32 on), restored after the checks
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for dtype, shapes in ((torch.bfloat16, [(ba, n), (3, 37), (2, 401), (5, 80)]),
+                          (torch.float32, [(4, n), (3, 37)])):
+        for b, tokens in shapes:
+            label = f"k36 ({b}, {tokens})"
+            qkv = qkv_of(b, tokens, dtype)
+            f0, b0 = aa.launches, aa.bwd_launches
+            fwd_err = attention_parity(label, qkv, a)
+            bwd_err = backward_parity(label, qkv, cot(b, tokens, dtype), cot(b, tokens, dtype), a)
+            check(aa.launches - f0 == 1 and aa.bwd_launches - b0 == 1,
+                  f"attention {label}: launches moved {aa.launches - f0} / "
+                  f"{aa.bwd_launches - b0}, not 1 / 1")
+            if (b, tokens) == (ba, n) and dtype == torch.bfloat16:
+                rec["call_launches"] = [aa.launches - f0, aa.bwd_launches - b0]
+            errs[f"{str(dtype).split('.')[-1]} {b}x{tokens}"] = {"fwd": fwd_err, "bwd": bwd_err}
+    rec["max_abs_err"] = errs
+
+    # AreaAttention's forward and backward captured in a CUDA graph
+    qkv = qkv_of(ba, n, torch.bfloat16).requires_grad_(True)
+    g_out, g_v = cot(ba, n, torch.bfloat16), cot(ba, n, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            out, v = aa.area_attention(qkv, *a)
+            torch.autograd.backward((out, v), (g_out, g_v))
+    torch.cuda.current_stream().wait_stream(side)
+    graph, counts = torch.cuda.CUDAGraph(), GraphLaunches()
+    qkv.grad = None
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"), counts.capture():
+        out, v = aa.area_attention(qkv, *a)
+        torch.autograd.backward((out, v), (g_out, g_v))
+    f0, b0 = aa.launches, aa.bwd_launches
+    for _ in range(K36_GRAPH_REPLAYS):
+        graph.replay()
+        counts.replayed()
+    torch.cuda.synchronize()
+    rec["graph_launches"] = [aa.launches - f0, aa.bwd_launches - b0]
+    log(f"[k36] a CUDA graph of forward + backward, {K36_GRAPH_REPLAYS} replays: launches "
+        f"{rec['graph_launches']}")
+    check(rec["graph_launches"] == [K36_GRAPH_REPLAYS, K36_GRAPH_REPLAYS],
+          f"k36 graph launches {rec['graph_launches']}, not 1 + 1 a replay")
+    want = aa.area_attention_bwd_plain(qkv.detach(), g_out, g_v, *a)
+    atol, rtol = BWD_TOL["bfloat16"]
+    err, worst = within_tol(qkv.grad, want, atol * want.float().abs().max().item(), rtol)
+    log(f"[k36] the replayed gradient against plain: max_abs_err {err:.3e}, {worst:.3f} of the "
+        "tolerance")
+    check(worst <= 1.0, f"k36 replayed gradient off by {err}")
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+    # times at the main shape: each kernel's device time from CUDA events
+    # around a graph of its launches (the card's profiler drops launches this
+    # late in a run, as the s8 conv's: graph_time_ms), a call's with the host
+    # from events around calls in a row; plain and SDPA as calls in a row
+    x = qkv.detach()
+    split = x.view(ba, n, heads, 2 * kd + hd)
+    q, k, v = (t.transpose(1, 2) for t in (split[..., :kd], split[..., kd:2 * kd],
+                                           split[..., 2 * kd:]))
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+    grad_s = g_out.view(ba, n, heads, hd).transpose(1, 2).contiguous()
+    cases = {
+        "forward": (lambda: aa.area_attention_fwd(x, heads, hd, kd),
+                    lambda: aa.area_attention_plain(x, *a),
+                    lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                    1, 2 * heads * hd / width, 2.0 * ba * heads * n * n * (kd + hd)),
+        "backward": (lambda: aa.area_attention_bwd(x, g_out, g_v, *a),
+                     lambda: aa.area_attention_bwd_plain(x, g_out, g_v, *a),
+                     lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), grad_s,
+                                                 retain_graph=True),
+                     2, 2 * heads * hd / width, 2.0 * ba * heads * n * n * (3 * kd + 2 * hd)),
+    }
+    for which, (kernel, plain, library, reads, extra, flops) in cases.items():
+        dev_ms, ms = graph_time_ms(kernel), cuda_time_ms(kernel, 50)
+        plain_ms, lib_ms = cuda_time_ms(plain, 10), cuda_time_ms(library, 10)
+        nbytes = x.numel() * 2 * (reads + extra)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        rec[which] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "library_ms": lib_ms, "library_device_ms": None,
+                      "device_ms_by_kernel": {}}
+        log(f"[time] k36 {which} {tuple(x.shape)}: kernel device {dev_ms:.4f} ms (a graph of "
+            f"launches), a call {ms:.4f} ms with the host; plain {plain_ms:.4f} ms; sdpa "
+            f"{lib_ms:.4f} ms a call; bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
+            f"ops {t_ops:.4f})")
+    del x, split, q, k, v, qs, ks, vs, sdpa_out, grad_s, cases, qkv, graph
+    torch.cuda.empty_cache()
+    rec["step_graph"] = k36_step_graph(seed, card)
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"[k36] phase 43 in {rec['wall_s']:.1f} s")
+    return rec
+
+
+def k36_step_graph(seed: int, card: str):
+    """Phase 43's main path: yolov10m's b32/640 bf16 step graph. After the
+    eager warm-up steps, the capture and a replay, K36_STEP_REPLAYS replays
+    from the attention, (36, 72), mark and stamp counters set to 0."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa
+    from deal_yolo_daya_tpu_torch.ops.kernels import phase_stamp as ps
+    from deal_yolo_daya_tpu_torch.train import TrainConfig, TrainState
+    from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig, step_seed
+    from deal_yolo_daya_tpu_torch.train.step_graph import WARMUP_RUNS, StepProgram
+
+    dev = torch.device("cuda")
+    x32, *gt32 = (torch.from_numpy(a).to(dev) for a in make_train_batch(seed, 32, 640))
+    st = TrainState(TrainConfig(model="yolov10m", imgsz=640, amp=True, seed=seed), nc=80,
+                    steps_per_epoch=100, device=dev)
+    check(type(st.model).__name__ == "YOLOv10" and st.dual,
+          f"yolov10m built {type(st.model).__name__}, dual loss {st.dual}")
+    cache = (x32, torch.full((32, 2), 640.0, device=dev), gt32[0], gt32[1].int(), gt32[2])
+    prog = StepProgram(st, cache, DeviceAugConfig(), 640, GRAPH_MAX_BOXES, 32)
+    rng = np.random.default_rng(seed)
+    done = [0]
+
+    def run(k):
+        loss = prog.run(np.stack([rng.permutation(32) for _ in range(k)]),
+                        [step_seed(seed, 0, done[0] + j) for j in range(k)])
+        done[0] += k
+        return float(loss)
+
+    run(WARMUP_RUNS + 1)  # the eager warm-up steps, the capture and a replay
+    torch.cuda.synchronize()
+    check(list(prog.graphs) == [True], f"yolov10m step graphs {list(prog.graphs)}")
+    n = K36_STEP_REPLAYS
+    aa.launches = aa.bwd_launches = aa.k36_launches = aa.k36_bwd_launches = 0
+    ps.launches = ps.mark_launches = 0
+    loss = run(n)
+    torch.cuda.synchronize()
+    got = {"attention": aa.launches, "attention_bwd": aa.bwd_launches,
+           "k36": aa.k36_launches, "k36_bwd": aa.k36_bwd_launches,
+           "mark": ps.mark_launches, "stamps": ps.launches}
+    want = {"attention": n, "attention_bwd": n, "k36": n, "k36_bwd": n, "mark": n,
+            "stamps": len(ps.STAMPS) * n}
+    log(f"[k36] yolov10m b32/640 graphed step, {n} replays: launches {got} (loss {loss:.4f}, "
+        f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB, {card})")
+    check(got == want, f"yolov10m step graph launches {got}, not {want}")
+    check(math.isfinite(loss), f"yolov10m step graph loss {loss}")
+    del prog, st, cache, x32, gt32
+    torch.cuda.empty_cache()
+    return {"replays": n, "launches": got, "loss": loss}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5325,6 +5521,10 @@ def main() -> int:
     # 42. the augmentation's pixel kernel against its plain version, in a CUDA
     # graph, and its times
     aug_record = device_augment_checks(args.seed, card)
+
+    # 43. the attention kernels' (36, 72) builds (yolov10m's PSA) against their
+    # plain versions, in a CUDA graph, and their times
+    k36_record = k36_attention_checks(args.seed, card)
     int8_record["card"] = card
     s8_row["launches_by_path"] = {
         "int8 predict": int8_record["launches"]["int8_conv"],
@@ -5338,7 +5538,12 @@ def main() -> int:
         "source": "deal_yolo_daya_tpu_torch/csrc/phase_stamp.cu", "replaces": None,
         "launches": stamp_record["launches"], "device_ms": stamp_record["stamp_us"] / 1e3,
         "launches_by_path": {f"yolo11n b32 graphed step, {STAMP_REPLAYS} replays":
-                             stamp_record["launches"]},
+                             stamp_record["launches"],
+                             f"yolov10m b32 graphed step (phase 43), {K36_STEP_REPLAYS} "
+                             "replays": k36_record["step_graph"]["launches"]["stamps"],
+                             f"loss mark, yolov10m b32 graphed step (phase 43), "
+                             f"{K36_STEP_REPLAYS} replays":
+                                 k36_record["step_graph"]["launches"]["mark"]},
         "phases": stamp_record})
     kernels.append({
         "name": "device_augment", "route": "cuda",
@@ -5360,6 +5565,25 @@ def main() -> int:
             f"yolo11n 1 x 2 TP Trainer, rank 0, {TP_TRAINER_STEPS} steps b{TP_BATCH}":
                 tp_record["trainer_1x2"]["launches"]["device_augment"]},
         "checks": aug_record})
+    for which, name, err in (("forward", "area_attention", "fwd"),
+                             ("backward", "area_attention_bwd", "bwd")):
+        t = k36_record[which]
+        kernels.append({
+            "name": name, "build": "(36, 72)", "route": "cuda",
+            "source": f"deal_yolo_daya_tpu_torch/csrc/{name}.cu", "replaces": None,
+            "shape": k36_record["shape"], "dtype": "torch.bfloat16",
+            "max_abs_err": k36_record["max_abs_err"]["bfloat16 32x400"][err],
+            "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "device_ms_by_kernel": t["device_ms_by_kernel"],
+            "launches_by_path": {
+                "phase 43, a call": k36_record["call_launches"][0 if which == "forward" else 1],
+                f"phase 43, a CUDA graph of forward + backward, {K36_GRAPH_REPLAYS} replays":
+                    k36_record["graph_launches"][0 if which == "forward" else 1],
+                f"yolov10m b32 graphed step (phase 43), {K36_STEP_REPLAYS} replays":
+                    k36_record["step_graph"]["launches"][
+                        "k36" if which == "forward" else "k36_bwd"]}})
     log(f"[int8] phases 29-34 in {int8_record['wall_s']:.1f} s")
     kernels[0]["train_graph_launches"] = {
         "yolo11n": graph_record["yolo11n"]["replay_launches"]["forward"],

@@ -2,9 +2,11 @@
 
 Counterpart of the predict and train paths of ``deal_yolo_daya_tpu/api.py``:
 the model handle for every family and scale of the registry (yolo11,
-yolov8, yolo12; n to x), the BN-folded inference model with the 1/255 folded
-into the stem, host letterbox, batched device forward, decode, NMS, and
-``Detections`` in original-image pixels; ``train`` runs the port's Trainer
+yolov8, yolo12, yolov10; n to x), the BN-folded inference model with the
+1/255 folded into the stem, host letterbox, batched device forward, decode,
+NMS (for a yolov10 its one-to-one head's selection, ``ops/nms.py::
+v10_select``, in the span ``predict.select``), and ``Detections`` in
+original-image pixels; ``train`` runs the port's Trainer
 and adopts its EMA weights; ``val`` validates the handle's weights with it;
 ``YOLO("<run>/weights/best.pt")`` loads a checkpoint that Trainer wrote, of
 the family it records (yolo11 when it records none, as checkpoints written
@@ -33,12 +35,13 @@ import torch
 from . import tracing
 from .device import resolve_device
 from .models.quant import quantize_int8 as quantize_qtree, quantized_model
-from .models.registry import build_detector, infer_arch, make_detector, parse_model_spec
+from .models.registry import (build_detector, end_to_end, infer_arch, make_detector,
+                              parse_model_spec)
 from .models.torch_import import detect_nc, import_state_dict, read_torch_checkpoint
 from .models.yolo11 import folded_state_dict, fuse_conv_bn
 from .ops.decode import decode_predictions
 from .ops.letterbox import letterbox_numpy, load_image
-from .ops.nms import batched_nms
+from .ops.nms import batched_nms, v10_select
 
 IMAGE_SUFFIXES = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
 # video containers predict() plays through cv2
@@ -64,10 +67,15 @@ def infer_fused(net, batch: torch.Tensor, dtype: torch.dtype, conf: float, iou: 
                 max_det: int, agnostic: bool = False):
     """``YOLO.infer`` through a given BN-folded model (``YOLO._fused_model``):
     (B, S, S, 3) uint8 letterboxed batch -> (boxes, scores, classes, n_det)
-    padded to max_det, on the batch's device."""
+    padded to max_det, on the batch's device. An end-to-end model's
+    (``END2END``: yolov10) one-to-one head takes ``v10_select`` and the
+    confidence threshold (no NMS: ``iou`` and ``agnostic`` do not apply)."""
     x = batch.permute(0, 3, 1, 2).to(dtype)  # NCHW view, channels_last strides
     box, cls = net(x)
     boxes, scores = decode_predictions(box, cls, tuple(batch.shape[1:3]))
+    if getattr(net, "END2END", False):
+        with tracing.span("predict.select"):
+            return v10_select(boxes, scores, max_det, conf)
     return batched_nms(boxes, scores, conf_thres=conf, iou_thres=iou,
                        pre_topk=1000, max_det=max_det, class_agnostic=agnostic)
 
@@ -292,6 +300,16 @@ class YOLO:
         self._adopt_checkpoint(ckpt, imgsz=False)
         return self
 
+    def _refuse_end2end(self, what: str) -> None:
+        """NotImplementedError for an end-to-end model (yolov10): ``what``
+        has no path for its one-to-one head (whose detections are selected
+        without NMS)."""
+        if end_to_end(self.family):
+            raise NotImplementedError(
+                f"{what} has no {self.family} path: its programs end in NMS, and the "
+                f"{self.family} one-to-one head is selected without it (predict and val do "
+                "that)")
+
     def _ensure_built(self):
         """The f32 model with random weights from ``seed``, built once."""
         if self._model is None:
@@ -326,6 +344,7 @@ class YOLO:
         Weights quantize per output channel over the BN-folded kernels;
         depthwise and detect-head logit convs stay full precision. A later
         checkpoint load or train() drops the quantization."""
+        self._refuse_end2end("quantize_int8")
         sources = list_sources(calib_source)[:max_images]
         if not sources:
             raise ValueError("quantize_int8 needs at least one calibration image")
@@ -376,6 +395,7 @@ class YOLO:
         ``quant.pt``, the qtree (module name -> w_int8, w_scale, a_scale);
         and ``meta.json`` with the JAX bundle's keys (family, scale, nc,
         names, imgsz, fused, int8). Load it with ``YOLO.from_export``."""
+        self._refuse_end2end("export")
         model = self._ensure_built()
         out_dir = Path(out_dir).resolve()
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -441,6 +461,7 @@ class YOLO:
         handle's dtype."""
         from torch.export import Dim, export
 
+        self._refuse_end2end("export_stablehlo")
         if use_pallas and not torch.cuda.is_available():
             raise ValueError(
                 "use_pallas=True requires exporting from a process with a CUDA card (none "

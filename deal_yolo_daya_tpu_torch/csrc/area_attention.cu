@@ -296,6 +296,170 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
   }
 }
 
+// ---------------------------------- bf16, (key_dim, head_dim) = (36, 72)
+
+// YOLOv10m's PSA heads (hopper.cuh, namespace k36, gives the layouts). The
+// same blocks, tiles and online softmax as attention_bf16_kernel; the
+// operands come in by cp.async (K|V tiles two stages deep, every thread a
+// share), S = Q K^T is three k-steps over the zero-padded 48 columns, and
+// O = P V is an m64n64k16 on V's columns 0..63 plus an m64n32k16 on its
+// columns 64..71 (and 24 zeros).
+struct K36FwdSmem {
+  static constexpr int NARROW = KT * 128, LO = KT * 128, HI = KT * 64;
+  static constexpr int K_OFF = 0, V_LO = NARROW, V_HI = NARROW + LO, STAGE = NARROW + LO + HI;
+  static constexpr int Q_OFF = 2 * STAGE;
+  static constexpr size_t bytes = Q_OFF + QT * 128 + 1024;
+  static_assert(STAGE % 1024 == 0 && HI % 1024 == 0, "tiles on 1024-byte boundaries");
+  static_assert(4 * 16 * 160 <= STAGE, "the epilogue stages in the ring");
+};
+
+__global__ void __launch_bounds__(W_THREADS, 3)
+attention_k36_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                   bf16* __restrict__ vout, int n, int heads, float scale) {
+  using L = K36FwdSmem;
+  using k36::KD;
+  using k36::HD;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int chunk = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * QT;
+  const int total = heads * k36::STRIDE, dim = heads * HD, col = head * k36::STRIDE;
+  const int tiles = (n + KT - 1) / KT;
+  const bf16* rows = qkv + (size_t)chunk * n * total + col;
+
+  k36::zero_narrow_pad(smem + L::Q_OFF, QT);
+  for (int s = 0; s < 2; ++s) {
+    k36::zero_narrow_pad(smem + s * L::STAGE + L::K_OFF, KT);
+    k36::zero_wide_pad(smem + s * L::STAGE + L::V_HI, KT);
+  }
+  auto issue = [&](int t) {  // every thread: its share of tile t's K|V rows
+    const uint32_t st = base + (t % 2) * L::STAGE;
+    k36::load_narrow(st + L::K_OFF, rows + KD, total, t * KT, KT, n);
+    k36::load_wide(st + L::V_LO, st + L::V_HI, rows + 2 * KD, total, t * KT, KT, n);
+  };
+  k36::load_narrow(base + L::Q_OFF, rows, total, q0, QT, n);
+  issue(0);
+  cp_async_commit();
+
+  const float c = scale * LOG2E;  // scores in log2 units
+  float o[32], oh[16];            // O's columns 0..63 and 64..95 (64..71 real)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) oh[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  const uint64_t q_desc = Tile<128>::desc(base + L::Q_OFF);
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) issue(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of tile t (and Q) have landed
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t st = base + (t % 2) * L::STAGE;
+    float sc[KT / 2];  // S = Q K^T, 64 x 80
+    const uint64_t k_desc = Tile<128>::desc(st + L::K_OFF);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 3; ++kk)
+      wgmma_ss(sc, q_desc + kk * Tile<128>::K_STEP, k_desc + kk * Tile<128>::K_STEP, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if ((t + 1) * KT > n) mask_columns<KT / 8>(sc, t * KT, n);
+
+    float x0 = -CUDART_INF_F, x1 = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    const float n0 = fmaxf(m0, quad_max(x0) * c), n1 = fmaxf(m1, quad_max(x1) * c);
+    const float corr0 = exp2_ftz(m0 - n0), corr1 = exp2_ftz(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+    float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = exp2_ftz(fmaf(sc[4 * j + e], c, -n0));
+        sc[4 * j + 2 + e] = exp2_ftz(fmaf(sc[4 * j + 2 + e], c, -n1));
+        p0 += sc[4 * j + e];
+        p1 += sc[4 * j + 2 + e];
+      }
+    l0 = l0 * corr0 + p0;
+    l1 = l1 * corr1 + p1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[4 * j] *= corr0;
+      o[4 * j + 1] *= corr0;
+      o[4 * j + 2] *= corr1;
+      o[4 * j + 3] *= corr1;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      oh[4 * j] *= corr0;
+      oh[4 * j + 1] *= corr0;
+      oh[4 * j + 2] *= corr1;
+      oh[4 * j + 3] *= corr1;
+    }
+    uint32_t pa[KT / 16][4];  // P in bf16 for P.V, as the TPU kernel casts it
+    to_operand<KT / 16>(sc, pa);
+    const uint64_t lo_desc = Tile<128>::desc(st + L::V_LO), hi_desc = Tile<64>::desc(st + L::V_HI);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs_tb(o, pa[kk], lo_desc + kk * Tile<128>::MN_STEP);
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs_tb(oh, pa[kk], hi_desc + kk * Tile<64>::MN_STEP);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(oh);
+    __syncthreads();  // the warpgroup is done with this stage
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  constexpr int RB = 160;  // a staged row: 72 bf16 and 16 bytes of padding
+  const int warp = threadIdx.x / 32, wrow = q0 + warp * 16;
+  unsigned char* stage = smem + warp * 16 * RB;
+  const int live = n - wrow;
+  k36::stage_acc<8>(stage, RB, 0, o, 8, 1.f / l0, 1.f / l1, nullptr, 0, 0);
+  k36::stage_acc<4>(stage, RB, 64, oh, 1, 1.f / l0, 1.f / l1, nullptr, 0, 0);
+  __syncwarp();
+  k36::copy_staged(stage, RB, out + ((size_t)chunk * n + wrow) * dim + (size_t)head * HD, dim,
+                   2 * HD, live);
+  constexpr int VECS = HD / 8;  // the v passthrough of this block's rows, 16 bytes a lane
+  for (int e = threadIdx.x; e < QT * VECS; e += W_THREADS) {
+    const int row = q0 + e / VECS, cc = (e % VECS) * 8;
+    if (row < n)
+      *reinterpret_cast<uint4*>(vout + ((size_t)chunk * n + row) * dim + (size_t)head * HD + cc) =
+          *reinterpret_cast<const uint4*>(rows + (size_t)row * total + 2 * KD + cc);
+  }
+}
+
+int launch_k36(int is_bf16, const void* qkv, void* out, void* v, int ba, int n, int heads,
+               float scale, cudaStream_t stream) {
+  if (is_bf16) {
+    using L = K36FwdSmem;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        attention_k36_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::bytes));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 grid((n + QT - 1) / QT, heads, ba);
+    attention_k36_bf16<<<grid, W_THREADS, L::bytes, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), static_cast<bf16*>(v), n, heads,
+        scale);
+  } else {
+    const dim3 grid((n + BQ - 1) / BQ, heads, ba);
+    attention_f32_kernel<k36::KD, k36::HD><<<grid, F_THREADS, 0, stream>>>(
+        static_cast<const float*>(qkv), static_cast<float*>(out), static_cast<float*>(v), n,
+        heads, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int KD, int HD>
 int launch(int is_bf16, const void* qkv, void* out, void* v, int ba, int n, int heads,
            float scale, cudaStream_t stream) {
@@ -330,7 +494,8 @@ int launch(int is_bf16, const void* qkv, void* out, void* v, int ba, int n, int 
 // Returns 0 on a good launch, else the CUDA error code (cudaErrorInvalidValue
 // for a pair not built here). (key_dim, head_dim) = (32, 64) is yolo11's
 // PSAAttention at every scale (C2PSA heads are 64 channels wide, attn_ratio
-// 0.5); (32, 32) is yolo12's AAttn at every scale (heads of 32 channels).
+// 0.5); (32, 32) is yolo12's AAttn at every scale (heads of 32 channels);
+// (36, 72) is YOLOv10m's PSA (288 channels in 4 heads).
 extern "C" int area_attention_fwd(const void* qkv, void* out, void* v, int ba, int n, int heads,
                                   int key_dim, int head_dim, float scale, int is_bf16,
                                   void* stream) {
@@ -339,5 +504,7 @@ extern "C" int area_attention_fwd(const void* qkv, void* out, void* v, int ba, i
     return launch<32, 64>(is_bf16, qkv, out, v, ba, n, heads, scale, s);
   if (key_dim == 32 && head_dim == 32)
     return launch<32, 32>(is_bf16, qkv, out, v, ba, n, heads, scale, s);
+  if (key_dim == k36::KD && head_dim == k36::HD)
+    return launch_k36(is_bf16, qkv, out, v, ba, n, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -593,6 +593,384 @@ bwd_key_rows_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
   }
 }
 
+// ---------------------------------- bf16, (key_dim, head_dim) = (36, 72)
+
+// YOLOv10m's PSA heads (hopper.cuh, namespace k36, gives the layouts): the
+// same two passes, blocks and arithmetic as the bf16 kernels above, with
+// the operands copied by cp.async (the streamed tiles two stages deep,
+// every thread a share). A reduction over the heads' 36 q|k columns is
+// three k-steps over 48 zero-padded columns; over the 72 v|dO columns four
+// k-steps of the low tile and one of the high one. dQ += dS K and dK +=
+// dS^T Q are N = 64 products (columns past 35 zero), dV += P^T dO one N =
+// 64 and one N = 32 product (8 columns real). The outputs go through each
+// warp's staging rows and 8-byte stores: d_qkv's k columns are 8-byte
+// aligned only.
+constexpr int K36_RB = 160;  // a staged row: up to 72 bf16 and 16 bytes of padding
+
+struct K36Smem {
+  // a stage: the narrow tile, then the wide one's low and high tiles
+  static constexpr int NARROW = KT * 128, LO = KT * 128, HI = KT * 64;
+  static constexpr int T_N = 0, T_LO = NARROW, T_HI = NARROW + LO, STAGE = NARROW + LO + HI;
+  // the block's own rows: narrow, wide low, wide high
+  static constexpr int O_N = 2 * STAGE, O_LO = O_N + QT * 128, O_HI = O_LO + QT * 128;
+  static constexpr int STATS_OFF = O_HI + QT * 64;
+  static_assert(STAGE % 1024 == 0 && HI % 1024 == 0 && STATS_OFF % 1024 == 0,
+                "tiles on 1024-byte boundaries");
+  static_assert(4 * 16 * K36_RB <= STAGE, "the epilogue stages in the ring");
+  static size_t bytes(int stat_rows) { return STATS_OFF + 12 * (size_t)stat_rows + 1024; }
+};
+
+// Zero both stages' and the own rows' pad columns (see hopper.cuh).
+__device__ __forceinline__ void k36_zero_pads(unsigned char* smem) {
+  using L = K36Smem;
+  for (int s = 0; s < 2; ++s) {
+    k36::zero_narrow_pad(smem + s * L::STAGE + L::T_N, KT);
+    k36::zero_wide_pad(smem + s * L::STAGE + L::T_HI, KT);
+  }
+  k36::zero_narrow_pad(smem + L::O_N, QT);
+  k36::zero_wide_pad(smem + L::O_HI, QT);
+}
+
+// Issue acc_a (64 x NW) = own narrow . tile narrow^T (3 k-steps) and acc_b
+// = own wide . tile wide^T (4 + 1 k-steps), as two groups; the tile rows
+// start at shared addresses t_n, t_lo, t_hi.
+template <int NW>
+__device__ __forceinline__ void k36_two_products(float (&acc_a)[NW / 2], float (&acc_b)[NW / 2],
+                                                 uint32_t base, uint32_t t_n, uint32_t t_lo,
+                                                 uint32_t t_hi) {
+  using L = K36Smem;
+  const uint64_t an = Tile<128>::desc(base + L::O_N), bn = Tile<128>::desc(t_n);
+  const uint64_t alo = Tile<128>::desc(base + L::O_LO), blo = Tile<128>::desc(t_lo);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 3; ++kk)
+    wgmma_ss(acc_a, an + kk * Tile<128>::K_STEP, bn + kk * Tile<128>::K_STEP, kk);
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss(acc_b, alo + kk * Tile<128>::K_STEP, blo + kk * Tile<128>::K_STEP, kk);
+  wgmma_ss(acc_b, Tile<64>::desc(base + L::O_HI), Tile<64>::desc(t_hi), 1);
+  wgmma_commit();
+}
+
+// The cp.async ring of one pass: load i brings tile i % tiles of the
+// narrow operand (n_src) and the wide one (w_src) into stage i % 2.
+struct K36Ring {
+  uint32_t base;
+  const bf16 *n_src, *w_src;
+  size_t n_ld, w_ld;
+  int n, tiles;
+
+  __device__ __forceinline__ void issue(int i) const {
+    using L = K36Smem;
+    const uint32_t st = base + (i % 2) * L::STAGE;
+    const int row0 = (i % tiles) * KT;
+    k36::load_narrow(st + L::T_N, n_src, n_ld, row0, KT, n);
+    k36::load_wide(st + L::T_LO, st + L::T_HI, w_src, w_ld, row0, KT, n);
+  }
+  // every thread, before computing on load i: the next load goes out, then
+  // load i's copies are waited for and made visible to wgmma
+  __device__ __forceinline__ void wait(int i, int loads) const {
+    if (i + 1 < loads) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+  }
+  __device__ __forceinline__ uint32_t stage(int i) const { return base + (i % 2) * K36Smem::STAGE; }
+};
+
+// Pass (a): one block per (chunk, head, QT query rows).
+__global__ void __launch_bounds__(W_THREADS, 2)
+bwd_k36_query_rows(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                   bf16* __restrict__ dqkv, float* __restrict__ stats, int ba, int n, int heads,
+                   float scale) {
+  using L = K36Smem;
+  using k36::HD;
+  using k36::KD;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int chunk = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * QT;
+  const int total = heads * k36::STRIDE, dim = heads * HD, col = head * k36::STRIDE;
+  const int tiles = (n + KT - 1) / KT, loads = 2 * tiles;
+  const bf16* rows = qkv + (size_t)chunk * n * total + col;
+  const K36Ring ring{base, rows + KD, rows + 2 * KD, (size_t)total, (size_t)total, n, tiles};
+  k36_zero_pads(smem);
+  k36::load_narrow(base + L::O_N, rows, total, q0, QT, n);  // own rows: Q and dO
+  k36::load_wide(base + L::O_LO, base + L::O_HI, dout + (size_t)chunk * n * dim + head * HD, dim,
+                 q0, QT, n);
+  ring.issue(0);
+  cp_async_commit();
+
+  const float c = scale * LOG2E;  // scores in log2 units
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f, d0 = 0.f, d1 = 0.f;
+  // sweep 1: m, l and D, online
+  for (int i = 0; i < tiles; ++i) {
+    ring.wait(i, loads);
+    const uint32_t st = ring.stage(i);
+    float sc[KT / 2], dp[KT / 2];
+    k36_two_products<KT>(sc, dp, base, st + L::T_N, st + L::T_LO, st + L::T_HI);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    if ((i + 1) * KT > n) mask_columns<KT / 8>(sc, i * KT, n);
+    float x0 = -CUDART_INF_F, x1 = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    const float n0 = fmaxf(m0, quad_max(x0) * c), n1 = fmaxf(m1, quad_max(x1) * c);
+    const float corr0 = exp2_ftz(m0 - n0), corr1 = exp2_ftz(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+    float p0 = 0.f, p1 = 0.f, s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = exp2_ftz(fmaf(sc[4 * j + e], c, -n0));
+        sc[4 * j + 2 + e] = exp2_ftz(fmaf(sc[4 * j + 2 + e], c, -n1));
+        p0 += sc[4 * j + e];
+        p1 += sc[4 * j + 2 + e];
+      }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s0 += sc[4 * j + e] * dp[4 * j + e];
+        s1 += sc[4 * j + 2 + e] * dp[4 * j + 2 + e];
+      }
+    l0 = l0 * corr0 + p0;
+    l1 = l1 * corr1 + p1;
+    d0 = d0 * corr0 + s0;
+    d1 = d1 * corr1 + s1;
+    __syncthreads();  // the warpgroup is done with this stage
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float D0 = quad_sum(d0) / l0, D1 = quad_sum(d1) / l1;
+  const float f0 = scale / l0, f1 = scale / l1;
+  const int lane = threadIdx.x % 32, row0 = q0 + threadIdx.x / 32 * 16 + lane / 4;
+  if (lane % 4 == 0) {
+    const size_t at = ((size_t)chunk * heads + head) * n + row0, plane = (size_t)ba * heads * n;
+    if (row0 < n) {
+      stats[at] = m0;
+      stats[plane + at] = l0;
+      stats[2 * plane + at] = D0;
+    }
+    if (row0 + 8 < n) {
+      stats[at + 8] = m1;
+      stats[plane + at + 8] = l1;
+      stats[2 * plane + at + 8] = D1;
+    }
+  }
+
+  // sweep 2: dS, then dQ += dS K
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  for (int i = tiles; i < loads; ++i) {
+    const int k0 = (i - tiles) * KT;
+    ring.wait(i, loads);
+    const uint32_t st = ring.stage(i);
+    float sc[KT / 2], dp[KT / 2];
+    k36_two_products<KT>(sc, dp, base, st + L::T_N, st + L::T_LO, st + L::T_HI);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    if (k0 + KT > n) mask_columns<KT / 8>(sc, k0, n);
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = exp2_ftz(fmaf(sc[4 * j + e], c, -m0)) * f0;  // P * scale
+        sc[4 * j + 2 + e] = exp2_ftz(fmaf(sc[4 * j + 2 + e], c, -m1)) * f1;
+      }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] *= dp[4 * j + e] - D0;
+        sc[4 * j + 2 + e] *= dp[4 * j + 2 + e] - D1;
+      }
+    uint32_t da[KT / 16][4];  // dS in bf16, as the TPU kernel
+    to_operand<KT / 16>(sc, da);
+    const uint64_t k_mn = Tile<128>::desc(st + L::T_N);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs_tb(dq, da[kk], k_mn + kk * Tile<128>::MN_STEP);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncthreads();
+  }
+  const int warp = threadIdx.x / 32, wrow = q0 + warp * 16;
+  unsigned char* stage = smem + warp * 16 * K36_RB;
+  k36::stage_acc<8>(stage, K36_RB, 0, dq, 5, 1.f, 1.f, nullptr, 0, 0);
+  __syncwarp();
+  k36::copy_staged(stage, K36_RB, dqkv + ((size_t)chunk * n + wrow) * total + col, total, 2 * KD,
+                   n - wrow);
+}
+
+// Pass (b), columns C0..C0+NW-1 of the stage's query tile: S^T and dP^T;
+// P^T for dV += P^T dO (low and high tiles); dS^T for dK += dS^T Q.
+template <int C0, int NW>
+__device__ __forceinline__ void k36_key_rows_part(float (&dk)[32], float (&dv)[32],
+                                                  float (&dvh)[16], uint32_t base, uint32_t st,
+                                                  int q0, const float* ms, const float* ils,
+                                                  const float* ds, float c, float scale) {
+  using L = K36Smem;
+  const uint32_t q_tile = st + L::T_N + C0 * 128, lo = st + L::T_LO + C0 * 128,
+                 hi = st + L::T_HI + C0 * 64;
+  float s_t[NW / 2], dpt[NW / 2];
+  k36_two_products<NW>(s_t, dpt, base, q_tile, lo, hi);  // S^T = K Q^T, dP^T = V dO^T
+  wgmma_wait<1>();
+  fence_regs(s_t);
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = q0 + C0 + 8 * j + 2 * t + e;  // the query row of this column
+      const float mq = ms[q], il = ils[q];
+      s_t[4 * j + e] = exp2_ftz(fmaf(s_t[4 * j + e], c, -mq)) * il;
+      s_t[4 * j + 2 + e] = exp2_ftz(fmaf(s_t[4 * j + 2 + e], c, -mq)) * il;
+    }
+  uint32_t pa[NW / 16][4], da[NW / 16][4];  // P^T and dS^T in bf16, as the TPU kernel
+  to_operand<NW / 16>(s_t, pa);
+  const uint64_t lo_mn = Tile<128>::desc(lo), hi_mn = Tile<64>::desc(hi);
+  const uint64_t q_mn = Tile<128>::desc(q_tile);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NW / 16; ++kk) wgmma_rs_tb(dv, pa[kk], lo_mn + kk * Tile<128>::MN_STEP);
+#pragma unroll
+  for (int kk = 0; kk < NW / 16; ++kk) wgmma_rs_tb(dvh, pa[kk], hi_mn + kk * Tile<64>::MN_STEP);
+  wgmma_commit();
+  wgmma_wait<1>();  // dP^T is done; dV's products may still run
+  fence_regs(dpt);
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float dq = ds[q0 + C0 + 8 * j + 2 * t + e];
+      dpt[4 * j + e] = s_t[4 * j + e] * (dpt[4 * j + e] - dq) * scale;
+      dpt[4 * j + 2 + e] = s_t[4 * j + 2 + e] * (dpt[4 * j + 2 + e] - dq) * scale;
+    }
+  to_operand<NW / 16>(dpt, da);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NW / 16; ++kk) wgmma_rs_tb(dk, da[kk], q_mn + kk * Tile<128>::MN_STEP);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dv);
+  fence_regs(dvh);
+  fence_regs(dk);
+}
+
+// Pass (b): one block per (chunk, head, QT key rows).
+__global__ void __launch_bounds__(W_THREADS, 2)
+bwd_k36_key_rows(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                 const bf16* __restrict__ dvo, bf16* __restrict__ dqkv,
+                 const float* __restrict__ stats, int ba, int n, int heads, float scale) {
+  static_assert(KT == 48 + 32, "the two parts of a query tile");
+  using L = K36Smem;
+  using k36::HD;
+  using k36::KD;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int chunk = blockIdx.z, head = blockIdx.y, k0 = blockIdx.x * QT;
+  const int total = heads * k36::STRIDE, dim = heads * HD, col = head * k36::STRIDE;
+  const int tiles = (n + KT - 1) / KT;
+  const bf16* rows = qkv + (size_t)chunk * n * total + col;
+  const K36Ring ring{base, rows, dout + (size_t)chunk * n * dim + head * HD, (size_t)total,
+                     (size_t)dim, n, tiles};  // tiles: Q and dO
+  k36_zero_pads(smem);
+  k36::load_narrow(base + L::O_N, rows + KD, total, k0, QT, n);  // own rows: K and V
+  k36::load_wide(base + L::O_LO, base + L::O_HI, rows + 2 * KD, total, k0, QT, n);
+  ring.issue(0);
+  cp_async_commit();
+
+  // every query row's (m, 1/l, D); rows past n get m = +inf, so P = 0 there
+  float* ms = reinterpret_cast<float*>(smem + L::STATS_OFF);
+  float* ils = ms + tiles * KT;
+  float* ds = ils + tiles * KT;
+  const size_t srow = ((size_t)chunk * heads + head) * n, plane = (size_t)ba * heads * n;
+  for (int q = threadIdx.x; q < tiles * KT; q += W_THREADS) {
+    const bool live = q < n;
+    ms[q] = live ? stats[srow + q] : CUDART_INF_F;
+    ils[q] = live ? 1.f / stats[plane + srow + q] : 0.f;
+    ds[q] = live ? stats[2 * plane + srow + q] : 0.f;
+  }
+
+  const float c = scale * LOG2E;
+  float dk[32], dv[32], dvh[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dvh[i] = 0.f;
+  for (int i = 0; i < tiles; ++i) {
+    ring.wait(i, tiles);  // its barrier also publishes the statistics
+    const uint32_t st = ring.stage(i);
+    k36_key_rows_part<0, 48>(dk, dv, dvh, base, st, i * KT, ms, ils, ds, c, scale);
+    k36_key_rows_part<48, 32>(dk, dv, dvh, base, st, i * KT, ms, ils, ds, c, scale);
+    __syncthreads();
+  }
+  const int warp = threadIdx.x / 32, wrow = k0 + warp * 16;
+  unsigned char* stage = smem + warp * 16 * K36_RB;
+  bf16* out = dqkv + ((size_t)chunk * n + wrow) * total + col;
+  k36::stage_acc<8>(stage, K36_RB, 0, dk, 5, 1.f, 1.f, nullptr, 0, 0);
+  __syncwarp();
+  k36::copy_staged(stage, K36_RB, out + KD, total, 2 * KD, n - wrow);
+  __syncwarp();
+  const bf16* extra = dvo + ((size_t)chunk * n + wrow) * dim + (size_t)head * HD;
+  k36::stage_acc<8>(stage, K36_RB, 0, dv, 8, 1.f, 1.f, extra, dim, n - wrow);
+  k36::stage_acc<4>(stage, K36_RB, 64, dvh, 1, 1.f, 1.f, extra, dim, n - wrow);
+  __syncwarp();
+  k36::copy_staged(stage, K36_RB, out + 2 * KD, total, 2 * HD, n - wrow);
+}
+
+int launch_k36(int is_bf16, const void* qkv, const void* dout, const void* dvo, void* dqkv,
+               float* stats, int ba, int n, int heads, float scale, cudaStream_t stream) {
+  using k36::HD;
+  using k36::KD;
+  if (is_bf16) {
+    using L = K36Smem;
+    const dim3 grid((n + QT - 1) / QT, heads, ba);
+    const int stat_rows = (n + KT - 1) / KT * KT;
+    const size_t smem_a = L::bytes(0), smem_b = L::bytes(stat_rows);
+    if (smem_b > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    static const cudaError_t attr = [] {
+      const cudaError_t a = cudaFuncSetAttribute(
+          bwd_k36_query_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+      return a != cudaSuccess ? a
+                              : cudaFuncSetAttribute(bwd_k36_key_rows,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                     SMEM_MAX);
+    }();
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    bwd_k36_query_rows<<<grid, W_THREADS, smem_a, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv),
+        stats, ba, n, heads, scale);
+    bwd_k36_key_rows<<<grid, W_THREADS, smem_b, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
+        static_cast<const bf16*>(dvo), static_cast<bf16*>(dqkv), stats, ba, n, heads, scale);
+  } else {
+    const dim3 grid((n + BR - 1) / BR, heads, ba);
+    bwd_query_rows_f32<KD, HD><<<grid, F_THREADS, 0, stream>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(dout),
+        static_cast<float*>(dqkv), stats, ba, n, heads, scale);
+    bwd_key_rows_f32<KD, HD><<<grid, F_THREADS, 0, stream>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(dout),
+        static_cast<const float*>(dvo), static_cast<float*>(dqkv), stats, ba, n, heads, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int KD, int HD>
 int launch(int is_bf16, const void* qkv, const void* dout, const void* dvo, void* dqkv,
            float* stats, int ba, int n, int heads, float scale, cudaStream_t stream) {
@@ -642,7 +1020,8 @@ int launch(int is_bf16, const void* qkv, const void* dout, const void* dvo, void
 
 // Returns 0 on good launches, else the CUDA error code (cudaErrorInvalidValue
 // for a pair not built here). (key_dim, head_dim) = (32, 64) is yolo11's
-// PSAAttention at every scale, (32, 32) yolo12's AAttn.
+// PSAAttention at every scale, (32, 32) yolo12's AAttn, (36, 72) YOLOv10m's
+// PSA.
 extern "C" int area_attention_bwd(const void* qkv, const void* d_out, const void* d_v,
                                   void* d_qkv, void* stats, int ba, int n, int heads,
                                   int key_dim, int head_dim, float scale, int is_bf16,
@@ -653,5 +1032,7 @@ extern "C" int area_attention_bwd(const void* qkv, const void* d_out, const void
     return launch<32, 64>(is_bf16, qkv, d_out, d_v, d_qkv, st, ba, n, heads, scale, s);
   if (key_dim == 32 && head_dim == 32)
     return launch<32, 32>(is_bf16, qkv, d_out, d_v, d_qkv, st, ba, n, heads, scale, s);
+  if (key_dim == k36::KD && head_dim == k36::HD)
+    return launch_k36(is_bf16, qkv, d_out, d_v, d_qkv, st, ba, n, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -177,6 +177,37 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// 8 bytes global -> shared, asynchronous (an 8-byte aligned source); zeros
+// where src_bytes is 0.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// Close this thread's group of cp.async copies; wait until at most N of its
+// groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The byte offset of 16-byte chunk `chunk` of row `row` in a tile of
+// ROW_BYTES-byte rows laid out as TMA writes it with the 128- or 64-byte
+// swizzle (the tile starts on a 1024-byte boundary): the chunk index XOR
+// the row's position in its 1024-byte (128-byte rows) or 512-byte (64-byte
+// rows) repeat.
+template <int ROW_BYTES>
+__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+  static_assert(ROW_BYTES == 64 || ROW_BYTES == 128, "64- or 128-byte rows");
+  return ROW_BYTES == 128 ? row * 128 + ((chunk ^ (row & 7)) << 4)
+                          : row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
+}
+
+
 // Make this thread's shared-memory writes of the generic proxy (stores,
 // cp.async) visible to the async proxy (wgmma, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -396,5 +427,130 @@ __device__ __forceinline__ void store_rows(const float (&acc)[4 * NB], float f0,
   }
   __syncwarp();
 }
+
+// ------------------------------------------- (key_dim, head_dim) = (36, 72)
+//
+// YOLOv10m's PSA heads. A head's q|k|v row is 144 bf16 (288 bytes): q at 0,
+// k 72 bytes in (8-byte aligned only, so no TMA box and no 16-byte copy
+// takes it), v 144 bytes in. 36 is not a multiple of wgmma's k-step of 16,
+// and a 72-wide row is wider than a swizzle span. So the kernels of this
+// pair copy their operands with cp.async into tiles of the layouts the
+// (32, 64) and (32, 32) builds read:
+// - a narrow operand (q or k, 36 columns) into a tile of 128-byte rows
+//   (128-byte swizzle) whose columns 36..63 are zero: Q.K^T reduces over
+//   three k-steps (48 columns, the last 12 zeros on both sides), and a
+//   product that takes the tile MN-major is N = 64 wide, its columns past
+//   35 zero;
+// - a wide operand (v, dO: 72 columns) into a tile of its columns 0..63
+//   (128-byte rows) and a tile of columns 64..71 in 64-byte rows (64-byte
+//   swizzle) whose columns past 7 are zero: a reduction over it is four
+//   k-steps of the first and one of the second, a product that takes it
+//   MN-major is N = 64 on the first plus N = 32 on the second (8 useful).
+namespace k36 {
+
+constexpr int KD = 36, HD = 72, STRIDE = 2 * KD + HD;
+constexpr int NARROW_PIECES = KD / 4;  // 8-byte pieces of a narrow row
+constexpr int WIDE_CHUNKS = HD / 8;    // 16-byte chunks of a wide row
+
+// Rows row0 .. row0 + rows - 1 of a narrow operand (row r at src + r * ld,
+// 8-byte aligned) into the tile at shared address `tile`; rows >= n come
+// in as zeros. Every thread of the block takes a share (128 threads).
+__device__ __forceinline__ void load_narrow(uint32_t tile, const bf16* src, size_t ld, int row0,
+                                            int rows, int n) {
+  for (int e = threadIdx.x; e < rows * NARROW_PIECES; e += 128) {
+    const int r = e / NARROW_PIECES, p = e % NARROW_PIECES, row = row0 + r;
+    const bool live = row < n;
+    cp_async8(tile + swizzled<128>(r, p >> 1) + (p & 1) * 8,
+              src + (live ? (size_t)row * ld + 4 * p : 0), live ? 8 : 0);
+  }
+}
+
+// The same for a wide operand (16-byte aligned rows) into its two tiles.
+__device__ __forceinline__ void load_wide(uint32_t lo, uint32_t hi, const bf16* src, size_t ld,
+                                          int row0, int rows, int n) {
+  for (int e = threadIdx.x; e < rows * WIDE_CHUNKS; e += 128) {
+    const int r = e / WIDE_CHUNKS, c = e % WIDE_CHUNKS, row = row0 + r;
+    const bool live = row < n;
+    cp_async16(c < 8 ? lo + swizzled<128>(r, c) : hi + swizzled<64>(r, 0),
+               src + (live ? (size_t)row * ld + 8 * c : 0), live ? 16 : 0);
+  }
+}
+
+// Zero the columns that no copy writes: a narrow tile's 36..63 (bytes
+// 72..127), a wide high tile's 8..31 (bytes 16..63). Plain stores: the
+// caller fences them to the async proxy before the first product.
+__device__ __forceinline__ void zero_narrow_pad(unsigned char* tile, int rows) {
+  for (int e = threadIdx.x; e < rows * 4; e += 128) {
+    const int r = e / 4, c = 4 + e % 4;  // chunk 4's upper half, chunks 5-7
+    unsigned char* at = tile + swizzled<128>(r, c);
+    if (c == 4)
+      *reinterpret_cast<uint2*>(at + 8) = make_uint2(0, 0);
+    else
+      *reinterpret_cast<uint4*>(at) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+__device__ __forceinline__ void zero_wide_pad(unsigned char* hi, int rows) {
+  for (int e = threadIdx.x; e < rows * 3; e += 128) {
+    const int r = e / 3, c = 1 + e % 3;
+    *reinterpret_cast<uint4*>(hi + swizzled<64>(r, c)) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// Write columns 8j + 2t + {0, 1} of rows g and g + 8 (this lane's part of
+// accumulator block j: a0, a1 and b0, b1) as bf16 into a warp's staging
+// rows of rb bytes, at column col0 + 8j, with `extra` (bf16 rows ld_extra
+// apart, from the warp's first row; rows >= live not read) added in f32.
+__device__ __forceinline__ void stage_pair(unsigned char* st, int rb, int col, float a0, float a1,
+                                           float b0, float b1, const bf16* extra, size_t ld_extra,
+                                           int live) {
+  const int g = threadIdx.x % 32 / 4;
+  if (extra != nullptr) {
+    if (g < live) {
+      const float2 e = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(extra + (size_t)g * ld_extra + col));
+      a0 += e.x;
+      a1 += e.y;
+    }
+    if (g + 8 < live) {
+      const float2 e = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(extra + (size_t)(g + 8) * ld_extra + col));
+      b0 += e.x;
+      b1 += e.y;
+    }
+  }
+  *reinterpret_cast<uint32_t*>(st + g * rb + col * 2) = pack_bf16(a0, a1);
+  *reinterpret_cast<uint32_t*>(st + (g + 8) * rb + col * 2) = pack_bf16(b0, b1);
+}
+
+// Stage accumulator blocks 0 .. NB-1 of a 64 x 8*NB accumulator (row r0
+// times f0, r1 times f1) at columns col0 .. of the warp's staging rows.
+template <int NB>
+__device__ __forceinline__ void stage_acc(unsigned char* st, int rb, int col0,
+                                          const float (&acc)[4 * NB], int blocks, float f0,
+                                          float f1, const bf16* extra, size_t ld_extra,
+                                          int live) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    if (j < blocks)
+      stage_pair(st, rb, col0 + 8 * j + 2 * t, acc[4 * j] * f0, acc[4 * j + 1] * f0,
+                 acc[4 * j + 2] * f1, acc[4 * j + 3] * f1, extra, ld_extra, live);
+}
+
+// Copy the warp's 16 staged rows, `bytes` bytes each (a multiple of 8), to
+// dst (row stride ld elements, 8-byte aligned), rows below `live` only.
+__device__ __forceinline__ void copy_staged(const unsigned char* st, int rb, bf16* dst, size_t ld,
+                                            int bytes, int live) {
+  const int lane = threadIdx.x % 32, per_row = bytes / 8;
+  for (int i = lane; i < 16 * per_row; i += 32) {
+    const int r = i / per_row, c = i % per_row;
+    if (r < live)
+      *reinterpret_cast<uint2*>(reinterpret_cast<unsigned char*>(dst + (size_t)r * ld) + 8 * c) =
+          *reinterpret_cast<const uint2*>(st + r * rb + 8 * c);
+  }
+}
+
+}  // namespace k36
 
 }  // namespace hopper

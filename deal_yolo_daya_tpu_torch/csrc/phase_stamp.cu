@@ -13,6 +13,11 @@
 // opens (dyd_stamp_<slot>_<phase>), so a profiler trace shows the phase from
 // the kernel's name alone.
 //
+// A mark is a point inside a phase for the profiler's timeline alone: an
+// empty one-thread kernel named dyd_mark_<phase>_<what>, which the slots'
+// pattern dyd_stamp_<slot>_ does not match. The one mark is
+// dyd_mark_loss_o2o, between YOLOv10's two heads' assignments in the loss.
+//
 // What bounds it: the launch, about 2 us of device time; it reads 8 bytes
 // and writes 8 or 16. The stamps of one step run in order on one stream, so
 // no two of them touch the ring at once and no atomics are needed.
@@ -53,6 +58,8 @@ DYD_STAMP(3, backward)
 DYD_STAMP(4, optimizer)
 DYD_STAMP(5, end)
 
+__global__ void dyd_mark_loss_o2o() {}
+
 // Stamp `slot` (0-5) into `ring`, (steps * 6 + 1) u64, on `stream`. Returns 0
 // on a good launch, else the CUDA error code.
 extern "C" int phase_stamp(void* ring, int steps, int slot, void* stream) {
@@ -68,5 +75,12 @@ extern "C" int phase_stamp(void* ring, int steps, int slot, void* stream) {
     case 4: dyd_stamp_4_optimizer<<<1, 1, 0, s>>>(r, steps); break;
     default: dyd_stamp_5_end<<<1, 1, 0, s>>>(r, steps); break;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mark dyd_mark_loss_o2o on `stream`. Returns 0 on a good launch, else
+// the CUDA error code.
+extern "C" int phase_mark(void* stream) {
+  dyd_mark_loss_o2o<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

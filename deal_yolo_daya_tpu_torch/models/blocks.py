@@ -1,7 +1,9 @@
-"""YOLO11, YOLOv8 and YOLOv12 building blocks as PyTorch modules, NCHW.
+"""YOLO11, YOLOv8, YOLOv12 and YOLOv10 building blocks as PyTorch modules,
+NCHW.
 
 Counterpart of ``deal_yolo_daya_tpu/models/blocks.py`` for the blocks the
-three families use. Submodules carry the ultralytics ``DetectionModel`` names (``conv``,
+first three families use; YOLOv10's (``SCDown``, ``RepVGGDW``, ``CIB``,
+``C2fCIB``) have no counterpart there. Submodules carry the ultralytics ``DetectionModel`` names (``conv``,
 ``bn``, ``cv1``, ``m.0``, ``attn.qkv``, ``ffn.0`` ...), so a state dict in
 ultralytics layout loads with ``load_state_dict(strict=True)``.
 
@@ -522,6 +524,79 @@ class A2C2f(nn.Module):
         if self.gamma is None:
             return out
         return x + self.gamma.to(out.dtype).view(-1, 1, 1) * out
+
+
+class SCDown(nn.Module):
+    """Spatial-channel decoupled downsampling (YOLOv10): a 1x1 ConvBN to c2
+    channels, then a depthwise k x k stride-s ConvBN with no activation."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 1)
+        self.cv2 = ConvBN(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv2(self.cv1(x))
+
+
+class RepVGGDW(nn.Module):
+    """Large-kernel depthwise block (YOLOv10 n/s): SiLU of a depthwise 7x7
+    ConvBN plus a depthwise 3x3 ConvBN, neither activated. ``fuse()`` (after
+    the BatchNorms are folded) adds the 3x3 into the 7x7's centre, so the
+    deployed block is one conv."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = ConvBN(c, c, 7, g=c, act=False)
+        self.conv1 = ConvBN(c, c, 3, g=c, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        return F.silu(y if self.conv1 is None else y + self.conv1(x))
+
+    @torch.no_grad()
+    def fuse(self) -> None:
+        """Merge the folded 3x3 into the folded 7x7 (weights zero-padded by
+        2 on each side, biases added); ``conv1`` becomes None."""
+        c7, c3 = self.conv.conv, self.conv1.conv
+        if c7.bias is None or c3.bias is None:
+            raise ValueError("RepVGGDW.fuse needs both BatchNorms folded first")
+        c7.weight.add_(F.pad(c3.weight, (2, 2, 2, 2)))
+        c7.bias.add_(c3.bias)
+        self.conv1 = None
+
+
+class CIB(nn.Module):
+    """Compact inverted block (YOLOv10): depthwise 3x3, 1x1 to 2 x hidden,
+    depthwise 3x3 (``RepVGGDW`` with ``lk``), 1x1 to c2, depthwise 3x3, every
+    conv activated; a residual when ``shortcut`` and the widths match."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5,
+                 lk: bool = False):
+        super().__init__()
+        hidden = int(c2 * e)
+        self.cv1 = nn.Sequential(
+            ConvBN(c1, c1, 3, g=c1),
+            ConvBN(c1, 2 * hidden, 1),
+            RepVGGDW(2 * hidden) if lk else ConvBN(2 * hidden, 2 * hidden, 3, g=2 * hidden),
+            ConvBN(2 * hidden, c2, 1),
+            ConvBN(c2, c2, 3, g=c2),
+        )
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C3k2):
+    """C2f (``C3k2`` with Bottleneck inners of expansion 1.0) whose inner
+    blocks are ``CIB`` of expansion 1.0 (YOLOv10)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False,
+                 e: float = 0.5):
+        super().__init__(c1, c2, n, False, e, shortcut, inner_e=1.0)
+        self.m = nn.ModuleList(CIB(self.hidden, self.hidden, shortcut, 1.0, lk) for _ in range(n))
 
 
 @contextlib.contextmanager

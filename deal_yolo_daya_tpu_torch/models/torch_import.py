@@ -1,5 +1,5 @@
-"""Read trained ultralytics YOLO11/YOLOv8/YOLOv12 checkpoints (.pt) without
-ultralytics installed, and load them into the port's detectors.
+"""Read trained ultralytics YOLO11/YOLOv8/YOLOv12/YOLOv10 checkpoints (.pt)
+without ultralytics installed, and load them into the port's detectors.
 
 The port's copy of ``deal_yolo_daya_tpu/models/torch_import.py``. A user of
 the reference owns ultralytics ``best.pt`` files (its trainer is
@@ -15,7 +15,11 @@ ultralytics); this module reads them:
   ``DetectionModel`` keys (``models/weights.py``), so no name translation
   is needed: keys lose their wrapper prefixes, a fused checkpoint (conv
   bias, no bn) becomes conv + identity BN, BN bookkeeping and the DFL conv
-  are skipped, and every tensor is shape-checked. ``strict=False`` is the
+  are skipped, and every tensor is shape-checked. Two YOLOv10 names
+  differ: ultralytics' PSA is ``10.attn.*``/``10.ffn.*`` where the port's
+  ``C2PSA`` at n = 1 holds ``10.m.0.attn.*``/``10.m.0.ffn.*`` (the same
+  arithmetic), and a fused RepVGGDW (its 3x3 merged into the 7x7 and
+  deleted) gets a zero 3x3 with identity BN, the same function. ``strict=False`` is the
   intersect load of fine-tuning: a tensor of another shape (the class head
   under another nc) keeps the target's value and is reported;
 - ``export_state_dict(model)`` is the inverse: the ultralytics-named f32
@@ -91,6 +95,40 @@ def _synthesize_fused_bn(sd: Dict[str, torch.Tensor]) -> List[str]:
     return fused
 
 
+# YOLOv10's PSA (ultralytics ``PSA``) -> the port's C2PSA at n = 1
+_V10_PSA = re.compile(r"^10\.(attn|ffn)\.")
+
+
+def v10_keys(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A normalized YOLOv10 state dict with ultralytics' PSA keys
+    (``10.attn.*``, ``10.ffn.*``) renamed to the port's (``10.m.0.attn.*``,
+    ``10.m.0.ffn.*``); any other state dict as it is."""
+    if "23.one2one_cv2.0.2.bias" not in sd:
+        return sd
+    return {_V10_PSA.sub(r"10.m.0.\1.", k): v for k, v in sd.items()}
+
+
+def _zero_fused_repvggdw(sd: Dict[str, torch.Tensor], target: Mapping[str, torch.Tensor]
+                         ) -> List[str]:
+    """Where the target has a RepVGGDW's 3x3 (``X.conv1.*``) and a fused
+    checkpoint only its 7x7 (``X.conv.*``), add the 3x3 as zeros with an
+    identity BN (eps 1e-3): the block's function is unchanged. Returns the
+    blocks so completed."""
+    done = []
+    for key in target:
+        m = re.fullmatch(r"(.+)\.conv1\.conv\.weight", key)
+        if m is None or key in sd or f"{m.group(1)}.conv.conv.weight" not in sd:
+            continue
+        base, c = f"{m.group(1)}.conv1", target[key].shape[0]
+        sd[key] = torch.zeros(tuple(target[key].shape))
+        sd[f"{base}.bn.weight"] = torch.ones(c)
+        sd[f"{base}.bn.bias"] = torch.zeros(c)
+        sd[f"{base}.bn.running_mean"] = torch.zeros(c)
+        sd[f"{base}.bn.running_var"] = torch.full((c,), 1.0 - 1e-3)
+        done.append(m.group(1))
+    return done
+
+
 def import_state_dict(sd: Mapping[str, Any], model: Union[nn.Module, Mapping[str, torch.Tensor]],
                       strict: bool = True) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """Lay an ultralytics state dict onto ``model``'s (a detector or its
@@ -104,7 +142,9 @@ def import_state_dict(sd: Mapping[str, Any], model: Union[nn.Module, Mapping[str
     values."""
     target = model.state_dict() if isinstance(model, nn.Module) else model
     sd, dropped = normalize_keys(dict(sd))
+    sd = v10_keys(sd)
     fused = _synthesize_fused_bn(sd)
+    fused += [f"{b} (RepVGGDW)" for b in _zero_fused_repvggdw(sd, target)]
     skipped = [k for k in sd if any(p.search(k) for p in _SKIP_PATTERNS)]
     new = {k: v.detach().clone() for k, v in target.items()}
     used, missing, shape_mismatch = set(skipped), [], []

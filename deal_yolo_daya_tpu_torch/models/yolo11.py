@@ -22,8 +22,8 @@ import torch
 import torch.nn as nn
 
 from ..device import resolve_device
-from .blocks import (A2C2f, BN_EPS, C2PSA, C3k2, ConvBN, DWConv, SPPF, rematerialized,
-                     upsample2x)
+from .blocks import (A2C2f, BN_EPS, C2PSA, C3k2, ConvBN, DWConv, RepVGGDW, SPPF,
+                     rematerialized, upsample2x)
 
 YOLO11_SCALES: Dict[str, Tuple[float, float, int]] = {
     "n": (0.50, 0.25, 1024),
@@ -92,6 +92,9 @@ class Detector(nn.Module):
     FAMILY = ""
     SCALES: Dict[str, Tuple[float, float, int]] = {}
     DETECT = 0
+    # an end-to-end detector (YOLOv10): a second, one-to-one head trained by
+    # the dual loss and selected without NMS, on one device only
+    END2END = False
     REMAT = (C3k2, SPPF, C2PSA, A2C2f, DetectHead)
 
     def __init__(self, nc: int, scale: str, remat: bool = False):
@@ -184,15 +187,20 @@ def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
 def init_weights(model: Detector, seed: int = 0) -> Detector:
     """Random init that mirrors the JAX one in distribution: lecun-normal
     conv kernels, identity BN, box bias 1.0 and the class prior
-    log(5 / nc / (640 / stride)^2) (yolo12's gamma keeps its 0.01)."""
+    log(5 / nc / (640 / stride)^2) (yolo12's gamma keeps its 0.01), on
+    every branch set of the head (yolov10's one-to-one set too)."""
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if isinstance(mod, nn.Conv2d):
             _lecun_normal_(mod.weight, gen)
     head = model.head()
-    for i, stride in enumerate(STRIDES):
-        head.cv2[i][2].bias.fill_(1.0)
-        head.cv3[i][2].bias.fill_(math.log(5 / head.nc / (640 / stride) ** 2))
+    branches = [(head.cv2, head.cv3)]
+    if hasattr(head, "one2one_cv2"):
+        branches.append((head.one2one_cv2, head.one2one_cv3))
+    for box, cls in branches:
+        for i, stride in enumerate(STRIDES):
+            box[i][2].bias.fill_(1.0)
+            cls[i][2].bias.fill_(math.log(5 / head.nc / (640 / stride) ** 2))
     return model
 
 
@@ -215,7 +223,8 @@ def fuse_conv_bn(model: nn.Module, input_scale: Optional[float] = None) -> nn.Mo
     """A copy of ``model`` with every BatchNorm folded into its conv (weight
     scaled, bias added, ``bn`` replaced by Identity). ``input_scale`` also
     folds an input normalisation (1/255) into the stem conv "0", so the fused
-    model takes raw 0..255 images."""
+    model takes raw 0..255 images. Each RepVGGDW (yolov10 n/s) then becomes
+    its one 7x7 conv (``RepVGGDW.fuse``)."""
     fused = copy.deepcopy(model)
     for mod in fused.modules():
         if isinstance(mod, ConvBN) and not isinstance(mod.bn, nn.Identity):
@@ -223,6 +232,9 @@ def fuse_conv_bn(model: nn.Module, input_scale: Optional[float] = None) -> nn.Mo
             mod.conv.weight.copy_(weight)
             mod.conv.bias = nn.Parameter(bias)
             mod.bn = nn.Identity()
+    for mod in fused.modules():
+        if isinstance(mod, RepVGGDW) and mod.conv1 is not None:
+            mod.fuse()
     if input_scale is not None:
         fused.layer(0).conv.weight.mul_(input_scale)
     return fused

@@ -39,7 +39,8 @@ launch: no exported program differentiates.
 versions for a CPU tensor (a trace on the CPU holds only aten ops), the op
 and the backward kernel for a CUDA tensor. ``launches`` and
 ``bwd_launches`` count the kernel launches, a CUDA graph's at each replay
-(``_build.count_launch``).
+(``_build.count_launch``); ``k36_launches`` and ``k36_bwd_launches`` count
+those of the (36, 72) build alone.
 """
 
 from __future__ import annotations
@@ -53,10 +54,15 @@ from . import _build
 
 launches = 0
 bwd_launches = 0
+k36_launches = 0
+k36_bwd_launches = 0
+K36 = (36, 72)  # (key_dim, head_dim) of yolov10m's PSA heads
 
 # (key_dim, head_dim) pairs the kernels are built for: yolo11's C2PSA heads
-# (32, 64) and yolo12's AAttn heads (32, 32)
-SUPPORTED = {(32, 64), (32, 32)}
+# (32, 64), yolo12's AAttn heads (32, 32) and yolov10m's PSA heads (36, 72),
+# whose k columns start 8-byte aligned only (the kernels copy that pair's
+# operands with cp.async instead of TMA: csrc/hopper.cuh, namespace k36)
+SUPPORTED = {(32, 64), (32, 32), K36}
 
 # the C entry points' arguments: pointers, ints (dims), scale, is_bf16, stream
 _FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
@@ -146,6 +152,8 @@ def area_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int, key_dim
                  stream)
     _build.check(err, "area_attention launch")
     _build.count_launch(__name__)
+    if (key_dim, head_dim) == K36:
+        _build.count_launch(__name__, "k36_launches")
     return out, v
 
 
@@ -176,6 +184,8 @@ def area_attention_bwd(qkv: torch.Tensor, d_out: torch.Tensor, d_v: torch.Tensor
                  int(qkv.dtype == torch.bfloat16), stream)
     _build.check(err, "area_attention_bwd launch")
     _build.count_launch(__name__, "bwd_launches")
+    if (key_dim, head_dim) == K36:
+        _build.count_launch(__name__, "k36_bwd_launches")
     return d_qkv
 
 

@@ -14,8 +14,13 @@ profiler trace names the phase.
 median milliseconds over the ring's last steps. On the CPU a
 stamp does nothing and ``phase_ms()`` is None.
 
-``launches`` counts the kernel launches, a CUDA graph's at each replay
-(``_build.count_launch``).
+``ring.mark()`` launches the loss phase's mark ``MARK``, an empty kernel
+between YOLOv10's two heads' assignments whose name is outside the stamps'
+pattern: a point on the profiler's timeline (the benchmark reads the
+one-to-one head's loss from it to stamp 3).
+
+``launches`` counts the stamp launches and ``mark_launches`` the mark's, a
+CUDA graph's at each replay (``_build.count_launch``).
 """
 
 from __future__ import annotations
@@ -29,11 +34,14 @@ import torch
 from . import _build
 
 launches = 0
+mark_launches = 0
+MARK = "dyd_mark_loss_o2o"
 
 PHASES = ("augment", "forward", "loss", "backward", "optimizer")
 STAMPS = tuple(f"dyd_stamp_{i}_{p}" for i, p in enumerate(PHASES + ("end",)))
 RING_STEPS = 64
 _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_MARK_ARGS = [ctypes.c_void_p]
 
 
 class Ring:
@@ -56,6 +64,16 @@ class Ring:
                      torch.cuda.current_stream().cuda_stream)
         _build.check(err, f"phase_stamp launch (slot {slot})")
         _build.count_launch(__name__)
+
+    def mark(self) -> None:
+        """The loss mark (``MARK``) on the current stream."""
+        if self.buf is None:
+            return
+        fn = _build.function("phase_stamp", "phase_mark", _MARK_ARGS)
+        with torch.cuda.device(self.device):
+            err = fn(torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "phase_stamp mark launch")
+        _build.count_launch(__name__, "mark_launches")
 
     def phase_ms(self) -> Optional[Dict[str, float]]:
         """Each phase's median device milliseconds over the ring's last steps

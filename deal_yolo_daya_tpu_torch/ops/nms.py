@@ -10,6 +10,8 @@ version on the CPU. The thresholds are Python floats (rounded to f32, as
 the JAX package's f32 scalars) or 0-dim f32 tensors on the boxes' device,
 compared as they are: an exported program takes them as runtime inputs
 (JAX's traced scalars) and nothing here reads them on the host.
+
+``v10_select`` is YOLOv10's selection in place of NMS (no JAX counterpart).
 """
 
 from __future__ import annotations
@@ -76,3 +78,33 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
         out_cls = torch.cat([out_cls, out_cls.new_full((b, pad), -1)], 1)
     n_det = ok.sum(1, dtype=torch.int32)
     return out_boxes, out_scores, out_cls, n_det
+
+
+def v10_select(boxes: torch.Tensor, scores: torch.Tensor, max_det: int = 300,
+               conf_thres: float = 0.0
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """YOLOv10's NMS-free selection (ultralytics' ``v10Detect.postprocess``)
+    on the one-to-one head's decoded outputs, then the confidence threshold:
+    the ``k = min(max_det, A)`` anchors of the highest class score, then the
+    k highest (anchor, class) scores among them; a detection is kept when its
+    score exceeds ``conf_thres`` (ultralytics' ``>``), and the kept ones lead
+    in score order. boxes (B, A, 4), scores (B, A, nc) -> ``batched_nms``'s
+    outputs: (boxes (B,max_det,4), scores (B,max_det), classes (B,max_det)
+    int32, n_det (B,) int32), padded with zeros and class -1."""
+    boxes, scores = boxes.float(), scores.float()
+    b, a, nc = scores.shape
+    k = min(max_det, a)
+    top = scores.amax(-1).topk(k, dim=1).indices                     # (B, k) anchors
+    cand_boxes, cand_scores = _take(boxes, top), _take(scores, top)
+    out_scores, flat = cand_scores.flatten(1).topk(k, dim=1)         # (B, k) pairs
+    ok = out_scores > (conf_thres if isinstance(conf_thres, torch.Tensor)
+                       else float(np.float32(conf_thres)))
+    out_boxes = torch.where(ok[..., None], _take(cand_boxes, flat // nc), 0.0)
+    out_cls = torch.where(ok, flat % nc, -1).to(torch.int32)
+    out_scores = torch.where(ok, out_scores, 0.0)
+    if k < max_det:  # fewer anchors than the requested detections
+        pad = max_det - k
+        out_boxes = torch.cat([out_boxes, out_boxes.new_zeros((b, pad, 4))], 1)
+        out_scores = torch.cat([out_scores, out_scores.new_zeros((b, pad))], 1)
+        out_cls = torch.cat([out_cls, out_cls.new_full((b, pad), -1)], 1)
+    return out_boxes, out_scores, out_cls, ok.sum(1, dtype=torch.int32)

@@ -73,6 +73,7 @@ import torch
 
 from . import tracing
 from .api import Detections, infer_fused
+from .models.registry import end_to_end
 from .ops import png
 from .ops.kernels._build import GraphLaunches
 from .ops.letterbox import letterbox_numpy
@@ -231,6 +232,11 @@ class Engine:
     def __init__(self, model, max_batch: int = 32, max_wait_ms: float = 5.0,
                  max_in_flight: int = 2, conf: float = 0.25, iou: float = 0.7,
                  max_det: int = 300):
+        if end_to_end(model.family):
+            raise NotImplementedError(
+                f"the serving Engine has no {model.family} path: its one-to-one head is "
+                "selected without NMS (api.YOLO.predict does that); serve a yolo11, yolov8 "
+                "or yolo12")
         model._ensure_built()
         self.model = model
         # pinned: the graphs read these weights by address

@@ -15,6 +15,10 @@ Conventions: head outputs are the per-level NCHW maps; GT boxes arrive
 padded, (B, N, 4) xyxy pixels with a (B, N) validity mask. Assignment runs in
 pixels, the box and DFL losses in feature-grid units. Nothing here reads a
 value back to the host.
+
+``dual_detection_loss`` is YOLOv10's (ultralytics' ``E2EDetectLoss``): the
+detection loss of the one-to-many head at top-k ``tal_topk`` plus that of
+the one-to-one head at top-k 1, with the same gains.
 """
 
 from __future__ import annotations
@@ -200,3 +204,35 @@ def detection_loss(
         "dfl_loss": dfl_loss,
         "num_fg": fg_mask.sum().float(),
     }
+
+
+O2O_PARTS = ("box_loss_o2o", "cls_loss_o2o", "dfl_loss_o2o", "num_fg_o2o")
+
+
+def dual_detection_loss(
+    outputs,                   # models.yolov10.DualOutputs
+    gt_labels: torch.Tensor,
+    gt_bboxes: torch.Tensor,
+    gt_mask: torch.Tensor,
+    imgsz: Tuple[int, int],
+    config: LossConfig = LossConfig(),
+    dp=None,
+    between=None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """YOLOv10's loss: ``detection_loss`` of the one-to-many head at top-k
+    ``config.tal_topk`` plus ``detection_loss`` of the one-to-one head at
+    top-k 1, each with the gains of ``config`` and ``dp``. The parts
+    box/cls/dfl are the two heads' sums and ``num_fg`` the one-to-many
+    head's foreground count; ``*_o2o`` (``O2O_PARTS``) are the one-to-one
+    head's own. ``between()``, where given, runs between the two (the step
+    program's loss mark)."""
+    total, parts = detection_loss(*outputs.one2many, gt_labels, gt_bboxes, gt_mask, imgsz,
+                                  config, dp)
+    if between is not None:
+        between()
+    total_o2o, o2o = detection_loss(*outputs.one2one, gt_labels, gt_bboxes, gt_mask, imgsz,
+                                    config._replace(tal_topk=1), dp)
+    out = {k: parts[k] + o2o[k] for k in ("box_loss", "cls_loss", "dfl_loss")}
+    out["num_fg"] = parts["num_fg"]
+    out.update({f"{k}_o2o": v for k, v in o2o.items()})
+    return total + total_o2o, out

@@ -94,12 +94,12 @@ from ..parallel import launch
 from ..parallel.mesh import Mesh, mesh_from_spec
 from ..parallel.sharding import tp_param_shardings
 from ..models.blocks import ShardedConv2d, swap_convs
-from ..models.registry import FAMILIES, infer_arch, make_detector, parse_model_spec
+from ..models.registry import FAMILIES, end_to_end, infer_arch, make_detector, parse_model_spec
 from ..models.torch_import import import_state_dict, read_torch_checkpoint
 from ..models.yolo11 import init_weights
 from ..ops.decode import decode_predictions
 from ..ops.kernels import phase_stamp
-from ..ops.nms import batched_nms
+from ..ops.nms import batched_nms, v10_select
 from .artifacts import RunDir
 from .async_ckpt import CheckpointWriter, snapshot
 from .augment import AugmentConfig
@@ -107,7 +107,7 @@ from .autobatch import suggest_batch
 from .data import DataLoader, Prefetcher, YoloDataset
 from .device_augment import DeviceAugConfig, augment_batch, step_seed
 from .step_graph import WARMUP_RUNS, StepProgram, auto_steps_per_dispatch
-from .loss import LossConfig, detection_loss
+from .loss import O2O_PARTS, LossConfig, detection_loss, dual_detection_loss
 from .metrics import DetMetrics, confusion_matrix
 from .optimizer import (H_EMA_DECAY, H_GRAD_KEEP, N_HYPER, Optimizer, OptimizerConfig,
                         accumulate_gradients, ema_decay, ema_update, lr_schedule,
@@ -280,6 +280,9 @@ class TrainState:
             else (family, scale)
         model = init_weights(make_detector(self.family, self.scale, nc, remat=cfg.remat),
                              cfg.seed)
+        # an end-to-end model (yolov10): two heads, the dual loss
+        # (train/loss.py::dual_detection_loss)
+        self.dual = model.END2END
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         for name, mod in model.named_children():
@@ -299,7 +302,8 @@ class TrainState:
         self.params = [p.detach() for p in self.model.parameters()]
         self.ema = [p.clone() for p in self.params]
         self.updates = 0  # micro-batch steps taken (the JAX state.step)
-        self.loss_acc = {k: torch.zeros((), device=self.device) for k in LOSS_PARTS}
+        self.loss_acc = {k: torch.zeros((), device=self.device)
+                         for k in LOSS_PARTS + (O2O_PARTS if self.dual else ())}
         self.hyper = torch.zeros(N_HYPER, device=self.device)
         # the phase stamps 2-5 of a step program's iteration (it sets them
         # for its step); none in an eager step
@@ -315,7 +319,13 @@ class TrainState:
         optimizer state are copied to every rank, each BatchNorm synchronises
         over the data group, and the gradients move into one flat buffer.
         Under a model axis the convs of ``tp_param_shardings(model, M,
-        min_channels)`` are then sharded (see the class docstring)."""
+        min_channels)`` are then sharded (see the class docstring). An
+        end-to-end model (yolov10) trains on one device only:
+        NotImplementedError."""
+        if self.dual:
+            raise NotImplementedError(
+                f"{self.family} trains on one device: data and tensor parallel meshes are "
+                "not implemented for its two heads")
         views = self.local_views()
         dp.broadcast_([*views["model"].values(), *views["ema"].values(),
                        *self.optimizer.inner.grads(),
@@ -468,12 +478,19 @@ class TrainState:
     def loss(self, images: torch.Tensor, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
              gt_mask: torch.Tensor):
         """The training forward and the detection loss -> (total, parts);
-        phase stamp 2 between them."""
-        box, cls = self.forward(images)
+        phase stamp 2 between them. A YOLOv10 takes the dual loss, with the
+        step program's loss mark (``Ring.mark``) between its two heads'
+        assignments."""
+        out = self.forward(images)
         self.stamp(2)
+        imgsz = (self.cfg.imgsz, self.cfg.imgsz)
         # the loss runs outside autocast: its dtypes are its own
-        return detection_loss(box, cls, gt_classes, gt_boxes, gt_mask,
-                              (self.cfg.imgsz, self.cfg.imgsz), self.loss_cfg, self.dp)
+        if self.dual:
+            return dual_detection_loss(out, gt_classes, gt_boxes, gt_mask, imgsz, self.loss_cfg,
+                                       self.dp, getattr(self.stamp, "mark", None))
+        box, cls = out
+        return detection_loss(box, cls, gt_classes, gt_boxes, gt_mask, imgsz, self.loss_cfg,
+                              self.dp)
 
     def next_hyper(self) -> bool:
         """Copy the next micro-batch's row into ``hyper`` (a pinned copy on
@@ -515,8 +532,8 @@ class TrainState:
             self.optimizer.apply(self.hyper)
             ema_update(self.ema, self.params, self.hyper[H_EMA_DECAY])
         with torch.no_grad():
-            for k in LOSS_PARTS:
-                self.loss_acc[k].add_(parts[k].detach())
+            for k, acc in self.loss_acc.items():
+                acc.add_(parts[k].detach())
         self.stamp(5)
         return total.detach()
 
@@ -769,6 +786,11 @@ class Trainer:
         spec = str(cfg.device or "")
         self.mesh = mesh = mesh if mesh is not None else mesh_from_spec(spec or None)
         self.n_data, self.n_model = mesh.shape["data"], mesh.shape["model"]
+        family = None if str(cfg.model).endswith(".pt") else parse_model_spec(cfg.model)[0]
+        if mesh.size > 1 and family is not None and end_to_end(family):
+            raise NotImplementedError(
+                f"{family} trains on one device: device={spec!r} asks for a "
+                f"{self.n_data}x{self.n_model} mesh")
         if mesh.size == 0:  # no card: never the CPU unless asked for
             self.device = resolve_device("cuda")
         if mesh.size <= 1:  # the first device: "cuda" (the current card) or the CPU
@@ -1220,10 +1242,16 @@ class Trainer:
         else:
             state = self.state if state is None else state
             box, cls = state.eval_forward(images, use_ema)
-        _, parts = detection_loss(box, cls, gt_classes, gt_boxes, gt_mask, imgsz, state.loss_cfg)
         boxes, scores = decode_predictions(box, cls, imgsz)
-        det = batched_nms(boxes, scores, conf_thres=self.cfg.conf, iou_thres=self.cfg.iou,
-                          pre_topk=1000, max_det=self.cfg.max_det)
+        if state.dual:  # the one-to-one head (eval mode): its loss at top-k 1, no NMS
+            _, parts = detection_loss(box, cls, gt_classes, gt_boxes, gt_mask, imgsz,
+                                      state.loss_cfg._replace(tal_topk=1))
+            det = v10_select(boxes, scores, self.cfg.max_det, self.cfg.conf)
+        else:
+            _, parts = detection_loss(box, cls, gt_classes, gt_boxes, gt_mask, imgsz,
+                                      state.loss_cfg)
+            det = batched_nms(boxes, scores, conf_thres=self.cfg.conf, iou_thres=self.cfg.iou,
+                              pre_topk=1000, max_det=self.cfg.max_det)
         pad = torch.stack([inv[:, 1], inv[:, 2], inv[:, 1], inv[:, 2]], -1)[:, None, :]
         lim = torch.stack([inv[:, 3], inv[:, 4], inv[:, 3], inv[:, 4]], -1)[:, None, :]
         scale = inv[:, 0][:, None, None]

@@ -30,6 +30,8 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 import synth_annotations_torch as synth  # noqa: E402
 
+import jax_native  # noqa: E402
+
 GOLDEN = Path(__file__).parent / "golden" / "datakit_chain_hashes.json"
 
 # the files each step writes, relative to the run root (globs)
@@ -54,6 +56,13 @@ COUNTS = {"merge": ["merged"], "dedup": ["dedup"], "ref_filter": ["filtered"],
           "replace_ptlist": ["processed", "excluded"], "iou_filter": ["high_iou", "other"],
           "label_replace": ["label_replaced", "replaced_rows"],
           "split": ["categories", "splits"], "yolo": ["yolo_images"], "download": ["drawn"]}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    """The JAX runtime's native scanner loaded in this worker
+    (``tests/jax_native.py``), so the JAX side takes its native path."""
+    jax_native.loaded()
 
 
 @pytest.fixture(autouse=True, scope="module")

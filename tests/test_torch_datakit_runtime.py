@@ -35,7 +35,16 @@ from deal_yolo_daya_tpu_torch.utils import xlsx
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))
 
+import jax_native  # noqa: E402
 import synth_annotations_torch as synth  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    """The JAX runtime's native scanner loaded in this worker
+    (``tests/jax_native.py``), so the JAX side takes its native path."""
+    jax_native.loaded()
+
 
 GOLDEN = Path(__file__).parent / "golden" / "datakit_chain_hashes.json"
 

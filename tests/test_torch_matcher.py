@@ -14,11 +14,14 @@ import pytest
 import deal_yolo_daya_tpu_torch.runtime as rt
 from deal_yolo_daya_tpu_torch.train import metrics as M
 
+import jax_native
+
 
 @pytest.fixture(scope="module", autouse=True)
 def native_library():
     if rt.get_lib() is None:
         pytest.skip("the native library does not build here (no g++)")
+    jax_native.loaded()  # the JAX side's matcher too (tests/jax_native.py)
 
 
 def _numpy_loop(*args):

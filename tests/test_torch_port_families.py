@@ -251,8 +251,9 @@ def test_param_groups_put_gamma_in_no_decay():
 
 
 def test_registry_builds_every_family():
-    assert set(registry.FAMILIES) == {"yolo11", "yolov8", "yolo12"}
+    assert set(registry.FAMILIES) == {"yolo11", "yolov8", "yolo12", "yolov10"}
     assert isinstance(build_detector("yolov8n", nc=3, device="cpu"), YOLOv8)
+    assert build_detector("yolov10n", nc=3, device="cpu").FAMILY == "yolov10"
     model = build_detector("yolo12n", nc=3, device="cpu")
     assert isinstance(model, YOLOv12) and not model.training
     assert model.head() is model.layer(21) and model.head().nc == 3

@@ -67,6 +67,14 @@ REPLACEMENTS = [
     # the phase stamps have no CPU kernel: phase 41 is left out
     ("stamp_record = phase_stamp_checks(args.seed, card)",
      'stamp_record = {"launches": 0, "stamp_us": 0.0, "augment_launches": 0}'),
+    # phase 43 captures a CUDA graph of the (36, 72) kernels: a stand-in record
+    ("k36_record = k36_attention_checks(args.seed, card)",
+     'k36_record = {"shape": [2, 16, 576], "graph_launches": [0, 0], "call_launches": [0, 0], '
+     '"step_graph": {"launches": {"k36": 0, "k36_bwd": 0, "mark": 0, "stamps": 0}}, '
+     '"max_abs_err": '
+     '{"bfloat16 32x400": {"fwd": 0.0, "bwd": 0.0}}, **{w: {"ms": 0.0, "device_ms": 0.0, '
+     '"plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None, '
+     '"library_device_ms": None, "device_ms_by_kernel": {}} for w in ("forward", "backward")}}'),
     # NMS beyond 1344 candidates and batched_nms at pre_topk 4096
     ("NMS_LARGE_K = (1345, 2048, 4096)", "NMS_LARGE_K = (1345,)"),
     ("(32, k_, 2)", "(2, k_, 2)"), ("(32, k_, 1)", "(2, k_, 1)"), ("(32, k_)", "(2, k_)"),
