@@ -305,6 +305,14 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    401, 80) and in f32; one launch each way a call, 1 + 1 a replay of a
    CUDA graph of ``AreaAttention``'s forward and backward (its gradient
    held to plain); both kernels' device times, plain, SDPA and the bound.
+44. the task-aligned assigner's kernels (``csrc/tal_assign.cu``) at the
+   train cells' (32, 128, 8400, 80), top-k 10 and 1, against the plain
+   version (``task_aligned_assign_plain``), every output bit for bit: on the
+   inputs the yolo11n and yolov10m step programs' eager warm-up steps handed
+   the assigner on each cell's own traffic, and on the CPU test's cases;
+   one launch a call, 1 a replay of yolo11n's b32 step graph and 2 of
+   yolov10m's; the kernel path's device time (at most TAL_MAX_MS), plain's
+   and the bound.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
@@ -315,7 +323,8 @@ the yolo12n and yolov8n records under ``families``, and each attention
 kernel's ``train_graph_launches``, its launches inside one replay of the
 graphed step; the s8 conv's row, then the phase stamp's with phase 41's
 record under ``phases``, then the augmentation kernel's with phase 42's
-under ``checks``, then the (36, 72) forward and backward rows of phase 43; phase 35's record under ``dp``,
+under ``checks``, then the (36, 72) forward and backward rows of phase 43,
+then the assigner's with phase 44's record under ``checks``; phase 35's record under ``dp``,
 phase 36's under ``app``, phase 39's under ``tp``, phase 40's under
 ``phase40``) and
 the last line the device record; the ``serving``, ``train_graph`` and ``int8`` records, phases
@@ -3592,6 +3601,18 @@ def plots_matcher_spd_phase(seed: int, data_yaml: Path, root: Path, best_pt: Pat
 K36_SHAPE = (32, 400, 4)  # yolov10m's PSA at b32/640: (chunks, tokens, heads)
 K36_GRAPH_REPLAYS = 20
 K36_STEP_REPLAYS = 8  # replays of yolov10m's graphed train step
+# phase 44: the task-aligned assigner's kernels (csrc/tal_assign.cu) against
+# the plain version (task_aligned_assign_plain) at the train cells' shapes
+# (B, N, imgsz, nc), top-k 10 and 1: on the inputs that the yolo11n and
+# yolov10m step programs handed the assigner in their eager warm-up steps on
+# the cells' own traffic (benchmark/lib/traffic.py, two seeds), and on
+# tests/test_torch_assign_kernel.py's cases; every output bit-equal. The
+# kernel path takes at most TAL_MAX_MS a call; the step graphs launch it
+# once (yolo11n) and twice (yolov10m) a replay
+TAL_SHAPE = (32, 128, 640, 80)
+TAL_CELLS = (("yolo11n", 1), ("yolov10m", 2))
+TAL_STEP_REPLAYS = 8
+TAL_MAX_MS = 0.3
 
 
 def k36_attention_checks(seed: int, card: str):
@@ -3778,6 +3799,157 @@ def k36_step_graph(seed: int, card: str):
     return {"replays": n, "launches": got, "loss": loss}
 
 
+def load_file_module(path: Path, name: str):
+    """A module of this checkout by its file path (benchmark/ and tests/
+    are no packages of the port)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tal_assign_checks(seed: int, card: str):
+    """Phase 44: the task-aligned assigner's kernels (``csrc/tal_assign.cu``,
+    through ``task_aligned_assign`` on the card) against the plain version
+    (``task_aligned_assign_plain``) at TAL_SHAPE, top-k 10 and 1, every
+    output bit for bit: on the inputs the yolo11n and yolov10m b32/640 step
+    programs handed the assigner in their eager warm-up steps on each train
+    cell's own traffic, and on the CPU test's cases. The step graphs launch
+    the assigner TAL_CELLS' count a replay over TAL_STEP_REPLAYS replays from
+    0, and one replay's profile shows its kernels' share. Times by CUDA events
+    over a graph: the kernel path (at most TAL_MAX_MS), the plain version,
+    the bound (the outputs written once, the predicted boxes read once)."""
+    import torch
+
+    from deal_yolo_daya_tpu_torch.ops.kernels import tal_assign as tk
+    from deal_yolo_daya_tpu_torch.train import TrainConfig, TrainState
+    from deal_yolo_daya_tpu_torch.train import loss as tal_loss
+    from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig
+    from deal_yolo_daya_tpu_torch.train.step_graph import WARMUP_RUNS, StepProgram
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    dev = torch.device("cuda")
+    b, n, imgsz, nc = TAL_SHAPE
+    traffic = load_file_module(root / "benchmark" / "lib" / "traffic.py", "bench_traffic")
+    cases = load_file_module(root / "tests" / "test_torch_assign_kernel.py", "tal_cases")
+    rec = {"shape": [b, n, imgsz, nc], "card": card, "steps": {}, "parity": {}}
+    calls, where = [], [""]
+
+    def recording(*args):
+        if args[0].device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+            calls.append((where[0], tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                                          for x in args)))
+        return orig(*args)
+
+    # 44.1 the step programs on the cells' traffic
+    with patched(tk, "launch", recording) as orig:
+        for k, (model, per) in enumerate(TAL_CELLS):
+            where[0] = model
+            wl = json.loads((root / "benchmark" / "workloads" / f"{model}.train.b32.json")
+                            .read_text())
+            cache = traffic.device_cache(seed + k, wl["data"], imgsz, wl["max_boxes"], dev)
+            warm = WARMUP_RUNS + 1  # the eager warm-up steps, the capture and a replay
+            idx, seeds = traffic.train_schedule(seed + k, wl["data"]["images"], b,
+                                                warm + TAL_STEP_REPLAYS)
+            st = TrainState(TrainConfig(model=model, imgsz=imgsz, batch=b, amp=True, seed=seed,
+                                        max_boxes=wl["max_boxes"]), nc, steps_per_epoch=100,
+                            device=dev)
+            prog = StepProgram(st, cache, DeviceAugConfig(**wl["augment"]), imgsz,
+                               wl["max_boxes"], b)
+            prog.run(idx[:warm], seeds[:warm])
+            torch.cuda.synchronize()
+            check(list(prog.graphs) == [True], f"tal {model}: step graphs {list(prog.graphs)}")
+            eager = sum(w == model for w, _ in calls)
+            tk.launches = 0
+            prog.run(idx[warm:], seeds[warm:])
+            torch.cuda.synchronize()
+            got = tk.launches
+            rows, wall = profile_rows(lambda: prog.graphs[True].replay())
+            tal_ms = sum(ms for name, _, ms in rows if "tal_" in name)
+            busy = sum(ms for _, _, ms in rows)
+            rec["steps"][model] = {"replays": TAL_STEP_REPLAYS, "launches": got,
+                                   "eager_calls": eager, "replay_tal_ms": tal_ms,
+                                   "replay_busy_ms": busy,
+                                   "tal_kernels": {name: [cnt, ms] for name, cnt, ms in rows
+                                                   if "tal_" in name}}
+            log(f"[tal] {model} b{b}/{imgsz} graphed step on its cell's traffic: {got} assigner "
+                f"launches in {TAL_STEP_REPLAYS} replays, {eager} eager calls recorded; one "
+                f"replay's profile: the assigner's kernels {tal_ms:.4f} ms of {busy:.2f} ms "
+                f"busy ({card})")
+            check(got == per * TAL_STEP_REPLAYS, f"tal {model}: {got} launches in "
+                  f"{TAL_STEP_REPLAYS} replays, not {per} a replay")
+            check(eager == per * WARMUP_RUNS, f"tal {model}: {eager} eager assigner calls in "
+                  f"{WARMUP_RUNS} warm-up steps")
+            del prog, st, cache
+            torch.cuda.empty_cache()
+
+    # 44.2 the kernel path against the plain version, bit for bit
+    def parity(label, args, topk):
+        scores, pd, anc, lab, gt, mask, nc_, _, alpha, beta, eps, grid = args
+        before = tk.launches
+        got = tal_loss.task_aligned_assign(scores, pd, anc, lab, gt, mask, nc_, topk, alpha,
+                                           beta, eps, grid)
+        launched = tk.launches - before
+        want = tal_loss.task_aligned_assign_plain(scores, pd, anc, lab, gt, mask, nc_, topk,
+                                                  alpha, beta, eps)
+        torch.cuda.synchronize()
+        same = [same_bits(g, w) for g, w in zip(got, want)]
+        apart = int((got[1].view(torch.int32) != want[1].view(torch.int32)).sum())
+        worst = float((got[1] - want[1]).abs().max())
+        fg = int(want[2].sum())
+        log(f"[tal] {label}, top-k {topk}: {fg} foreground anchors; fg, index, boxes equal "
+            f"{same[2]}, {same[3]}, {same[0]}; target scores {apart} values apart (max "
+            f"|diff| {worst:.3e}); launches {launched}")
+        check(launched == 1, f"tal {label}: {launched} launches a call")
+        check(same[0] and same[2] and same[3], f"tal {label}, top-k {topk}: the assignment "
+              "differs from the plain version's")
+        check(same[1], f"tal {label}, top-k {topk}: target scores differ in {apart} values")
+        rec["parity"][f"{label}, top-k {topk}"] = {"fg": fg, "scores_apart": apart}
+
+    for i, (model, args) in enumerate(calls):
+        for topk in (10, 1):
+            parity(f"{model} warm-up call {i}", args, topk)
+    for j, case in enumerate(cases.CASES):
+        *inputs, grid = cases.case_inputs(case, b, n, imgsz, nc, seed + j)
+        args = (*(t.to(dev) for t in inputs), nc, 10, 0.5, 6.0, 1e-9, grid)
+        for topk in (10, 1):
+            parity(f"case {case}", args, topk)
+    del args
+
+    # 44.3 times on the first yolo11n call's inputs
+    first = calls[0][1]
+    scores, pd, anc, lab, gt, mask, nc_, _, alpha, beta, eps, grid = first
+
+    def kernel_path(topk):
+        return lambda: tal_loss.task_aligned_assign(scores, pd, anc, lab, gt, mask, nc_, topk,
+                                                    alpha, beta, eps, grid)
+
+    def plain(topk):
+        return lambda: tal_loss.task_aligned_assign_plain(scores, pd, anc, lab, gt, mask, nc_,
+                                                          topk, alpha, beta, eps)
+
+    dev_ms, o2o_ms = graph_time_ms(kernel_path(10)), graph_time_ms(kernel_path(1))
+    call_ms = cuda_time_ms(kernel_path(10), 50)
+    plain_ms, plain_o2o_ms = graph_time_ms(plain(10), 5, 3), graph_time_ms(plain(1), 5, 3)
+    a = scores.shape[1]
+    nbytes = b * a * (4 * 4 + 4 * nc + 1 + 8) + b * a * 4 * 4 + a * 2 * 4 + b * n * (4 * 4 + 8 + 1)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rec.update(device_ms=dev_ms, device_ms_topk1=o2o_ms, call_ms=call_ms, plain_ms=plain_ms,
+               plain_ms_topk1=plain_o2o_ms, bound_ms=bound_ms, bound_bytes=nbytes)
+    log(f"[time] tal_assign ({b}, {n}, {a}, {nc}): kernel path device {dev_ms:.4f} ms at top-k "
+        f"10, {o2o_ms:.4f} ms at top-k 1 (a graph of calls), a call {call_ms:.4f} ms with the "
+        f"host; {dev_ms / bound_ms:.1f} x its bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB); "
+        f"plain {plain_ms:.3f} ms at top-k 10, {plain_o2o_ms:.3f} ms at top-k 1 ({card})")
+    check(dev_ms <= TAL_MAX_MS and o2o_ms <= TAL_MAX_MS,
+          f"tal: the kernel path takes {dev_ms:.4f} / {o2o_ms:.4f} ms, above {TAL_MAX_MS}")
+    del calls, first, scores, pd, anc, lab, gt, mask
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"[tal] phase 44 in {rec['wall_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3830,10 +4002,11 @@ def main() -> int:
         for ln in lines:
             log(f"[ptxas {name}] {ln}")
     # the wgmma kernels keep their accumulators in registers, NMS its chain's
-    # 32 row words, score_reduce a row's 16-byte vectors and the augmentation
-    # its two samples' row taps: no spills
+    # 32 row words, score_reduce a row's 16-byte vectors, the augmentation
+    # its two samples' row taps and the assigner a thread's top-16 keys: no
+    # spills
     for name in ("area_attention", "area_attention_bwd", "nms_suppress", "score_reduce",
-                 "int8_conv", "device_augment"):
+                 "int8_conv", "device_augment", "tal_assign"):
         if name in logs:
             spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
             check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -5525,6 +5698,10 @@ def main() -> int:
     # 43. the attention kernels' (36, 72) builds (yolov10m's PSA) against their
     # plain versions, in a CUDA graph, and their times
     k36_record = k36_attention_checks(args.seed, card)
+
+    # 44. the task-aligned assigner's kernels against their plain version, in
+    # the yolo11n and yolov10m step graphs, and their times
+    tal_record = tal_assign_checks(args.seed, card)
     int8_record["card"] = card
     s8_row["launches_by_path"] = {
         "int8 predict": int8_record["launches"]["int8_conv"],
@@ -5584,6 +5761,16 @@ def main() -> int:
                 f"yolov10m b32 graphed step (phase 43), {K36_STEP_REPLAYS} replays":
                     k36_record["step_graph"]["launches"][
                         "k36" if which == "forward" else "k36_bwd"]}})
+    kernels.append({
+        "name": "tal_assign", "route": "cuda",
+        "source": "deal_yolo_daya_tpu_torch/csrc/tal_assign.cu", "replaces": None,
+        "shape": tal_record["shape"], "device_ms": tal_record["device_ms"],
+        "ms": tal_record["call_ms"], "plain_ms": tal_record["plain_ms"],
+        "bound_ms": tal_record["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "launches_by_path": {
+            f"{model} b32 graphed step (phase 44), {TAL_STEP_REPLAYS} replays":
+                tal_record["steps"][model]["launches"] for model, _ in TAL_CELLS},
+        "checks": tal_record})
     log(f"[int8] phases 29-34 in {int8_record['wall_s']:.1f} s")
     kernels[0]["train_graph_launches"] = {
         "yolo11n": graph_record["yolo11n"]["replay_launches"]["forward"],

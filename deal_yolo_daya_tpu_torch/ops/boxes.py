@@ -7,7 +7,7 @@ same operation order, so f32 results agree with the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -73,15 +73,20 @@ def box_iou_matrix(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch
     return bbox_iou(a[:, None, :], b[None, :, :], eps)
 
 
+def anchor_grid(imgsz: Tuple[int, int], strides: Sequence[int] = (8, 16, 32)
+                ) -> List[Tuple[int, int, int]]:
+    """(stride, rows, cols) of each level of ``make_anchors``, in its order."""
+    h, w = imgsz
+    return [(s, h // s, w // s) for s in strides]
+
+
 def make_anchors(imgsz: Tuple[int, int], strides: Sequence[int] = (8, 16, 32),
                  offset: float = 0.5, device=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Anchor centres in grid units, row-major per level, and each anchor's
     stride: (A, 2) and (A, 1)."""
-    h, w = imgsz
     points, stride_arr = [], []
-    for s in strides:
-        fh, fw = h // s, w // s
+    for s, fh, fw in anchor_grid(imgsz, strides):
         ys = torch.arange(fh, dtype=torch.float32, device=device) + offset
         xs = torch.arange(fw, dtype=torch.float32, device=device) + offset
         gy, gx = torch.meshgrid(ys, xs, indexing="ij")

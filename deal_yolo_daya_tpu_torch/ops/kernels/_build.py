@@ -32,8 +32,8 @@ BUILD = PACKAGE / "_build"
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the NMS IoU and the augmentation's pixels must round
-# exactly as PyTorch's elementwise ops
+# per-source flags: the NMS IoU, the augmentation's pixels and the assigner's
+# CIoU and metric must round exactly as PyTorch's elementwise ops
 EXTRA: Dict[str, List[str]] = {
     "area_attention": [],
     "area_attention_bwd": [],
@@ -42,6 +42,7 @@ EXTRA: Dict[str, List[str]] = {
     "nms_suppress": ["-fmad=false"],
     "phase_stamp": [],
     "score_reduce": [],
+    "tal_assign": ["-fmad=false"],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

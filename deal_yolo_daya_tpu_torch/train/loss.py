@@ -8,6 +8,10 @@ the same dtypes:
 - the per-GT top-k is ``topk`` successive argmaxes, ties to the lowest
   index, and a GT keeps its top-k when its best metric passes ``eps``;
 - an anchor claimed by several GTs goes to the one it overlaps most;
+- on a CUDA device the assigner is the hand-written kernels of
+  ``csrc/tal_assign.cu`` (``ops/kernels/tal_assign.py``), per GT over its
+  own candidate anchors, with the same results; elsewhere the plain version
+  below, dense over (B, N, A);
 - BCE runs in the logits' dtype (bf16 under amp) with its sum taken in f32;
   the DFL and box terms in f32.
 
@@ -23,12 +27,13 @@ the one-to-one head at top-k 1, with the same gains.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.boxes import bbox2dist, bbox_ciou, dist2bbox, make_anchors
+from ..ops.boxes import anchor_grid, bbox2dist, bbox_ciou, dist2bbox, make_anchors
+from ..ops.kernels import tal_assign as tal_kernel
 from ..ops.decode import REG_MAX, dfl_expectation, flatten_levels
 
 
@@ -55,6 +60,13 @@ def select_candidates_in_gts(anchor_xy: torch.Tensor, gt_bboxes: torch.Tensor,
     return torch.cat([lt, rb], dim=-1).amin(dim=-1) > eps
 
 
+def assign_route(device) -> str:
+    """The assigner's route, a property of the device alone: ``"kernel"``
+    (``csrc/tal_assign.cu``) on a CUDA device, else ``"plain"``
+    (``task_aligned_assign_plain``)."""
+    return "kernel" if torch.device(device).type == "cuda" else "plain"
+
+
 @torch.no_grad()
 def task_aligned_assign(
     pd_scores: torch.Tensor,   # (B, A, nc) sigmoid probabilities
@@ -68,9 +80,40 @@ def task_aligned_assign(
     alpha: float = 0.5,
     beta: float = 6.0,
     eps: float = 1e-9,
+    grid: Optional[Sequence[Tuple[int, int, int]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (target_bboxes (B,A,4) pixels, target_scores (B,A,nc) f32,
-    fg_mask (B,A) bool, target_gt_idx (B,A) int64)."""
+    fg_mask (B,A) bool, target_gt_idx (B,A) int64).
+
+    ``grid`` is the (stride, rows, cols) of each level of ``anchor_xy``
+    (``ops.boxes.anchor_grid``). CUDA tensors take the kernels, which need
+    it, f32 boxes and 1 <= topk <= 16, and raise on anything else; other
+    devices take ``task_aligned_assign_plain``."""
+    if assign_route(pd_scores.device) == "kernel":
+        return tal_kernel.launch(
+            *(t.contiguous() for t in (pd_scores.to(torch.bfloat16), pd_bboxes, anchor_xy,
+                                       gt_labels.long(), gt_bboxes, mask_gt)),
+            nc, topk, alpha, beta, eps, grid if grid is not None else ())
+    return task_aligned_assign_plain(pd_scores, pd_bboxes, anchor_xy, gt_labels, gt_bboxes,
+                                     mask_gt, nc, topk, alpha, beta, eps)
+
+
+@torch.no_grad()
+def task_aligned_assign_plain(
+    pd_scores: torch.Tensor,
+    pd_bboxes: torch.Tensor,
+    anchor_xy: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_bboxes: torch.Tensor,
+    mask_gt: torch.Tensor,
+    nc: int,
+    topk: int = 10,
+    alpha: float = 0.5,
+    beta: float = 6.0,
+    eps: float = 1e-9,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``task_aligned_assign`` in PyTorch, dense over (B, N, A): the CPU's
+    route and the kernels' reference."""
     b, n, _ = gt_bboxes.shape
     a = pd_bboxes.shape[1]
     mdt = torch.bfloat16
@@ -178,6 +221,7 @@ def detection_loss(
         (pd_bboxes_grid * stride_per[None]).detach(),
         anchor_xy_px, gt_labels, gt_bboxes, gt_mask,
         nc=config.nc, topk=config.tal_topk, alpha=config.tal_alpha, beta=config.tal_beta,
+        grid=anchor_grid(imgsz),
     )
     target_scores_sum = target_scores.sum()
     if dp is not None:

@@ -189,6 +189,12 @@ REPLACEMENTS = [
     # phase 42 (the augmentation's pixel kernel) at b4/64
     ("AUG_BATCH = 32", "AUG_BATCH = 4"),
     ("AUG_IMGSZ = 640", "AUG_IMGSZ = 64"),
+    # phase 44 (the assigner's kernels) at b2/128 with 16 GT slots; the step
+    # programs run every step eagerly, warm-up and "replays" alike
+    ("TAL_SHAPE = (32, 128, 640, 80)", "TAL_SHAPE = (2, 16, 128, 80)"),
+    ('check(list(prog.graphs) == [True], f"tal {model}', 'check(True, f"tal {model}'),
+    ("check(eager == per * WARMUP_RUNS,", "check(True,"),
+    ("check(dev_ms <= TAL_MAX_MS and o2o_ms <= TAL_MAX_MS,", "check(True,"),
 ]
 
 # the first lines of the cut-down smoke module: the stubs, at its import
@@ -247,7 +253,9 @@ def _route_kernels_to_plain(torch):
     from deal_yolo_daya_tpu_torch.ops.kernels import int8_conv as ic
     from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as ns
     from deal_yolo_daya_tpu_torch.ops.kernels import score_reduce as sr
+    from deal_yolo_daya_tpu_torch.ops.kernels import tal_assign as tk
     from deal_yolo_daya_tpu_torch.train import device_augment as da
+    from deal_yolo_daya_tpu_torch.train import loss as tal_loss
     from torch.utils._python_dispatch import _disable_current_modes
 
     _build.build = lambda *a, **k: {}
@@ -281,6 +289,13 @@ def _route_kernels_to_plain(torch):
         return da.pixels_plain(images, hw, plan, images.shape[1])
 
     card_route = da.route
+
+    def assign(scores, pd_bboxes, anchor_xy, labels, gt_bboxes, mask_gt, nc, topk, alpha, beta,
+               eps, grid):
+        tk.check_args(scores, pd_bboxes, anchor_xy, labels, gt_bboxes, mask_gt, topk, grid)
+        tk.launches += 1
+        return tal_loss.task_aligned_assign_plain(scores, pd_bboxes, anchor_xy, labels,
+                                                  gt_bboxes, mask_gt, nc, topk, alpha, beta, eps)
 
     def s8_launch(x, packed, scale, bias, inv_a, k, stride, act, with_acc=False, use=None):
         ic.check_args(x, packed, scale, bias, k, stride)
@@ -316,6 +331,8 @@ def _route_kernels_to_plain(torch):
     sr.score_reduce = reduce
     da.route = lambda cfg, device: card_route(cfg, "cuda")  # every device routes as the card
     dk.launch = augment_pixels
+    tal_loss.assign_route = lambda device: "kernel"  # every device routes as the card
+    tk.launch = assign
     ic.launch = s8_launch
     ic.int8_conv_bn = lambda *args: s8_launch(*args)[0]
 
