@@ -275,9 +275,7 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
 40. ``validate(save_artifacts=True)`` of a ``Trainer`` from phase 39's
    best.pt: the native matcher (``runtime/labelscan.cpp``, built with g++)
    taken on every image and equal to the numpy loop on the same inputs, the
-   val_batch images written; ``ConvBN(spd=True)`` against the direct conv at
-   the stem's (3 -> 16, 640) and the Cin 16 stride-2 conv's (16 -> 32, 320)
-   shapes, b16, f32 with TF32 off, eval and train mode, within SPD_ATOL.
+   val_batch images written.
 41. the phase stamps of the yolo11n b32/640 bf16 step graph
    (``ops/kernels/phase_stamp.py``): over STAMP_REPLAYS replays from
    counters set to 0, 6 stamp launches a replay, the ring's count advanced
@@ -481,9 +479,6 @@ TP_STEPS = 4
 TP_X_BATCH = 2
 TP_F32_GRAD_L2 = 1e-4
 TP_TRAINER_STEPS = 4
-# phase 40: ConvBN(spd=True) against the direct conv, f32 with TF32 off: the
-# JAX test's atol (tests/test_model.py::test_spd_lowering_equivalence)
-SPD_ATOL = 1e-5
 AUTOBATCH_REPEATS = 8        # phase 26: 8 x 256 train images, two batches at the cap of 1024
 # phase 36: steps 4-7 timed on APP_CHAIN_ROWS synthetic rows; the nine steps
 # on APP_IMAGES local PNG sources; the IoU filter's packed tables (rows,
@@ -3517,20 +3512,18 @@ def tp_phase(seed: int, data_yaml: Path, root: Path, card: str, cfg_cls):
 # ---------------------------------------------------------------- phase 40
 
 
-def plots_matcher_spd_phase(seed: int, data_yaml: Path, root: Path, best_pt: Path, card: str,
-                            cfg_cls):
-    """Phase 40: validation with ``save_artifacts`` and the native matcher,
-    then the space-to-depth conv (see the module docstring) -> its record."""
+def plots_matcher_phase(seed: int, data_yaml: Path, root: Path, best_pt: Path, card: str,
+                        cfg_cls):
+    """Phase 40: validation with ``save_artifacts`` and the native matcher
+    (see the module docstring) -> its record."""
     import numpy as np
     import torch
 
     from deal_yolo_daya_tpu_torch import runtime
-    from deal_yolo_daya_tpu_torch.models.blocks import ConvBN
     from deal_yolo_daya_tpu_torch.train import metrics
     from deal_yolo_daya_tpu_torch.train.trainer import Trainer
 
     t_phase = time.perf_counter()
-    dev = torch.device("cuda")
     record = {"card": card}
     check(runtime.get_lib() is not None, "the native library did not build")
     calls = []
@@ -3571,28 +3564,6 @@ def plots_matcher_spd_phase(seed: int, data_yaml: Path, root: Path, best_pt: Pat
     del trainer
     torch.cuda.empty_cache()
 
-    # ConvBN(spd=True) against the direct conv at the stem's and the Cin 16
-    # stride-2 conv's shapes, f32 with TF32 off, eval and train mode
-    torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.default_rng(seed + 40)
-    spd_errs = {}
-    for c, o, h in ((3, 16, 640), (16, 32, 320)):
-        x = torch.from_numpy(rng.normal(0, 1, (TP_BATCH, c, h, h)).astype(np.float32)).to(dev)
-        x = x.contiguous(memory_format=torch.channels_last)
-        direct = ConvBN(c, o, 3, 2).to(dev).to(memory_format=torch.channels_last)
-        spd = ConvBN(c, o, 3, 2, spd=True).to(dev).to(memory_format=torch.channels_last)
-        spd.load_state_dict(direct.state_dict())
-        errs = []
-        for train in (False, True):
-            with torch.no_grad():
-                a, b = direct.train(train)(x), spd.train(train)(x)
-            errs.append(float((a - b).abs().max()))
-        spd_errs[f"{c}->{o} at {h}"] = errs
-        check(max(errs) <= SPD_ATOL, f"spd {c}->{o} at {h}: max |diff| {errs}")
-    torch.backends.cudnn.allow_tf32 = True
-    log(f"[phase 40] ConvBN(spd=True) vs the direct conv, f32, TF32 off, b{TP_BATCH}, max |diff| "
-        f"(eval, train) {spd_errs} (bar {SPD_ATOL})")
-    record["spd_max_abs_diff"] = spd_errs
     record["wall_s"] = time.perf_counter() - t_phase
     log(f"[phase 40] in {record['wall_s']:.1f} s")
     return record
@@ -5682,9 +5653,9 @@ def main() -> int:
     del tp_trainer
     torch.cuda.empty_cache()
 
-    # 40. validation's files and its native matcher; the space-to-depth conv
-    finish_record = plots_matcher_spd_phase(args.seed, data_yaml, root,
-                                            tp_dir / "weights" / "best.pt", card, FullConfig)
+    # 40. validation's files and its native matcher
+    finish_record = plots_matcher_phase(args.seed, data_yaml, root,
+                                        tp_dir / "weights" / "best.pt", card, FullConfig)
     tmp.cleanup()
 
     # 41. the phase stamps in the step graph, against their counters, CUDA

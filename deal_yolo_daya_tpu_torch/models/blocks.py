@@ -34,10 +34,6 @@ from ..ops.kernels.area_attention import area_attention
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
-# every eligible stride-2 3x3 ConvBN through the space-to-depth lowering
-# (``spd_conv2``), as ``ConvBN(spd=True)`` does for one; the JAX package's
-# A/B switch of the same name. Read at each forward.
-SPD_STRIDE2 = False
 
 
 class _SyncBatchNorm(torch.autograd.Function):
@@ -155,58 +151,20 @@ class BatchNorm(nn.Module):
         return y
 
 
-def spd_conv2(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """The stride-2 3x3 conv (padding 1) of an NCHW ``x`` with even H and W
-    by the (O, C, 3, 3) ``weight``, lowered as space-to-depth plus a 2x2
-    conv over 4C channels: the JAX ``_SPDConv2``. Output (i, j) reads input
-    rows 2i-1..2i+1; with 2x2 blocks, tap (k_r, dy) of the 2x2 kernel reads
-    row 2(i-1+k_r)+dy, so kernel row a is row a+1 of the kernel zero-padded
-    at the front to 4x4, and that row splits into (k_r, dy). Columns alike."""
-    b, c, h, w = x.shape
-    o = weight.shape[0]
-    xs = (x.reshape(b, c, h // 2, 2, w // 2, 2)
-          .permute(0, 3, 5, 1, 2, 4)                  # (b, dy, dx, c, bh, bw)
-          .reshape(b, 4 * c, h // 2, w // 2))
-    k4 = (F.pad(weight, (1, 0, 1, 0))                 # (o, c, 4, 4), front zeros
-          .reshape(o, c, 2, 2, 2, 2)                  # (o, c, k_r, dy, k_c, dx)
-          .permute(0, 3, 5, 1, 2, 4)                  # (o, dy, dx, c, k_r, k_c)
-          .reshape(o, 4 * c, 2, 2))
-    return F.conv2d(F.pad(xs, (1, 0, 1, 0)), k4)
-
-
 class ConvBN(nn.Module):
     """Conv2d (no bias) + BatchNorm + optional SiLU. After ``fuse_conv_bn``
     the BN is folded into the conv's weight and bias and ``bn`` is Identity.
-
-    With ``spd`` (or ``SPD_STRIDE2``) a stride-2 3x3 ungrouped conv on an
-    even H and W runs as ``spd_conv2``: the same function of the same
-    ``conv.weight``, so the state dict, the weight bridge and the BN fold
-    are those of the direct conv. A conv sharded over a model group
-    (``ShardedConv2d``) runs direct."""
+    A conv sharded over a model group is a ``ShardedConv2d``."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
-                 act: bool = True, spd: bool = False):
+                 act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
         self.bn = BatchNorm(c2)
         self.act = act
-        self.spd = spd
-
-    def _spd(self, x: torch.Tensor) -> bool:
-        conv = self.conv
-        return ((self.spd or SPD_STRIDE2) and conv.kernel_size == (3, 3)
-                and conv.stride == (2, 2) and conv.groups == 1
-                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
-                and not isinstance(conv, ShardedConv2d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self._spd(x):
-            y = spd_conv2(x, self.conv.weight)
-            if self.conv.bias is not None:  # folded
-                y = y + self.conv.bias.to(y.dtype).view(1, -1, 1, 1)
-        else:
-            y = self.conv(x)
-        x = self.bn(y)
+        x = self.bn(self.conv(x))
         return F.silu(x) if self.act else x
 
 

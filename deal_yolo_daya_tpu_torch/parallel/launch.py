@@ -16,7 +16,10 @@ one card takes gloo: NCCL cannot hold two ranks of a group on one card.
 
 The ranks are ``Ranks``: ``close()`` ends this rank's group and waits for
 the others; a rank that raised makes ``close()`` raise ``WorkerError`` with
-its rank and traceback, and a rank that died while this one waits in a
+its rank and traceback. This rank joins the group only once every rank it
+spawned has reached its own join: a spawned rank that fails or exits before
+that ends the start-up at once with its ``WorkerError``, never by the
+group's timeout. A rank that died while this one waits in a
 collective makes that collective fail (gloo at once, NCCL when the group is
 aborted or at its timeout, ``extra["dist_timeout_s"]`` of a Trainer). The
 processes are daemons: none outlives this one.
@@ -76,11 +79,17 @@ def _groups(rank: int, world: int, n_model: int, device: torch.device) -> DataPa
 
 
 def _join_group(rank: int, world: int, device: torch.device, init_method: str,
-                backend: str, timeout_s: float, n_model: int = 1) -> DataParallel:
+                backend: str, timeout_s: float, n_model: int = 1,
+                joining=None) -> DataParallel:
+    """Join the default group, then make this rank's groups; ``joining`` (a
+    spawned rank's event) is set once nothing but the group's rendezvous is
+    left to fail."""
     if device.type == "cuda":
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
+    if joining is not None:
+        joining.set()
     kwargs = {}
     if backend == "nccl":
         kwargs["device_id"] = device  # the communicator is made at once, on this card
@@ -91,13 +100,13 @@ def _join_group(rank: int, world: int, device: torch.device, init_method: str,
 
 def _rank_main(rank: int, world: int, device: str, init_method: str, backend: str,
                timeout_s: float, threads: int, target: Callable, args: tuple, results,
-               n_model: int = 1) -> None:
+               joining, n_model: int = 1) -> None:
     """A spawned rank: join the group, run ``target(dp, *args)``, report."""
     global _rank_dp
     torch.set_num_threads(threads)
     try:
         dp = _join_group(rank, world, torch.device(device), init_method, backend, timeout_s,
-                         n_model)
+                         n_model, joining)
         results.put((rank, True, target(dp, *args)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -145,26 +154,45 @@ class Ranks:
         self._saved_threads = torch.get_num_threads()
         cpu_ranks = sum(1 for _, d in [mine, *others] if d.type == "cpu")
         threads = max(1, self._saved_threads // max(cpu_ranks, 1))
-        self.procs = {}
+        self.procs, joining = {}, {}
         for rank, device in others:
+            joining[rank] = ctx.Event()
             p = ctx.Process(target=_rank_main, daemon=True, args=(
                 rank, world, str(device), init_method, backend, timeout_s, threads, target,
-                tuple(args), self.results, n_model))
+                tuple(args), self.results, joining[rank], n_model))
             p.start()
             self.procs[rank] = p
-        self.timeout_s = timeout_s
+        self.timeout_s, self.backend = timeout_s, backend
         self.reports: dict = {}
         self._closed = False
         if mine[1].type == "cpu":
             torch.set_num_threads(threads)
+        self._watch = threading.Thread(target=self._watchdog, daemon=True)
+        self._watch.start()
         try:
+            self._await_joining(joining, time.time() + timeout_s)
             self.dp = _join_group(mine[0], world, mine[1], init_method, backend, timeout_s,
                                   n_model)
         except BaseException:
             self.close(failed=True)
             raise
-        self._watch = threading.Thread(target=self._watchdog, daemon=True)
-        self._watch.start()
+
+    def _await_joining(self, joining: dict, deadline: float) -> None:
+        """Wait, a second at a time, until every spawned rank has reached its
+        join. A spawned rank that exits first (a failing one has put its
+        report on the queue) or a wait past ``deadline`` raises
+        ``WorkerError``, which ``close(failed=True)`` replaces by the rank's
+        own report."""
+        while True:
+            for rank, p in self.procs.items():
+                if p.exitcode is not None:
+                    raise WorkerError(rank, f"exited with code {p.exitcode} before joining")
+            waiting = [r for r, e in joining.items() if not e.is_set()]
+            if not waiting:
+                return
+            if time.time() > deadline:
+                raise WorkerError(waiting[0], f"did not join within {self.timeout_s} s")
+            joining[waiting[0]].wait(1.0)
 
     def _watchdog(self) -> None:
         """Abort this rank's group when a spawned rank dies, so that a
@@ -173,7 +201,7 @@ class Ranks:
             for p in self.procs.values():
                 if p.exitcode not in (None, 0):
                     abort = getattr(dist.distributed_c10d, "_abort_process_group", None)
-                    if abort is not None and dist.is_initialized() and self.dp.backend == "nccl":
+                    if abort is not None and dist.is_initialized() and self.backend == "nccl":
                         try:
                             abort()
                         except Exception:

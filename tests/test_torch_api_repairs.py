@@ -14,6 +14,7 @@ from deal_yolo_daya_tpu_torch import api
 from deal_yolo_daya_tpu_torch.api import YOLO, Detections
 from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig, Trainer
 from tests.test_data import make_dataset
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 
 def test_load_takes_ckpt_path(tmp_path):

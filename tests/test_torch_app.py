@@ -14,12 +14,14 @@ import queue
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import pytest
 import torch
 
 from tests.fake_streamlit import FakeStreamlit
+from tests.torch_deadline import LIMIT, _deadline, _deadline_module  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))
@@ -237,13 +239,11 @@ def test_stream_training_in_a_thread_on_step8_data(step8_yaml, tmp_path):
     thread = threading.Thread(target=run_yolo_training_stream, daemon=True, args=(
         "yolo11n", str(step8_yaml), kwargs, {}, log_queue, holder))
     thread.start()
-    lines = []
-    while True:
-        item = log_queue.get(timeout=300)
-        if item is LOG_DONE:
-            break
+    lines, end = [], time.monotonic() + LIMIT / 2
+    while (item := log_queue.get(timeout=max(0.0, end - time.monotonic()))) is not LOG_DONE:
         lines.append(item)
     thread.join(timeout=60)
+    assert not thread.is_alive()
     assert "error" not in holder, holder.get("error")
     assert any(_extract_epoch_info(ln) == (1, 1) for ln in lines), lines[-20:]
     save_dir = Path(holder["save_dir"])
@@ -259,16 +259,17 @@ def test_stream_training_spawns_ranks_from_a_thread(step8_yaml, tmp_path, monkey
 
     monkeypatch.setenv("DYD_CPU_DEVICES", "2")
     kwargs = synth.page_train_kwargs(str(tmp_path / "runs"), "dp", epochs=1, imgsz=64,
-                                     batch=4, device="2")
+                                     batch=4, device="2", dist_timeout_s=LIMIT / 2)
     log_queue: "queue.Queue" = queue.Queue()
     holder: dict = {}
     thread = threading.Thread(target=run_yolo_training_stream, daemon=True, args=(
         "yolo11n", str(step8_yaml), kwargs, {}, log_queue, holder))
     thread.start()
-    lines = []
-    while (item := log_queue.get(timeout=300)) is not LOG_DONE:
+    lines, end = [], time.monotonic() + LIMIT / 2
+    while (item := log_queue.get(timeout=max(0.0, end - time.monotonic()))) is not LOG_DONE:
         lines.append(item)
     thread.join(timeout=60)
+    assert not thread.is_alive()
     assert "error" not in holder, holder.get("error")
     assert any("ranks=2" in ln for ln in lines), lines
     assert any(ln.startswith("Epoch 1/1") for ln in lines), lines

@@ -13,6 +13,7 @@ from PIL import Image
 
 from deal_yolo_daya_tpu_torch.train import artifacts as port_artifacts
 from deal_yolo_daya_tpu_torch.train.metrics import DetMetrics, confusion_matrix
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 CURVES = {"PR_curve.png", "F1_curve.png", "P_curve.png", "R_curve.png"}
 MATRICES = {"confusion_matrix.png", "confusion_matrix_normalized.png"}

@@ -14,6 +14,7 @@ import torch
 from deal_yolo_daya_tpu_torch.ops.boxes import anchor_grid, bbox_ciou, make_anchors
 from deal_yolo_daya_tpu_torch.ops.kernels import tal_assign as tal_kernel
 from deal_yolo_daya_tpu_torch.train import loss as port_loss
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 F32 = np.float32
 CASES = ("random", "corner", "zero_metric", "duplicates", "nested", "padded", "huge",

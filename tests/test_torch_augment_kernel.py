@@ -13,6 +13,7 @@ from deal_yolo_daya_tpu_torch.ops.kernels import device_augment as pixel_kernel
 from deal_yolo_daya_tpu_torch.ops.kernels.device_augment import PixelPlan, check_args
 from deal_yolo_daya_tpu_torch.train import device_augment as da
 from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 S = 24
 B = 4

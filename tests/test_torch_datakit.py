@@ -24,6 +24,7 @@ from deal_yolo_daya_tpu.datakit import yolo_dataset as jax_yolo
 from deal_yolo_daya_tpu_torch.core import processor
 from deal_yolo_daya_tpu_torch.datakit import yolo_dataset
 from deal_yolo_daya_tpu_torch.utils import xlsx
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))

@@ -31,6 +31,7 @@ from deal_yolo_daya_tpu_torch.datakit import columnar
 from deal_yolo_daya_tpu_torch.datakit import download
 from deal_yolo_daya_tpu_torch.utils import csvio
 from deal_yolo_daya_tpu_torch.utils import xlsx
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))
@@ -103,7 +104,7 @@ def test_concurrent_builds_leave_one_whole_library(tmp_path, monkeypatch):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=120)
     assert results == [True, True, True]
     assert [p.name for p in target.parent.iterdir()] == [target.name]
     assert ctypes.CDLL(str(target)).scan_boxes is not None
@@ -269,7 +270,8 @@ def http_root(tmp_path):
     yield root, f"http://127.0.0.1:{server.server_address[1]}"
     server.shutdown()
     server.server_close()
-    thread.join()
+    thread.join(timeout=30)
+    assert not thread.is_alive()
 
 
 def test_download_from_a_local_server(http_root, tmp_path):

@@ -1,13 +1,17 @@
 """The port's device grammar, sampler and bring-up against the JAX package's
 ``parallel/mesh.py`` and ``Trainer._sharded_epoch_indices``, on the CPU:
 mesh shapes and refusals, the per-rank shard indices, ``init_distributed``
-with and without ``DYD_*``, ``device_summary`` and ``dryrun_multichip``."""
+with and without ``DYD_*``, ``device_summary`` and ``dryrun_multichip``; a
+rank that fails before the group forms ends the start-up at once."""
 
 import json
+import multiprocessing
+import operator
 import os
 import socket
 import subprocess
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -25,6 +29,7 @@ from deal_yolo_daya_tpu_torch.parallel.sharding import group_ranks
 from deal_yolo_daya_tpu_torch.train.data import DataLoader, YoloDataset
 from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig, Trainer, _train_rank
 from tests.test_data import make_dataset
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -205,3 +210,25 @@ def test_dryrun_multichip_two_ranks():
     assert all(r["backend"] == "gloo" for r in rec["ranks"])
     assert rec["ranks"][0]["param_sums"] == rec["ranks"][1]["param_sums"]
     assert rec["loss"]["cls_loss"] > 0
+
+
+@pytest.mark.parametrize("entry", ["run", "start"])
+def test_a_rank_that_fails_before_joining_ends_the_start_up(entry):
+    """Rank 1 on a card past the host's last (none on CPU torch) fails in
+    ``set_device`` before the group forms: at the default 1800 s timeout the
+    start-up raises rank 1's WorkerError within 30 s, through ``run`` or
+    ``start`` on a mesh (both by ``Ranks.close(failed=True)``), and leaves
+    no rank behind. The target is ``operator``'s, so that the spawned rank
+    imports no test module."""
+    target, card = operator.attrgetter("rank"), torch.cuda.device_count()
+    t0 = time.time()
+    with pytest.raises(launch.WorkerError, match="rank 1") as err:
+        if entry == "run":
+            launch.run(target, 2, ["cpu", f"cuda:{card}"])
+        else:
+            devices = [port_mesh.Device("cpu", 0, 0, 0, "cpu"),
+                       port_mesh.Device("gpu", 1, 0, card, "card")]
+            launch.start(port_mesh.create_mesh(2, devices=devices), target)
+    assert time.time() - t0 < 30
+    assert err.value.rank == 1 and "set_device" in err.value.traceback
+    assert multiprocessing.active_children() == []

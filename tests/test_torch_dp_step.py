@@ -33,6 +33,7 @@ from deal_yolo_daya_tpu_torch.parallel import launch
 from deal_yolo_daya_tpu_torch.parallel.dryrun import dp_steps
 from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig, draw
 from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig
+from tests.torch_deadline import LIMIT, _deadline, _deadline_module  # noqa: F401
 
 IMGSZ, NC, BATCH = 128, 2, 4
 AUG = DeviceAugConfig(mosaic=1.0, mixup=0.5)
@@ -92,7 +93,7 @@ def _bn_rank(dp):
 
 def test_sync_batchnorm_matches_one_process_and_flax():
     one = _bn_rank(None)
-    ranks = launch.run(_bn_rank, 2, ["cpu", "cpu"], timeout_s=120)
+    ranks = launch.run(_bn_rank, 2, ["cpu", "cpu"], timeout_s=LIMIT / 2)
     y = np.concatenate([ranks[0][0], ranks[1][0]])
     dx = np.concatenate([ranks[0][1], ranks[1][1]])
     np.testing.assert_allclose(y, one[0], rtol=1e-5, atol=1e-6)
@@ -177,7 +178,7 @@ def dp_runs():
     batch, and two gloo ranks on 2 + 2 rows."""
     args = (_cfg(), NC, _start_weights(), _raw_batch(), SEEDS, AUG, None, 100, torch.float64)
     one = dp_steps(None, *args)
-    ranks = launch.run(dp_steps, 2, ["cpu", "cpu"], args=args, timeout_s=300)
+    ranks = launch.run(dp_steps, 2, ["cpu", "cpu"], args=args, timeout_s=LIMIT / 2)
     return one, ranks
 
 
@@ -331,7 +332,7 @@ def test_dp_step_matches_jax_two_device_mesh():
     batch = _fixed_batch()
     variables, parts, grads = _jax_two_device_step(*batch)
     args = (_cfg(), NC, state_dict_from_jax(variables), batch, (0,))
-    ranks = launch.run(dp_steps, 2, ["cpu", "cpu"], args=args, timeout_s=300)
+    ranks = launch.run(dp_steps, 2, ["cpu", "cpu"], args=args, timeout_s=LIMIT / 2)
     got = ranks[0]
     assert got["loss"]["num_fg"] == parts["num_fg"] > 0
     for k in ("box_loss", "cls_loss", "dfl_loss"):

@@ -20,6 +20,7 @@ from deal_yolo_daya_tpu_torch.train.data import DataLoader, YoloDataset
 from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig, Trainer, load_checkpoint
 from tests.test_torch_port_trainer import (CSV_ATOL, DELTA_RTOL, LOSS_RTOL, METRIC_ATOL, NC,
                                            _config, _rows, _start_weights, _write_dataset)
+from tests.torch_deadline import LIMIT, _deadline, _deadline_module  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -77,7 +78,8 @@ def runs(tmp_path_factory):
     Trainer.save_checkpoint = lambda self, tag, *a: (saves.append((self.rank, tag)),
                                                      save(self, tag, *a))[1]
     try:
-        pt = Trainer(_config(TrainConfig, data_yaml, tmp / "port", "run", device="2"),
+        pt = Trainer(_config(TrainConfig, data_yaml, tmp / "port", "run", device="2",
+                             extra={"dist_timeout_s": LIMIT / 2}),
                      init_state_dict=state_dict_from_jax(start))
         pres = pt.train()
     finally:
@@ -167,7 +169,8 @@ def test_two_ranks_device_cache_program_matches_eager(tmp_path, two_cpu_devices)
     rows = {}
     for k in (1, 2):
         cfg = _config(TrainConfig, data_yaml, tmp_path / "runs", f"k{k}", device="2",
-                      cache="device", steps_per_dispatch=k, mosaic=1.0, val=False)
+                      cache="device", steps_per_dispatch=k, mosaic=1.0, val=False,
+                      extra={"dist_timeout_s": LIMIT / 2})
         trainer = Trainer(cfg)
         result = trainer.train()
         assert trainer._dev_cache is not None and len(trainer._dev_cache[0]) == 4

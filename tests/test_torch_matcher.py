@@ -15,6 +15,7 @@ import deal_yolo_daya_tpu_torch.runtime as rt
 from deal_yolo_daya_tpu_torch.train import metrics as M
 
 import jax_native
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

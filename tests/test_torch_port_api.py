@@ -12,6 +12,7 @@ import torch
 from deal_yolo_daya_tpu_torch.api import YOLO
 from deal_yolo_daya_tpu_torch.device import resolve_device
 from deal_yolo_daya_tpu_torch.models.registry import parse_model_spec
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

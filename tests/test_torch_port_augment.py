@@ -18,6 +18,7 @@ import torch
 from deal_yolo_daya_tpu.train import device_augment as jax_aug
 from deal_yolo_daya_tpu_torch.train import device_augment as port_aug
 from deal_yolo_daya_tpu_torch.train.device_augment import AugDraws, DeviceAugConfig, apply
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 S = 64
 M = 8

@@ -23,6 +23,7 @@ from deal_yolo_daya_tpu_torch.ops.png import read_png, write_png
 from deal_yolo_daya_tpu_torch.train import artifacts as port_artifacts
 from deal_yolo_daya_tpu_torch.train import data as port_data
 from tests.test_data import make_dataset
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 IMGSZ = 64
 

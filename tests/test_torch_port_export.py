@@ -26,6 +26,7 @@ from deal_yolo_daya_tpu_torch.models import state_dict_from_jax
 from deal_yolo_daya_tpu_torch.models.yolo11 import fuse_conv_bn
 from deal_yolo_daya_tpu_torch.ops.kernels import nms_suppress as nms_mod
 from deal_yolo_daya_tpu_torch.ops.nms import batched_nms
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 IMGSZ, NC, MAX_DET = 64, 2, 16

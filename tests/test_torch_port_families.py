@@ -27,6 +27,7 @@ from deal_yolo_daya_tpu_torch.ops.kernels import area_attention as aa_mod
 from deal_yolo_daya_tpu_torch.train import optimizer as port_opt
 from deal_yolo_daya_tpu_torch.train.trainer import (CHECKPOINT_FORMAT, TrainConfig, TrainState,
                                                     Trainer, load_checkpoint)
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 IMGSZ = 64
 

@@ -34,6 +34,7 @@ from deal_yolo_daya_tpu.train import augment as jax_aug
 from deal_yolo_daya_tpu.train import data as jax_data
 from deal_yolo_daya_tpu_torch.train import augment as port_aug
 from deal_yolo_daya_tpu_torch.train import data as port_data
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 BOX_ATOL = 1e-4
 WARP_EXACT = 0.999

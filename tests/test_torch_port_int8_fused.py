@@ -22,6 +22,7 @@ from deal_yolo_daya_tpu_torch.api import YOLO
 from deal_yolo_daya_tpu_torch.models import fuse_conv_bn, make_detector, quant
 from deal_yolo_daya_tpu_torch.models.blocks import ConvBN
 from deal_yolo_daya_tpu_torch.ops.kernels import int8_conv as s8
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 # (k, stride): the 1x1 and 3x3 convs of yolo11n, 3x3 at both strides

@@ -20,6 +20,7 @@ from deal_yolo_daya_tpu_torch.ops.kernels import score_reduce as sr_mod
 from deal_yolo_daya_tpu_torch.ops.kernels.area_attention import area_attention
 from deal_yolo_daya_tpu_torch.ops.kernels.nms_suppress import nms_suppress
 from deal_yolo_daya_tpu_torch.ops.kernels.score_reduce import score_reduce
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 
 # yolo11n's C2PSA widths at n = 35, one 80-row key tile of the CUDA kernels,

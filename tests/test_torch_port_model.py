@@ -19,6 +19,7 @@ from deal_yolo_daya_tpu_torch.models import (
     param_count,
     state_dict_from_jax,
 )
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 IMGSZ = 64
 

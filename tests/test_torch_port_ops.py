@@ -16,6 +16,7 @@ from deal_yolo_daya_tpu_torch.ops import boxes
 from deal_yolo_daya_tpu_torch.ops.decode import decode_predictions
 from deal_yolo_daya_tpu_torch.ops.letterbox import letterbox_numpy, letterbox_params
 from deal_yolo_daya_tpu_torch.ops.nms import batched_nms
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 
 def _random_boxes(rng, shape, lo=0.0, hi=200.0):

@@ -22,6 +22,7 @@ from deal_yolo_daya_tpu.models import build_yolo11 as jax_build_yolo11
 from deal_yolo_daya_tpu_torch.api import YOLO
 from deal_yolo_daya_tpu_torch.datakit import download
 from deal_yolo_daya_tpu_torch.models import state_dict_from_jax
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

@@ -34,6 +34,7 @@ from deal_yolo_daya_tpu_torch.serve import Engine
 from deal_yolo_daya_tpu_torch.train.trainer import Trainer, make_config
 from tests.test_torch_port_torch_import import _tree
 from tests.test_torch_port_serve import _write_dataset
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 IMGSZ = 64
 

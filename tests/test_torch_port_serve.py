@@ -32,6 +32,7 @@ from deal_yolo_daya_tpu_torch.ops.png import write_png
 from deal_yolo_daya_tpu_torch.serve import (Engine, ServeStats, UndecodableImage,
                                             decode_image, serve_http)
 from deal_yolo_daya_tpu_torch.train.trainer import Trainer, make_config
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 IMGSZ = 64
 NC = 3

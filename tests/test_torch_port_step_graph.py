@@ -40,6 +40,7 @@ from deal_yolo_daya_tpu_torch.train.step_graph import StepProgram, auto_steps_pe
 from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig, Trainer
 from tests.test_data import make_dataset
 from tests.test_torch_port_trainer import _config, _start_weights, _write_dataset
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 LOSS_RTOL = 5e-4
 DELTA_RTOL = 5e-2

@@ -32,6 +32,7 @@ from deal_yolo_daya_tpu_torch.models.torch_import import (detect_nc, export_stat
 from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig, Trainer
 from tests.test_data import make_dataset
 from tests.test_torch_port_model import _perturb
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 IMGSZ = 64

@@ -27,6 +27,7 @@ from deal_yolo_daya_tpu_torch.train import loss as port_loss
 from deal_yolo_daya_tpu_torch.train import optimizer as port_opt
 from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig, TrainState, bucket_gt
 from tests.test_data import make_dataset
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 NC = 4
 IMGSZ = (64, 64)

@@ -35,6 +35,7 @@ from deal_yolo_daya_tpu_torch.train.trainer import (TrainConfig, Trainer, infere
 from deal_yolo_daya_tpu_torch.models import make_detector
 from tests.test_data import make_dataset
 from tests.test_torch_port_torch_import import ULTRALYTICS_PT
+from tests.torch_deadline import LIMIT, _deadline, _deadline_module  # noqa: F401
 
 IMGSZ, NC, BATCH = 128, 2, 4
 LR0 = 1e-3
@@ -267,7 +268,7 @@ def test_options_not_ported_raise(tmp_path, monkeypatch, option):
     with yolo11n's 256-channel convs sharded, and its checkpoints hold the
     whole one-device model."""
     monkeypatch.setenv("DYD_CPU_DEVICES", "2")
-    trainer = _small(tmp_path, "x", **option)
+    trainer = _small(tmp_path, "x", extra={"dist_timeout_s": LIMIT / 2}, **option)
     assert trainer.mesh.shape == {"data": 1, "model": 2} and trainer.dp.mp.world == 2
     assert len(trainer.state.tp) == 11 and trainer.cfg.cache is False
     result = trainer.train()

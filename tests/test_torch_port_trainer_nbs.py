@@ -8,6 +8,7 @@ import torch
 
 from tests.test_data import make_dataset
 from tests.test_torch_port_trainer import _small
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -33,6 +33,7 @@ from deal_yolo_daya_tpu_torch.train import async_ckpt
 from deal_yolo_daya_tpu_torch.train.autobatch import fit_and_pick, suggest_batch
 from deal_yolo_daya_tpu_torch.train.trainer import (TrainConfig, Trainer, load_checkpoint)
 from tests.test_data import make_dataset
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 REMAT_JAX_RTOL = 5e-3   # of each gradient's largest entry (2.1e-3 measured)
 REMAT_JAX_ATOL = 1e-8   # of the largest gradient of all: the ~0 ones (C2PSA's BN biases)

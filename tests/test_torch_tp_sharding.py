@@ -19,6 +19,7 @@ import torch.nn as nn
 from deal_yolo_daya_tpu_torch.models import state_dict_from_jax
 from deal_yolo_daya_tpu_torch.models.registry import make_detector
 from deal_yolo_daya_tpu_torch.parallel.sharding import tp_param_shardings
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 IMGSZ, NC = 64, 80
 MODELS = [("yolo11", "n"), ("yolo11", "x"), ("yolo12", "n"), ("yolov8", "n")]

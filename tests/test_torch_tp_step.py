@@ -41,6 +41,7 @@ from deal_yolo_daya_tpu_torch.parallel.dryrun import LOSS_PARTS, dp_steps
 from deal_yolo_daya_tpu_torch.parallel.sharding import tp_param_shardings
 from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig
 from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig
+from tests.torch_deadline import LIMIT, _deadline, _deadline_module  # noqa: F401
 
 IMGSZ, NC, BATCH, MIN_CHANNELS = 64, 2, 4, 64
 AUG = DeviceAugConfig(mosaic=1.0, mixup=0.5)
@@ -176,11 +177,12 @@ def runs(jax_forward):
     one = {"steps": dp_steps(None, *args)}
     one_remat = {"steps": dp_steps(None, *_step_args(remat=True))}
     return {"one": [one, one], "one_remat": [one_remat, one_remat],
-            "1x2": launch.run(tp_rank, 2, ["cpu"] * 2, args=(args,), timeout_s=300, n_model=2),
+            "1x2": launch.run(tp_rank, 2, ["cpu"] * 2, args=(args,), timeout_s=LIMIT / 2,
+                              n_model=2),
             "1x2_remat": launch.run(tp_rank, 2, ["cpu"] * 2, args=(_step_args(remat=True),),
-                                    timeout_s=300, n_model=2),
-            "2x1": launch.run(tp_rank, 2, ["cpu"] * 2, args=(args,), timeout_s=300),
-            "2x2": launch.run(tp_rank, 4, ["cpu"] * 4, args=(args, fwd_args), timeout_s=300,
+                                    timeout_s=LIMIT / 2, n_model=2),
+            "2x1": launch.run(tp_rank, 2, ["cpu"] * 2, args=(args,), timeout_s=LIMIT / 2),
+            "2x2": launch.run(tp_rank, 4, ["cpu"] * 4, args=(args, fwd_args), timeout_s=LIMIT / 2,
                               n_model=2),
             "fwd_one": tp_forward(None, *fwd_args)}
 

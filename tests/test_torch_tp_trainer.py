@@ -9,6 +9,7 @@ that file's tolerances; then rank 0's run directory and whole checkpoints,
 and ``dryrun_multichip(4)`` on a 2 x 2 mesh."""
 
 import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -22,6 +23,7 @@ from deal_yolo_daya_tpu_torch.train.trainer import (TrainConfig, Trainer, infere
                                                     load_checkpoint)
 from tests.test_torch_port_trainer import (CSV_ATOL, DELTA_RTOL, LOSS_RTOL, METRIC_ATOL, NC,
                                            _config, _rows, _start_weights, _write_dataset)
+from tests.torch_deadline import LIMIT, _deadline, _deadline_module  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,7 +74,8 @@ def runs(tmp_path_factory):
     Trainer.save_checkpoint = lambda self, tag, *a: (saves.append((self.rank, tag)),
                                                      save(self, tag, *a))[1]
     try:
-        pt = Trainer(_config(TrainConfig, data_yaml, tmp / "port", "run", device="1x2"),
+        pt = Trainer(_config(TrainConfig, data_yaml, tmp / "port", "run", device="1x2",
+                             extra={"dist_timeout_s": LIMIT / 2}),
                      init_state_dict=state_dict_from_jax(start))
         sharded = dict(pt.state.tp)
         pres = pt.train()
@@ -180,16 +183,17 @@ def test_training_page_thread_runs_tensor_parallel(tmp_path, monkeypatch):
     monkeypatch.setenv("DYD_CPU_DEVICES", "2")
     data_yaml = make_dataset(tmp_path, n_train=4, n_val=2, imgsz=64, nc=2)
     kwargs = synth.page_train_kwargs(str(tmp_path / "runs"), "tp", epochs=1, imgsz=64,
-                                     batch=4, device="1x2")
+                                     batch=4, device="1x2", dist_timeout_s=LIMIT / 2)
     log_queue: "queue.Queue" = queue.Queue()
     holder: dict = {}
     thread = threading.Thread(target=run_yolo_training_stream, daemon=True, args=(
         "yolo11n", str(data_yaml), kwargs, {}, log_queue, holder))
     thread.start()
-    lines = []
-    while (item := log_queue.get(timeout=300)) is not LOG_DONE:
+    lines, end = [], time.monotonic() + LIMIT / 2
+    while (item := log_queue.get(timeout=max(0.0, end - time.monotonic()))) is not LOG_DONE:
         lines.append(item)
     thread.join(timeout=60)
+    assert not thread.is_alive()
     assert "error" not in holder, holder.get("error")
     assert any("ranks=2 mesh=1x2" in ln for ln in lines), lines
     assert any(ln.startswith("Epoch 1/1") for ln in lines), lines

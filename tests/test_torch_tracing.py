@@ -25,6 +25,7 @@ from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig
 from deal_yolo_daya_tpu_torch.train.step_graph import StepProgram
 from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig, Trainer, TrainState
 from tests.test_data import make_dataset
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 IMGSZ, BATCH, MAX_BOXES, NC = 64, 2, 8, 2
 

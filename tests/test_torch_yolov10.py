@@ -1,10 +1,10 @@
 """The port's YOLOv10 on the CPU against the plain reference
-``tools/reference_yolov10.py`` (torch alone), both on the same seeded random
+``benchmark/reference/yolov10.py`` (torch alone), both on the same seeded random
 weights: both heads' train-mode outputs, the dual loss, every leaf's
 gradient, the detach of the one-to-one head, the eval forward and the
 NMS-free selection; the deployed parameter counts of the six scales; the
 registry, ``infer_arch`` and the ultralytics key map; a two-step Trainer
-run; the paths that refuse a yolov10; the two copies of the reference.
+run; the paths that refuse a yolov10.
 
 Tolerances (f32, 2-image batches, train-mode BatchNorm):
 - head outputs: max |port - reference| <= 1e-3 x max |reference| per level:
@@ -44,10 +44,11 @@ from deal_yolo_daya_tpu_torch.ops.decode import decode_predictions
 from deal_yolo_daya_tpu_torch.ops.nms import v10_select
 from deal_yolo_daya_tpu_torch.train import loss as port_loss
 from deal_yolo_daya_tpu_torch.train.trainer import TrainConfig, TrainState
+from tests.torch_deadline import _deadline, _deadline_module  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT / "tools"))
-import reference_yolov10 as R  # noqa: E402
+sys.path.insert(0, str(ROOT))
+from benchmark.reference import yolov10 as R  # noqa: E402
 
 # the deployed model (one-to-one head only, BatchNorm folded, nc 80) by scale
 DEPLOYED = {"n": 2_299_248, "s": 7_248_944, "m": 15_359_472, "b": 19_065_776,
@@ -313,8 +314,3 @@ def test_paths_without_a_yolov10_route_refuse_it(what, tmp_path, monkeypatch):
     monkeypatch.setenv("DYD_CPU_DEVICES", "4")  # a 2 x 2 mesh of CPU devices
     with pytest.raises(NotImplementedError, match="yolov10"):
         calls[what]()
-
-
-def test_the_reference_copies_are_byte_equal():
-    assert (ROOT / "tools" / "reference_yolov10.py").read_bytes() == \
-        (ROOT / "benchmark" / "reference" / "yolov10.py").read_bytes()
