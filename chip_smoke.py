@@ -311,6 +311,19 @@ Run from the repository root on a machine with a CUDA card and nvcc. Phases:
    one launch a call, 1 a replay of yolo11n's b32 step graph and 2 of
    yolov10m's; the kernel path's device time (at most TAL_MAX_MS), plain's
    and the bound.
+45. train-mode BatchNorm + SiLU (``csrc/batch_norm_act.cu``) at every
+   BatchNorm shape of the three train cells' b32/640 forwards, in bf16 and
+   f32, against the plain version (``forward_plain``, ``backward_plain``):
+   the output, the running statistics after one update, dx, d_weight and
+   d_bias within BN_TOL; two launches a forward and two a backward; the
+   masked route (C not a multiple of the vector) and a strided dz; a CUDA
+   graph of forward and backward equal to the eager calls bit for bit;
+   the three train cells' b32 step graphs on their own traffic: the
+   Function's launches a replay (at most 4 a BatchNorm call), no ATen
+   ``batch_norm`` kernel and no SiLU kernel but those of the ``F.silu``
+   calls outside ConvBN; times of each cell's BatchNorm calls (CUDA events
+   over graphs) beside their bound (8 S, S the outputs' bytes), the plain
+   version and ATen's ``native_batch_norm`` + ``silu`` forward and backward.
 
 Any failure raises and exits non-zero. On success the second-to-last line is
 the JSON ``kernels`` record (with each kernel's profiler device time by
@@ -322,7 +335,8 @@ kernel's ``train_graph_launches``, its launches inside one replay of the
 graphed step; the s8 conv's row, then the phase stamp's with phase 41's
 record under ``phases``, then the augmentation kernel's with phase 42's
 under ``checks``, then the (36, 72) forward and backward rows of phase 43,
-then the assigner's with phase 44's record under ``checks``; phase 35's record under ``dp``,
+then the assigner's with phase 44's record under ``checks``, then BatchNorm + SiLU's with
+phase 45's; phase 35's record under ``dp``,
 phase 36's under ``app``, phase 39's under ``tp``, phase 40's under
 ``phase40``) and
 the last line the device record; the ``serving``, ``train_graph`` and ``int8`` records, phases
@@ -3584,6 +3598,26 @@ TAL_SHAPE = (32, 128, 640, 80)
 TAL_CELLS = (("yolo11n", 1), ("yolov10m", 2))
 TAL_STEP_REPLAYS = 8
 TAL_MAX_MS = 0.3
+# phase 45: train-mode BatchNorm + SiLU (csrc/batch_norm_act.cu) against its
+# plain version at every BatchNorm shape of the train cells' b32/640 forwards.
+# Per output, max |kernel - plain| over max |plain|. Both sides compute in
+# f32 and round once to the input's dtype, so a bf16 output lands at most a
+# bf16 step (2^-8 of its value) from plain's: 2^-7 of the largest. In f32
+# the statistics' sums run in another order (a few f32 ulps of the mean and
+# variance, times |x_hat| up to ~6) and the kernels' exp and reciprocal are
+# the fast ones: 1e-4. d_weight and d_bias are f32 sums over up to 3.3 M
+# values in another order, from the same inputs: 1e-3 of the largest. The
+# running statistics after one update: 1e-5 of the largest.
+BN_CELLS = ("yolo11n", "yolo12n", "yolov10m")
+BN_STEP_CELLS = ("yolo11n", "yolo12n", "yolov10m")
+BN_STEP_REPLAYS = 4
+BN_TOL = {"bfloat16": {"z": 2 ** -7, "dx": 2 ** -7, "d_weight": 1e-3, "d_bias": 1e-3,
+                       "running_mean": 1e-5, "running_var": 1e-5},
+          "float32": {"z": 1e-4, "dx": 1e-4, "d_weight": 1e-3, "d_bias": 1e-3,
+                      "running_mean": 1e-5, "running_var": 1e-5}}
+# shapes off the cells' path: C not a multiple of the 16-byte vector (the
+# masked route), and a dz that is a channel slice of a wider tensor
+BN_EDGE_SHAPES = ((32, 12, 40, 40), (8, 100, 20, 20), (4, 3, 7, 9))
 
 
 def k36_attention_checks(seed: int, card: str):
@@ -3921,6 +3955,315 @@ def tal_assign_checks(seed: int, card: str):
     return rec
 
 
+def bn_inputs(shape, dtype, gen, dz_slice: bool = False):
+    """Inputs of one BatchNorm on the card: x (channels_last) with channel
+    means of a few standard deviations, weight, bias, running statistics and
+    dz (a channel slice of a wider channels_last tensor where ``dz_slice``)."""
+    import torch
+
+    n, c, h, w = shape
+    dev = torch.device("cuda")
+    mu = torch.randn((1, c, 1, 1), generator=gen, device=dev) * 3.0
+    sd = torch.rand((1, c, 1, 1), generator=gen, device=dev) * 1.5 + 0.5
+    x = (torch.randn(shape, generator=gen, device=dev) * sd + mu).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    weight = torch.rand((c,), generator=gen, device=dev) + 0.5
+    bias = torch.randn((c,), generator=gen, device=dev) * 0.5
+    rm = torch.randn((c,), generator=gen, device=dev)
+    rv = torch.rand((c,), generator=gen, device=dev) + 0.5
+    if dz_slice:
+        wide = torch.randn((n, c + 16, h, w), generator=gen, device=dev).to(dtype) \
+            .contiguous(memory_format=torch.channels_last)
+        dz = wide[:, 8:8 + c]
+    else:
+        dz = torch.randn(shape, generator=gen, device=dev).to(dtype) \
+            .contiguous(memory_format=torch.channels_last)
+    return x, weight, bias, rm, rv, dz
+
+
+def bn_act_checks(seed: int, card: str):
+    """Phase 45: train-mode BatchNorm + SiLU (``csrc/batch_norm_act.cu``)
+    against its plain version at every BatchNorm shape of BN_CELLS' b32/640
+    training forwards (recorded from one forward of each model), in bf16 and
+    f32, within BN_TOL, and at BN_EDGE_SHAPES; a CUDA graph of forward and
+    backward bit-equal to the eager calls; the Function in BN_STEP_CELLS'
+    graphed steps (launches a replay, no ATen batch-norm kernel, SiLU kernels
+    only where ``F.silu`` runs outside ConvBN); each cell's BatchNorm calls
+    timed beside their bound, plain and ATen."""
+    import torch
+    import torch.nn.functional as F
+
+    from deal_yolo_daya_tpu_torch.models import blocks
+    from deal_yolo_daya_tpu_torch.models.registry import build_detector
+    from deal_yolo_daya_tpu_torch.ops.kernels import batch_norm_act as bna
+    from deal_yolo_daya_tpu_torch.train import TrainConfig, TrainState
+    from deal_yolo_daya_tpu_torch.train.device_augment import DeviceAugConfig
+    from deal_yolo_daya_tpu_torch.train.step_graph import WARMUP_RUNS, StepProgram
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    dev = torch.device("cuda")
+    eps, mom = blocks.BN_EPS, blocks.BN_MOMENTUM
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rec = {"card": card, "cells": {}, "parity": {}, "graph": {}, "steps": {}, "times": {}}
+
+    # 45.1 the shapes: one b32/640 training forward of each cell's model
+    calls = {}
+    for model in BN_CELLS:
+        seen = []
+
+        def recording(x, *args, _seen=seen):
+            _seen.append((tuple(x.shape), bool(args[4])))
+            return orig(x, *args)
+
+        net = build_detector(model, device=dev).train().to(memory_format=torch.channels_last)
+        images = torch.rand((32, 3, 640, 640), generator=gen, device=dev) \
+            .contiguous(memory_format=torch.channels_last)
+        with patched(blocks, "batch_norm_act", recording) as orig, torch.no_grad(), \
+                torch.autocast("cuda", dtype=torch.bfloat16):
+            net(images)
+        calls[model] = seen
+        shapes = sorted({s for s, _ in seen})
+        s_bytes = sum(2 * math.prod(s) for s, _ in seen)
+        rec["cells"][model] = {"calls": len(seen), "with_silu": sum(a for _, a in seen),
+                               "shapes": len(shapes), "channels": [min(s[1] for s in shapes),
+                                                                   max(s[1] for s in shapes)],
+                               "S_bytes": s_bytes}
+        log(f"[bn] {model} b32/640 training forward: {len(seen)} BatchNorm calls "
+            f"({sum(a for _, a in seen)} with SiLU), {len(shapes)} shapes, C "
+            f"{rec['cells'][model]['channels']}, S {s_bytes / 1e9:.3f} GB in bf16")
+        del net, images
+    torch.cuda.empty_cache()
+
+    # 45.2 the kernels against the plain version
+    def parity(label, shape, dtype, act, dz_slice=False):
+        x, w, b, rm, rv, dz = bn_inputs(shape, dtype, gen, dz_slice)
+        rm_p, rv_p = rm.clone(), rv.clone()
+        before = bna.launches
+        z, mean, invstd, xk = bna.forward_kernel(x, w, b, rm, rv, act, True, eps, mom)
+        mid = bna.launches
+        dx, dw, db = bna.backward_kernel(dz, xk, w, b, mean, invstd, act)
+        launched = (mid - before, bna.launches - mid)
+        zp, mean_p, invstd_p = bna.forward_plain(x, w, b, rm_p, rv_p, act, True, eps, mom)
+        dxp, dwp, dbp = bna.backward_plain(dz, x, w, b, mean_p, invstd_p, act)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        errs = {}
+        for key, got, want in (("z", z, zp), ("dx", dx, dxp), ("d_weight", dw, dwp),
+                               ("d_bias", db, dbp), ("running_mean", rm, rm_p),
+                               ("running_var", rv, rv_p)):
+            scale = float(want.float().abs().max())
+            errs[key] = float((got.float() - want.float()).abs().max()) / max(scale, 1e-30)
+            check(bool(torch.isfinite(got).all()), f"bn {label} {name}: {key} not finite")
+        bad = {k: v for k, v in errs.items() if v > BN_TOL[name][k]}
+        rec["parity"][f"{label} {name}"] = errs
+        check(launched == (2, 2), f"bn {label} {name}: launches {launched}, not (2, 2)")
+        check(not bad, f"bn {label} {name} act {act}: {bad} above {BN_TOL[name]}")
+        return errs
+
+    worst = {}
+    shapes_acts = sorted({sa for seen in calls.values() for sa in seen})
+    for shape, act in shapes_acts:
+        for dtype in (torch.bfloat16, torch.float32):
+            errs = parity(f"{shape} act {act}", shape, dtype, act)
+            name = str(dtype).split(".")[-1]
+            for k, v in errs.items():
+                worst[f"{name} {k}"] = max(worst.get(f"{name} {k}", 0.0), v)
+        torch.cuda.empty_cache()
+    log(f"[bn] {len(shapes_acts)} (shape, act) of the cells' forwards against plain, bf16 and "
+        f"f32, 2 + 2 launches each; worst max|diff|/max|plain|: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items())))
+    for shape in BN_EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for act in (True, False):
+                errs = parity(f"edge {shape} act {act}", shape, dtype, act, dz_slice=True)
+        log(f"[bn] edge {shape} (C % vector {shape[1] % 8}, dz a channel slice): within BN_TOL")
+    rec["worst"] = worst
+
+    # 45.3 a CUDA graph of forward and backward equals the eager calls, bit for bit
+    for shape, act in ((max(shapes_acts, key=lambda sa: math.prod(sa[0]))[0], True),
+                       ((32, 256, 20, 20), False), (BN_EDGE_SHAPES[0], True)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b, rm, rv, dz = bn_inputs(shape, dtype, gen)
+            r0 = (rm.clone(), rv.clone())
+
+            def both():
+                z, mean, invstd, xk = bna.forward_kernel(x, w, b, rm, rv, act, True, eps, mom)
+                return (z, *bna.backward_kernel(dz, xk, w, b, mean, invstd, act))
+
+            eager = [t.clone() for t in both()] + [rm.clone(), rv.clone()]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                both()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph), _build_capture() as box:
+                outs = both()
+            counts = box[0]
+            same = []
+            for _ in range(2):
+                rm.copy_(r0[0])
+                rv.copy_(r0[1])
+                graph.replay()
+                torch.cuda.synchronize()
+                same.append(all(same_bits(a, e) for a, e in zip([*outs, rm, rv], eager)))
+            label = f"{shape} act {act} {str(dtype).split('.')[-1]}"
+            rec["graph"][label] = {"bit_equal": same, "launches": counts}
+            log(f"[bn] graph of forward + backward {label}: two replays bit-equal to eager "
+                f"{same}; {counts} launches captured")
+            check(all(same), f"bn graph {label}: a replay differs from the eager calls")
+            check(counts == 4, f"bn graph {label}: {counts} launches captured, not 4")
+            del graph, outs, x, dz
+    torch.cuda.empty_cache()
+
+    # 45.4 the step graphs on the cells' traffic
+    traffic = load_file_module(root / "benchmark" / "lib" / "traffic.py", "bench_traffic_bn")
+    b, imgsz = 32, 640
+    for k, model in enumerate(BN_STEP_CELLS):
+        wl = json.loads((root / "benchmark" / "workloads" / f"{model}.train.b32.json").read_text())
+        cache = traffic.device_cache(seed + k, wl["data"], imgsz, wl["max_boxes"], dev)
+        warm = WARMUP_RUNS + 1
+        idx, seeds = traffic.train_schedule(seed + k, wl["data"]["images"], b,
+                                            warm + BN_STEP_REPLAYS)
+        st = TrainState(TrainConfig(model=model, imgsz=imgsz, batch=b, amp=True, seed=seed,
+                                    max_boxes=wl["max_boxes"]), 80, steps_per_epoch=100,
+                        device=dev)
+        prog = StepProgram(st, cache, DeviceAugConfig(**wl["augment"]), imgsz, wl["max_boxes"], b)
+        fn_calls, silu_calls = [0], [0]
+
+        def counting(*args):
+            if not torch.cuda.is_current_stream_capturing():
+                fn_calls[0] += 1
+            return orig_fn(*args)
+
+        def silu_counting(*args, **kw):
+            if not torch.cuda.is_current_stream_capturing():
+                silu_calls[0] += 1
+            return orig_silu(*args, **kw)
+
+        bna.launches = 0
+        with patched(blocks, "batch_norm_act", counting) as orig_fn, \
+                patched(F, "silu", silu_counting) as orig_silu:
+            prog.run(idx[:warm], seeds[:warm])
+        torch.cuda.synchronize()
+        check(list(prog.graphs) == [True], f"bn {model}: step graphs {list(prog.graphs)}")
+        per_step = fn_calls[0] // WARMUP_RUNS  # the eager warm-up steps' calls
+        silu_per_step = silu_calls[0] // WARMUP_RUNS
+        eager_launches = bna.launches
+        bna.launches = 0
+        prog.run(idx[warm:], seeds[warm:])
+        torch.cuda.synchronize()
+        per_replay = bna.launches / BN_STEP_REPLAYS
+        rows, _ = profile_rows(lambda: prog.graphs[True].replay())
+        aten_bn = [(n, c_) for n, c_, _ in rows if "batch_norm" in n]
+        dyd = {n: [c_, ms] for n, c_, ms in rows if "dyd_bn_" in n}
+        silu_fwd = sum(c_ for n, c_, _ in rows if "silu_kernel" in n)
+        silu_bwd = sum(c_ for n, c_, _ in rows if "silu_backward" in n)
+        bn_ms = sum(ms for _, ms in dyd.values())
+        busy = sum(ms for _, _, ms in rows)
+        rec["steps"][model] = {"function_calls_a_step": per_step, "launches_a_replay": per_replay,
+                               "eager_launches_warmup": eager_launches,
+                               "aten_batch_norm_kernels": aten_bn, "dyd_bn_kernels": dyd,
+                               "silu_calls_outside_convbn": silu_per_step,
+                               "silu_kernels": [silu_fwd, silu_bwd], "replay_bn_ms": bn_ms,
+                               "replay_busy_ms": busy}
+        log(f"[bn] {model} b32 graphed step on its cell's traffic: {per_step} Function calls a "
+            f"step, {per_replay:.1f} launches a replay ({per_replay / max(per_step, 1):.2f} a "
+            f"call); profiled replay: ATen batch_norm kernels {len(aten_bn)}, dyd_bn_ launches "
+            f"{sum(c_ for c_, _ in dyd.values())} taking {bn_ms:.3f} of {busy:.2f} ms busy, SiLU "
+            f"kernels {silu_fwd} forward + {silu_bwd} backward for {silu_per_step} F.silu calls "
+            f"outside ConvBN ({card})")
+        check(per_step > 0 and per_replay <= 4 * per_step,
+              f"bn {model}: {per_replay} launches a replay for {per_step} calls")
+        check(not aten_bn, f"bn {model}: ATen batch-norm kernels in the step: {aten_bn}")
+        check(sum(c_ for c_, _ in dyd.values()) == per_replay,
+              f"bn {model}: the profile holds {dyd} for {per_replay} launches")
+        check(silu_fwd == silu_per_step, f"bn {model}: {silu_fwd} SiLU kernels in a replay for "
+              f"{silu_per_step} F.silu calls outside ConvBN")
+        del prog, st, cache
+        torch.cuda.empty_cache()
+
+    # 45.5 times: each cell's BatchNorm calls, forward and backward, bf16
+    def timed(shape, act):
+        x, w, b_, rm, rv, dz = bn_inputs(shape, torch.bfloat16, gen)
+
+        def kernels():
+            z, mean, invstd, xk = bna.forward_kernel(x, w, b_, rm, rv, act, True, eps, mom)
+            bna.backward_kernel(dz, xk, w, b_, mean, invstd, act)
+
+        def plain():
+            z, mean, invstd = bna.forward_plain(x, w, b_, rm, rv, act, True, eps, mom)
+            bna.backward_plain(dz, x, w, b_, mean, invstd, act)
+
+        def aten():
+            y, mean, invstd = torch.native_batch_norm(x, w, b_, None, None, True, 0.0, eps)
+            gy = dz
+            if act:
+                torch.ops.aten.silu(y)
+                gy = torch.ops.aten.silu_backward(dz, y)
+            torch.ops.aten.native_batch_norm_backward(gy, x, w, None, None, mean, invstd, True,
+                                                      eps, [True, True, True])
+
+        return (graph_time_ms(kernels, 10, 3), graph_time_ms(aten, 10, 3),
+                graph_time_ms(plain, 2, 2))
+
+    shape_ms = {}
+    for model in BN_CELLS:
+        tot = {"kernels": 0.0, "aten": 0.0, "plain": 0.0}
+        for shape, act in calls[model]:
+            if (shape, act) not in shape_ms:
+                shape_ms[(shape, act)] = timed(shape, act)
+                torch.cuda.empty_cache()
+            for key, ms in zip(tot, shape_ms[(shape, act)]):
+                tot[key] += ms
+        s_bytes = rec["cells"][model]["S_bytes"]
+        bound = 8 * s_bytes / HBM_BYTES_PER_S * 1e3
+        # the kernels' split: the cell's calls once, profiled
+        inputs = [bn_inputs(s, torch.bfloat16, gen) + (a,) for s, a in calls[model][:40]]
+
+        def run_all(inputs=inputs):
+            for x, w, b_, rm, rv, dz, a in inputs:
+                z, mean, invstd, xk = bna.forward_kernel(x, w, b_, rm, rv, a, True, eps, mom)
+                bna.backward_kernel(dz, xk, w, b_, mean, invstd, a)
+
+        run_all()
+        rows, _ = profile_rows(run_all)
+        split = {}
+        for n, c_, ms in rows:
+            for kname in ("dyd_bn_stats", "dyd_bn_apply", "dyd_bn_bwd_reduce", "dyd_bn_bwd_elemt"):
+                if kname in n:
+                    split[kname] = split.get(kname, 0.0) + ms
+        del inputs
+        torch.cuda.empty_cache()
+        rec["times"][model] = {"kernels_ms": tot["kernels"], "aten_ms": tot["aten"],
+                               "plain_ms": tot["plain"], "bound_ms": bound,
+                               "x_bound": tot["kernels"] / bound,
+                               "split_first_40_calls_ms": split}
+        log(f"[time] {model} BatchNorm + SiLU, the {len(calls[model])} calls of a b32 step, "
+            f"forward + backward: kernels {tot['kernels']:.3f} ms, {tot['kernels'] / bound:.2f} x "
+            f"the bound {bound:.3f} ms (8 S, S {s_bytes / 1e9:.3f} GB); ATen native_batch_norm + "
+            f"silu {tot['aten']:.3f} ms; plain {tot['plain']:.3f} ms; the first 40 calls' "
+            f"kernels profiled: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" ms ({card})")
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"[bn] phase 45 in {rec['wall_s']:.1f} s")
+    return rec
+
+
+@contextlib.contextmanager
+def _build_capture():
+    """The BatchNorm kernels' launches inside a graph's capture -> a list
+    whose one number is their count when the block ends."""
+    from deal_yolo_daya_tpu_torch.ops.kernels._build import GraphLaunches
+
+    gl = GraphLaunches()
+    box = []
+    with gl.capture():
+        yield box
+    box.append(sum(n for (mod, _), n in gl.counts.items() if mod.endswith("batch_norm_act")))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3974,10 +4317,10 @@ def main() -> int:
             log(f"[ptxas {name}] {ln}")
     # the wgmma kernels keep their accumulators in registers, NMS its chain's
     # 32 row words, score_reduce a row's 16-byte vectors, the augmentation
-    # its two samples' row taps and the assigner a thread's top-16 keys: no
-    # spills
+    # its two samples' row taps, the assigner a thread's top-16 keys and
+    # BatchNorm a thread's channels' sums and U rows of loads: no spills
     for name in ("area_attention", "area_attention_bwd", "nms_suppress", "score_reduce",
-                 "int8_conv", "device_augment", "tal_assign"):
+                 "int8_conv", "device_augment", "tal_assign", "batch_norm_act"):
         if name in logs:
             spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
             check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -5673,6 +6016,10 @@ def main() -> int:
     # 44. the task-aligned assigner's kernels against their plain version, in
     # the yolo11n and yolov10m step graphs, and their times
     tal_record = tal_assign_checks(args.seed, card)
+
+    # 45. train-mode BatchNorm + SiLU against its plain version, in a CUDA graph
+    # and in the three train cells' step graphs, and its times
+    bn_record = bn_act_checks(args.seed, card)
     int8_record["card"] = card
     s8_row["launches_by_path"] = {
         "int8 predict": int8_record["launches"]["int8_conv"],
@@ -5742,6 +6089,14 @@ def main() -> int:
             f"{model} b32 graphed step (phase 44), {TAL_STEP_REPLAYS} replays":
                 tal_record["steps"][model]["launches"] for model, _ in TAL_CELLS},
         "checks": tal_record})
+    kernels.append({
+        "name": "batch_norm_act", "route": "cuda",
+        "source": "deal_yolo_daya_tpu_torch/csrc/batch_norm_act.cu", "replaces": None,
+        "times": bn_record["times"], "bound_by": "bytes", "library": "ATen native_batch_norm + silu",
+        "launches_by_path": {
+            f"{model} b32 graphed step (phase 45), a replay":
+                bn_record["steps"][model]["launches_a_replay"] for model in BN_STEP_CELLS},
+        "checks": bn_record})
     log(f"[int8] phases 29-34 in {int8_record['wall_s']:.1f} s")
     kernels[0]["train_graph_launches"] = {
         "yolo11n": graph_record["yolo11n"]["replay_launches"]["forward"],

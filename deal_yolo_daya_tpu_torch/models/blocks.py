@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.area_attention import area_attention
+from ..ops.kernels.batch_norm_act import batch_norm_act
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
@@ -114,7 +115,10 @@ class BatchNorm(nn.Module):
     with the batch mean and the biased batch variance, and moves the running
     statistics toward those same two (PyTorch's own training-mode
     ``batch_norm`` would move ``running_var`` toward the unbiased variance).
-    The statistics are reduced in f32 whatever the input dtype.
+    The statistics are reduced in f32 whatever the input dtype. On one
+    process's batch that is ``normalize``: the Function of
+    ``ops/kernels/batch_norm_act.py`` (its CUDA kernels on the card), which
+    ``ConvBN`` also calls with its SiLU.
 
     With ``dp`` set (a ``parallel.DataParallel``, by ``TrainState.attach``)
     the batch is the global batch of the data-parallel ranks, as the JAX
@@ -133,22 +137,21 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=BN_EPS)
-        if self.dp is not None:
-            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.dp)
-        else:
-            # no running statistics passed: the op leaves them alone and
-            # returns the batch mean and 1/sqrt(biased var + eps) it used
-            y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
-                                                      True, 0.0, BN_EPS)
-            var = None
-        if not self.update_stats:
-            return y
-        with torch.no_grad():
-            if var is None:
-                var = invstd.pow(-2) - BN_EPS
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        if self.dp is None:
+            return self.normalize(x, False)
+        y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.dp)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+                self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
         return y
+
+    def normalize(self, x: torch.Tensor, act: bool) -> torch.Tensor:
+        """Train mode on this process's batch (``dp`` unset), then SiLU where
+        ``act``: ``ops/kernels/batch_norm_act.py``, which moves the running
+        statistics itself unless ``update_stats`` is off."""
+        return batch_norm_act(x, self.weight, self.bias, self.running_mean, self.running_var,
+                              act, self.update_stats, BN_EPS, BN_MOMENTUM)
 
 
 class ConvBN(nn.Module):
@@ -164,7 +167,10 @@ class ConvBN(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
+        x, bn = self.conv(x), self.bn
+        if bn.training and isinstance(bn, BatchNorm) and bn.dp is None:
+            return bn.normalize(x, self.act)  # the BatchNorm and its SiLU in one Function
+        x = bn(x)
         return F.silu(x) if self.act else x
 
 

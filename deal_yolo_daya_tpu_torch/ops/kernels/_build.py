@@ -37,6 +37,7 @@ COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 EXTRA: Dict[str, List[str]] = {
     "area_attention": [],
     "area_attention_bwd": [],
+    "batch_norm_act": [],
     "device_augment": ["-fmad=false"],
     "int8_conv": [],
     "nms_suppress": ["-fmad=false"],
